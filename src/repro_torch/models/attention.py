@@ -1,0 +1,160 @@
+"""Attention: GQA with RoPE over a plain KV cache.
+
+Grouped-query attention never materialises repeated KV heads (an explicit
+group dim), and the softmax runs in float32.  ``Attention.forward`` is the
+JAX package's ``attention_forward`` for self-attention; its KV-chunked
+long-context path (``chunk``) is not ported — this :func:`attend` is the
+single-block path, the same function up to rounding.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import cache as kvc
+from repro_torch.sparse import site
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions: torch.Tensor, dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * freqs   # (S, dim/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, style: str,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (S,) absolute token positions."""
+    if style == "none":
+        return x
+    hd = x.shape[-1]
+    rot = hd if style == "half" else hd // 2   # chatglm "2d": half the dims
+    cos, sin = _rope_angles(positions, rot, theta)
+    cos = cos[None, :, None, :].to(x.dtype)
+    sin = sin[None, :, None, :].to(x.dtype)
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+# ---------------------------------------------------------------------------
+# core attention (grouped, masked)
+# ---------------------------------------------------------------------------
+
+def _attend_block(q, k, v, qpos, kpos, window):
+    """Unnormalised attention over one KV block.
+
+    q: (B, Sq, KV, G, hd); k/v: (B, Skv, KV, hd); qpos (Sq,) / kpos (Skv,)
+    absolute positions (-1 = invalid slot).  Returns (acc (B,Sq,KV,G,hd)
+    f32, row max m, row sumexp l), the last two (B, Sq, KV, G).
+    """
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
+                          k.to(torch.float32))
+    scores = scores * (q.shape[-1] ** -0.5)
+    kp = kpos[None, :]
+    qp = qpos[:, None]
+    valid = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        valid &= kp > (qp - window)
+    vb = valid[None, None, None]                 # (1, 1, 1, Sq, Skv)
+    scores = torch.where(vb, scores, NEG_INF)
+    m = scores.amax(-1)                          # (B, KV, G, Sq)
+    e = torch.exp(scores - m[..., None])
+    e = torch.where(vb, e, 0.0)
+    l = e.sum(-1)
+    acc = torch.einsum("bkgqs,bskd->bqkgd", e, v.to(torch.float32))
+    return acc, m.movedim(3, 1), l.movedim(3, 1)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           qpos: torch.Tensor, kpos: torch.Tensor,
+           window: Optional[int] = None) -> torch.Tensor:
+    """Masked GQA attention.  q: (B,Sq,H,hd), k/v: (B,Skv,KVH,hd)."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    acc, _, l = _attend_block(qg, k, v, qpos, kpos, window)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, name: str,
+          n_contract: int = 1, plan_act=None) -> torch.Tensor:
+    """``bsd,dhk->bshk`` (n_contract=1) / ``bshk,hkd->bsd``
+    (n_contract=2): a plain matmul in dense mode, else through the
+    sparse dispatch."""
+    if cfg.sparse_mode == "dense":
+        k_dims = w.shape[:n_contract]
+        out_dims = w.shape[n_contract:]
+        lead = x.shape[:x.ndim - n_contract]
+        y = torch.matmul(x.reshape(*lead, -1), w.reshape(k_dims.numel(), -1))
+        return y.reshape(*lead, *out_dims)
+    axes = ("embed", "heads") if n_contract == 1 else ("heads", "embed")
+    y, _ = site.project(x, w, site.make("matmul", name, axes=axes), cfg,
+                        n_contract=n_contract, plan_act=plan_act)
+    return y
+
+
+class Attention(nn.Module):
+    """Self-attention weights in the JAX layouts: wq (d, h, hd),
+    wk/wv (d, kv, hd), wo (h, hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        hd, h, kv, d = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, device=device,
+                                            dtype=dtype), requires_grad=False)
+        self.wq = param(d, h, hd)
+        self.wk = param(d, kv, hd)
+        self.wv = param(d, kv, hd)
+        self.wo = param(h, hd, d)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        std = self.wq.shape[0] ** -0.5
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            w.normal_(0.0, std, generator=generator)
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor,
+                cache: Optional[kvc.KVCache] = None,
+                plans: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[kvc.KVCache]]:
+        """Projections + causal attend (+ cache write) + output.
+
+        x: (B, S, D); positions: (S,) absolute positions of x.  Returns
+        (y (B, S, D), the updated cache or None).
+        """
+        plans = plans or {}
+        q = _proj(x, self.wq.to(x.dtype), cfg, "attn.q",
+                  plan_act=plans.get("wq"))
+        k = _proj(x, self.wk.to(x.dtype), cfg, "attn.k",
+                  plan_act=plans.get("wk"))
+        v = _proj(x, self.wv.to(x.dtype), cfg, "attn.v",
+                  plan_act=plans.get("wv"))
+        q = apply_rope(q, positions, cfg.rope_style, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_style, cfg.rope_theta)
+        window = cfg.sliding_window or None
+        if cache is not None:
+            cache = kvc.update(cache, k, v)
+            kd, vd, kpos = kvc.read(cache, dtype=x.dtype)
+            out = attend(q, kd, vd, qpos=positions, kpos=kpos, window=window)
+        else:
+            out = attend(q, k, v, qpos=positions, kpos=positions,
+                         window=window)
+        y = _proj(out, self.wo.to(x.dtype), cfg, "attn.out", n_contract=2,
+                  plan_act=plans.get("wo"))
+        return y, cache

@@ -1,0 +1,72 @@
+"""KV caches for serving (plain bf16; no int8 quantisation).
+
+One :class:`KVCache` per layer, ``(B, T, KV, hd)`` buffers.  Ring
+semantics as in the JAX package: the token at absolute position p lives
+in slot ``p mod window``.  Unlike the JAX package, :func:`update` writes
+into the buffers in place (a full-width cache is large) and returns a
+cache with the advanced cursor.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCache:
+    k: torch.Tensor     # (B, T, KV, hd)
+    v: torch.Tensor
+    pos: int            # number of tokens written
+    window: int         # ring size; == T means a full cache
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[-3]
+
+
+def init_cache(batch: int, capacity: int, n_kv: int, hd: int, *,
+               dtype=torch.bfloat16, window: int = 0,
+               device=None) -> KVCache:
+    shape = (batch, capacity, n_kv, hd)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=0, window=window or capacity)
+
+
+def update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
+           ) -> KVCache:
+    """Write S new tokens (k_new: (B, S, KV, hd)) at the ring cursor.
+
+    S >= capacity keeps only the newest ``capacity`` tokens (a roll);
+    otherwise a modular scatter (wrap-around mid-stream included).
+    """
+    s = k_new.shape[-3]
+    cap = cache.capacity
+    for buf, upd in ((cache.k, k_new), (cache.v, v_new)):
+        upd = upd.to(buf.dtype)
+        if s >= cap:
+            shift = (cache.pos + s - cap) % cache.window
+            buf.copy_(torch.roll(upd[:, s - cap:], shift, dims=1))
+        else:
+            slots = (cache.pos + torch.arange(s, device=buf.device)) \
+                % cache.window
+            buf[:, slots] = upd
+    return dataclasses.replace(cache, pos=cache.pos + s)
+
+
+def key_positions(cache: KVCache) -> torch.Tensor:
+    """Absolute token position held in each slot (-1 = empty): slot i
+    holds the newest p < pos with p ≡ i (mod window)."""
+    slots = torch.arange(cache.capacity, device=cache.k.device)
+    last = cache.pos - 1
+    kpos = last - ((last - slots) % cache.window)
+    return torch.where((slots < cache.window) & (kpos >= 0) & (cache.pos > 0),
+                       kpos, -1)
+
+
+def read(cache: KVCache, dtype=torch.bfloat16
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(k, v, key_positions) with k and v cast to ``dtype``."""
+    return cache.k.to(dtype), cache.v.to(dtype), key_positions(cache)

@@ -1,0 +1,236 @@
+"""The two-level bitmap planner.
+
+Every sparse matmul schedules its work from the same recipe:
+
+1. *slice activity* — reduce each operand's non-zero mask to k-slice
+   granularity (``slice_k`` contraction positions per slice);
+2. *block reduction* — reduce slice activity to output-block granularity
+   (``block_m`` rows of A / ``block_n`` cols of B per block);
+3. *front-pack* — for each output block, stably push the indices of
+   active slices (A-side AND B-side, the paper's condensing bitmap AND,
+   Fig. 4c) to the front of the schedule, repeating the last active index
+   in the inactive tail.
+
+Under ``condense="k"`` the AND is taken per contraction index instead and
+packed into per-block gather maps (:func:`plan_kcondensed`).
+
+The schedules keep the JAX package's layouts — front-packing, the
+repeat-last tails, int32 — so that they compare with it bit for bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import stats
+
+SLICE_K = 128   # contraction depth per k-slice = unit of sparsity skip
+MIN_BLOCK = 8   # smallest block edge clamp_geometry shrinks a block to
+
+
+def _cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+def _pad(x: torch.Tensor, pads) -> torch.Tensor:
+    """``F.pad`` with zeros/False, without a copy when nothing is padded
+    (a full-width weight mask is gigabytes)."""
+    return F.pad(x, pads) if any(pads) else x
+
+
+# ---------------------------------------------------------------------------
+# step 1: slice activity
+# ---------------------------------------------------------------------------
+
+def slice_activity_lhs(a: torch.Tensor, slice_k: int) -> torch.Tensor:
+    """(..., K) values or mask → (..., S) bool: slice s is active for a row
+    iff the row has a non-zero in columns [s*slice_k, (s+1)*slice_k)."""
+    *lead, k = a.shape
+    s = _cdiv(k, slice_k)
+    mask = _pad(a != 0, (0, s * slice_k - k))
+    return mask.reshape(*lead, s, slice_k).any(-1)
+
+
+def slice_activity_rhs(b: torch.Tensor, slice_k: int) -> torch.Tensor:
+    """(K, N) values or mask → (S, N) bool: slice s is active for a column
+    iff the column has a non-zero in rows [s*slice_k, (s+1)*slice_k)."""
+    k, n = b.shape
+    s = _cdiv(k, slice_k)
+    mask = _pad(b != 0, (0, 0, 0, s * slice_k - k))
+    return mask.reshape(s, slice_k, n).any(1)
+
+
+# ---------------------------------------------------------------------------
+# step 2: block reduction
+# ---------------------------------------------------------------------------
+
+def block_reduce_lhs(row_act: torch.Tensor, block_m: int) -> torch.Tensor:
+    """(M, S) per-row activity → (Mt, S) per-block-row activity."""
+    m, s = row_act.shape
+    mt = _cdiv(m, block_m)
+    padded = _pad(row_act, (0, 0, 0, mt * block_m - m))
+    return padded.reshape(mt, block_m, s).any(1)
+
+
+def block_reduce_rhs(col_act: torch.Tensor, block_n: int) -> torch.Tensor:
+    """(S, N) per-column activity → (S, Nt) per-block-col activity."""
+    s, n = col_act.shape
+    nt = _cdiv(n, block_n)
+    padded = _pad(col_act, (0, nt * block_n - n))
+    return padded.reshape(s, nt, block_n).any(2)
+
+
+# ---------------------------------------------------------------------------
+# step 3: front-pack ("condensing")
+# ---------------------------------------------------------------------------
+
+def stable_partition(act: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable partition of indices along the last axis.
+
+    act: (..., S) bool.  Returns (order (..., S) int32, counts (...)
+    int32): per fiber, the active indices in ascending order followed by
+    the inactive indices in ascending order — ``argsort(~act, stable)``,
+    built from two cumsums and one permutation-inverting scatter.
+    """
+    s = act.shape[-1]
+    act = act.to(torch.bool)
+    counts = act.sum(-1, dtype=torch.int64)
+    rank_active = torch.cumsum(act, -1) - 1
+    rank_inactive = torch.cumsum(~act, -1) - 1
+    pos = torch.where(act, rank_active, counts[..., None] + rank_inactive)
+    src = torch.arange(s, device=act.device).expand_as(pos)
+    order = torch.empty_like(pos).scatter_(-1, pos, src)
+    return order.to(torch.int32), counts.to(torch.int32)
+
+
+def front_pack(act: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable-front-pack active indices along the last axis.
+
+    Returns (indices (..., S) int32, counts (...) int32): the active
+    indices of each fiber in ascending order, then the last active index
+    repeated over the inactive tail (all zeros for empty fibers).
+    """
+    s = act.shape[-1]
+    order, counts = stable_partition(act)
+    arange = torch.arange(s, device=act.device)
+    last = torch.clamp(counts.to(torch.int64) - 1, min=0)[..., None]
+    idx = torch.where(arange < counts[..., None], order,
+                      torch.gather(order, -1, last))
+    return idx, counts
+
+
+def _and(col: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """(Mt, X) A-side and (X, Nt) B-side activity → (Mt, Nt, X) AND,
+    contiguous, so the schedules built from it are too (the kernels take
+    contiguous schedules)."""
+    return (col[:, None, :] & row.T[None, :, :]).contiguous()
+
+
+def plan_from_activity(col: torch.Tensor, row: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Mt, S) A-side and (S, Nt) B-side block activity → the K1 schedule
+    (ks (Mt, Nt, S), counts (Mt, Nt))."""
+    return front_pack(_and(col, row))
+
+
+def counts_from_activity(col: torch.Tensor, row: torch.Tensor
+                         ) -> torch.Tensor:
+    """Per-block active-slice counts without building the schedule."""
+    return _and(col, row).sum(-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# element-granular K-condensation schedules
+# ---------------------------------------------------------------------------
+
+def element_activity_lhs(a: torch.Tensor, block_m: int) -> torch.Tensor:
+    """(M, K) values or mask → (Mt, K) bool: k is active for block-row i
+    iff some row of the block has a non-zero at column k."""
+    m, k = a.shape
+    mt = _cdiv(m, block_m)
+    mask = _pad(a != 0, (0, 0, 0, mt * block_m - m))
+    return mask.reshape(mt, block_m, k).any(1)
+
+
+def element_activity_rhs(b: torch.Tensor, block_n: int) -> torch.Tensor:
+    """(K, N) values or mask → (K, Nt) bool: k is active for block-col j
+    iff some column of the block has a non-zero at row k."""
+    k, n = b.shape
+    nt = _cdiv(n, block_n)
+    mask = _pad(b != 0, (0, nt * block_n - n))
+    return mask.reshape(k, nt, block_n).any(2)
+
+
+class KPlan(NamedTuple):
+    """A per-output-block packed active-k schedule (``plan_kcondensed``).
+
+    gk     : (Mt, Nt, S, slice_k) int32 — lane l of condensed step t
+             gathers contraction index ``gk[..., t, l]``: first the
+             block's active k's in ascending order, then the inactive
+             ones (zero outer products), which may lie in [K, S*slice_k).
+    counts : (Mt, Nt) int32 — executed steps, ``ceil(nnz / slice_k)``.
+    nnz    : (Mt, Nt) int32 — element-AND active k's per block.
+    """
+    gk: torch.Tensor
+    counts: torch.Tensor
+    nnz: torch.Tensor
+
+
+def _kpack(act: torch.Tensor, slice_k: int) -> KPlan:
+    """(..., K) element activity → packed-k schedule at ``slice_k``."""
+    *lead, k = act.shape
+    s = _cdiv(k, slice_k)
+    act = _pad(act, (0, s * slice_k - k))
+    order, nnz = stable_partition(act)
+    counts = (nnz + slice_k - 1) // slice_k
+    return KPlan(gk=order.reshape(*lead, s, slice_k),
+                 counts=counts.to(torch.int32), nnz=nnz)
+
+
+def plan_kcondensed(col: torch.Tensor, row: torch.Tensor,
+                    slice_k: int = SLICE_K) -> KPlan:
+    """(Mt, K) A-side and (K, Nt) B-side element activity → the K2
+    schedule: the bitmap AND stable-front-packed per output block."""
+    return _kpack(_and(col, row), slice_k)
+
+
+def kcondensed_counts(col: torch.Tensor, row: torch.Tensor,
+                      slice_k: int = SLICE_K) -> torch.Tensor:
+    """Condensed-step counts ``ceil(nnz / slice_k)`` without gather maps."""
+    nnz = _and(col, row).sum(-1, dtype=torch.int32)
+    return (nnz + slice_k - 1) // slice_k
+
+
+# ---------------------------------------------------------------------------
+# step-count accounting and geometry
+# ---------------------------------------------------------------------------
+
+def counts_to_steps(counts: torch.Tensor, n_slices: int
+                    ) -> stats.StepCounts:
+    """(Mt, Nt) schedule counts → StepCounts; dense work is Mt·Nt·S."""
+    mt, nt = counts.shape
+    return stats.StepCounts(
+        dense=torch.tensor(mt * nt * n_slices),
+        sparse=counts.sum(),
+        tiles_skipped=(counts == 0).sum())
+
+
+def effective_slice_k(k: int, slice_k: int = SLICE_K) -> int:
+    """The slice granularity the dispatch uses for a contraction of depth
+    ``k``."""
+    return min(slice_k, max(8, k))
+
+
+def clamp_geometry(m: int, n: int, k: int, block_m: int, block_n: int,
+                   slice_k: int) -> Tuple[int, int, int]:
+    """Shrink blocks to small problems, never below :data:`MIN_BLOCK`.
+
+    One rule on every device, so CPU and card schedules are the same
+    (at full width every ``n`` is at least 128 and no clamp applies).
+    """
+    block_m = min(block_m, max(MIN_BLOCK, m))
+    block_n = min(block_n, max(MIN_BLOCK, n))
+    return block_m, block_n, effective_slice_k(k, slice_k)
