@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,19 +7,36 @@ Run from the root of a checkout, on a machine with a card and ``nvcc``.
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. device — the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build — K1/K2 compiled from ``src/repro_torch/kernels/csrc`` (sm_90a);
+2. build — K1-K4 compiled from ``src/repro_torch/kernels/csrc`` (sm_90a),
+   registers and spills of each library;
 3. kernels — K1 and K2 against their plain PyTorch versions, in bf16 and
    float32, at every projection shape of the served model (decode M=2,
    prefill M=64) and at ragged shapes with ``counts == 0`` blocks and
    partial last slices; bf16 timings at the served shapes beside the
    bound, the plain version and ``torch.matmul`` (a yardstick only);
-4. reference — the smoke model on the card against the CPU plain path;
-5. serving — full-width ``nemotron-4-340b`` cut to 2 layers (random bf16
+4. grouped kernels — K3 and K4 against their plain versions at the two
+   decode attention products of a 4096-slot cache holding 257 and 271
+   tokens (score: bf16 operands, float32 out; value: float32; each also
+   in the other type), and at a ragged shape with an empty problem and
+   partial slices; timings beside the bound, the plain version and
+   ``torch.bmm`` over the whole capacity (what dense attention pays);
+5. reference — the smoke model on the card against the CPU plain path,
+   the sparse-KV modes included;
+6. serving — full-width ``nemotron-4-340b`` cut to 2 layers (random bf16
    weights from a seed) through ``generate``: dense, dual (K1) and
    dual+kcondense (K2), 2 prompts of 32 tokens, 8 new tokens each; each
    kernel must launch exactly 13 dispatches x 8 forwards = 104 times in
    its run, prefill logits must match dense, and greedy tokens may part
-   from dense only where dense's top-2 logits are within the tolerance.
+   from dense only where dense's top-2 logits are within the tolerance;
+7. serving, sparse KV — the same model, 2 prompts of 256 tokens in a
+   4096-slot context, 16 new tokens: dual with plain caches (the
+   baseline), dual+kv (K1 + K3) and dual+kc+kv (K2 + K4).  K3 (K4) must
+   launch 2 sites x 2 layers x 15 decodes = 60 times and K1 (K2) 13 x 16 =
+   208 times; prefill logits equal the same mode's without the sparse
+   cache; decode logits, fed the baseline's tokens, stay within the
+   tolerance of the baseline's; the tape's attention entries execute what
+   they count, less than dense; then one decode attention call is split
+   into planning, operand copies, kernels and the rest.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -60,6 +77,17 @@ MODES = {
     "dual+kc": dict(sparse_mode="dual", sparse_use_kernel=True,
                     sparse_kcondense=True),
 }
+# the sparse-KV traffic: a context allocated far past the live one
+KV_PROMPTS, KV_PROMPT_LEN, KV_NEW_TOKENS, CAPACITY = 2, 256, 16, 4096
+KV_MODES = {
+    "dual": MODES["dual"],
+    "dual+kv": dict(MODES["dual"], sparse_kv=True),
+    "dual+kc+kv": dict(MODES["dual+kc"], sparse_kv=True),
+}
+# grouped launches per generate and site: one per layer and decode step
+KV_CALLS = N_LAYERS * (KV_NEW_TOKENS - 1)
+# cache slots written at the first and the last decode step
+KV_WRITTEN = (KV_PROMPT_LEN + 1, KV_PROMPT_LEN + KV_NEW_TOKENS - 1)
 
 
 def log(msg: str) -> None:
@@ -84,16 +112,16 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build()
-    regs, spills = [], []
-    for path in libs.values():
-        text = path.with_name(path.stem[3:] + ".log").read_text()
-        regs += [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills += [int(s) for s in
-                   re.findall(r"(\d+) bytes spill stores", text)]
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(libs)} libraries "
-        f"(nvcc {' '.join(build.NVCC_FLAGS)}); {len(regs)} kernels, max "
-        f"{max(regs, default=0)} registers, {max(spills, default=0)} bytes "
-        "of spill stores at most")
+        f"(nvcc {' '.join(build.NVCC_FLAGS)}, one process each)")
+    for src, path in libs.items():
+        text = path.with_name(path.stem[3:] + ".log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(s) for s in
+                  re.findall(r"(\d+) bytes spill stores", text)]
+        log(f"build: {src}: {len(regs)} kernels, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}, "
+            f"{max(spills, default=0)} bytes of spill stores at most")
 
 
 # ---------------------------------------------------------------------------
@@ -141,31 +169,41 @@ def schedules(a, b):
     return geom, ks, counts, plan_k2(a, b)
 
 
-def needed_work(torch, a, b, geom, ks, counts, kp, kfused):
-    """(bytes, flops) this data needs: A read once, the B rows of the
-    scheduled work once per block column, the executed schedule, the
-    output written once; 2 flops per needed multiply-add."""
-    m, k = a.shape
-    n = b.shape[1]
+def needed_work(torch, a, b, out_dtype, geom, sched, counts, kfused):
+    """(bytes, flops) that this data needs for a (E, M, K) @ b (E, K, N)
+    on the schedule ``sched`` (ks, or a KPlan when ``kfused``) / counts
+    (E, Mt, Nt): each A row block reads the contraction positions some of
+    its blocks schedule, each B column block likewise, the schedule is
+    read and the output written once; 2 flops per scheduled
+    multiply-add."""
+    e, m, k = a.shape
+    n = b.shape[2]
     bm, bn, sk = geom["block_m"], geom["block_n"], geom["slice_k"]
-    eb = a.element_size()
-    mt, nt = counts.shape
-    rows = torch.clamp(m - torch.arange(mt, device=a.device) * bm, max=bm)
-    cols = torch.clamp(n - torch.arange(nt, device=a.device) * bn, max=bn)
-    if kfused:
-        depth = kp.nnz.to(torch.float64)                  # (Mt, Nt)
+    mt, nt = counts.shape[1:]
+    dev = a.device
+    if kfused:                       # positions: the gathered k's
+        idx = sched.gk.reshape(e, mt, nt, -1).long()
+        live = torch.arange(idx.shape[-1], device=dev) < sched.nnz[..., None]
+        width = (torch.arange(idx.shape[-1], device=dev) < k).double()
         sched_bytes = 4 * (int(counts.sum()) * sk + counts.numel())
-    else:
-        width = torch.clamp(k - torch.arange(ks.shape[-1], device=a.device)
-                            * sk, max=sk).to(torch.float64)
-        live = (torch.arange(ks.shape[-1], device=a.device)
-                < counts[..., None])
-        depth = (width[ks.long()] * live).sum(-1)          # (Mt, Nt)
+    else:                            # positions: whole k-slices
+        idx = sched.long()
+        live = torch.arange(idx.shape[-1], device=dev) < counts[..., None]
+        width = torch.clamp(k - torch.arange(idx.shape[-1], device=dev) * sk,
+                            max=sk).double()
         sched_bytes = 4 * (int(counts.sum()) + counts.numel())
-    # distinct B rows a block column needs, over its block rows
-    b_rows = depth.amax(0) if mt > 1 else depth[0]
-    nbytes = (m * k * eb + float((b_rows * cols).sum()) * eb + sched_bytes
-              + m * n * eb)
+    act = torch.zeros(idx.shape, dtype=torch.int32, device=dev).scatter_add_(
+        -1, idx, live.int()) > 0                       # (E, Mt, Nt, X)
+    rows = torch.clamp(m - torch.arange(mt, device=dev) * bm,
+                       max=bm).double()
+    cols = torch.clamp(n - torch.arange(nt, device=dev) * bn,
+                       max=bn).double()
+    depth = (act * width).sum(-1)                      # (E, Mt, Nt)
+    a_depth = (act.any(2) * width).sum(-1)             # (E, Mt)
+    b_depth = (act.any(1) * width).sum(-1)             # (E, Nt)
+    nbytes = (float((a_depth * rows).sum()) * a.element_size()
+              + float((b_depth * cols).sum()) * b.element_size()
+              + sched_bytes + e * m * n * out_dtype.itemsize)
     flops = 2.0 * float((depth * rows[:, None] * cols[None, :]).sum())
     return nbytes, flops
 
@@ -202,7 +240,7 @@ def phase_kernels(torch, cfg):
     }
     err = {"K1": 0.0, "K2": 0.0}
     totals = {kn: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, plan_ms=0.0,
-                       nbytes=0.0, flops=0.0) for kn in kernels}
+                       nbytes=0.0, op_s=0.0) for kn in kernels}
     planners = {"K1": plan_k1, "K2": plan_k2}
     # forwards per generate: one prefill of PROMPTS*PROMPT_LEN rows, then
     # NEW_TOKENS - 1 decode steps of PROMPTS rows
@@ -247,15 +285,20 @@ def phase_kernels(torch, cfg):
                     pms = cuda_ms(torch, pfn, 2)
                     lms = cuda_ms(torch, lambda: torch.matmul(a, b), 10)
                     plan_ms = cuda_ms(torch, lambda: planners[kn](a, b), 3)
-                    nb, fl = needed_work(torch, a, b, geom, ks, counts, kp,
-                                         kn == "K2")
+                    # one problem: a leading axis of 1 on every operand
+                    kp1 = type(kp)(*(t[None] for t in kp))
+                    nb, fl = needed_work(
+                        torch, a[None], b[None], a.dtype, geom,
+                        kp1 if kn == "K2" else ks[None],
+                        kp1.counts if kn == "K2" else counts[None],
+                        kn == "K2")
                     t = totals[kn]
                     t["ms"] += mult * ms
                     t["plain_ms"] += mult * pms
                     t["library_ms"] += mult * lms
                     t["plan_ms"] += mult * plan_ms
                     t["nbytes"] += mult * nb
-                    t["flops"] += mult * fl
+                    t["op_s"] += mult * fl / PEAK_FLOPS[dtype]
                     bound = max(nb / HBM_BYTES_PER_S,
                                 fl / PEAK_FLOPS[dtype]) * 1e3
                     line.append(f"{ms:.3f} ms (bound {bound:.3f}, plain "
@@ -297,7 +340,182 @@ def phase_kernels(torch, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: a small reference
+# phase 4: grouped kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def site_geometry(cfg, op, c, n, k):
+    """The clamped (block_m, block_n, slice_k) the decode attention site
+    ``op`` runs at for a (E, c, k) @ (E, k, n) product, as
+    ``attention.attend_sparse`` resolves it."""
+    from repro_torch.sparse import plan as pln
+    from repro_torch.sparse import site
+    kw = site.resolve(site.make(op, op, out_dtype="float32"), cfg)
+    if op == "attn.value":
+        kw["slice_k"] = pln.effective_slice_k(k, kw["slice_k"])
+    bm, bn, sk = pln.clamp_geometry(c, n, k, kw["block_m"], kw["block_n"],
+                                    kw["slice_k"])
+    return dict(block_m=bm, block_n=bn, slice_k=sk)
+
+
+def attention_products(torch, cfg, written, g):
+    """The decode attention's two grouped products over a CAPACITY-slot
+    cache whose first ``written`` slots hold tokens, as
+    ``attend_sparse`` builds them: E = prompts x KV heads problems, the
+    schedule = the written slots.  Returns {site: (x, w)} in float32,
+    x a SparseActivation, w a tensor or PlannedWeight."""
+    from repro_torch.sparse import kvcache as skvc
+    from repro_torch.sparse import plan as pln
+    dev = torch.device("cuda")
+    e, grp, hd = KV_PROMPTS * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.hd
+    sched = torch.arange(CAPACITY, device=dev) < written
+    k_e = torch.randn(e, CAPACITY, hd, device=dev, generator=g) \
+        * sched[:, None]
+    q_e = torch.randn(e, hd, grp, device=dev, generator=g)
+    p = torch.rand(e, grp, CAPACITY, device=dev, generator=g) * sched
+    v_e = torch.randn(e, CAPACITY, hd, device=dev, generator=g) \
+        * sched[:, None]
+    x_k = skvc.score_operand(
+        k_e, sched, pln.effective_slice_k(hd, cfg.sparse_slice_k))
+    x_p, w_v = skvc.value_operands(
+        sched, p, v_e, sched,
+        pln.effective_slice_k(CAPACITY, cfg.sparse_block_t))
+    return {"attn.score": (x_k, q_e), "attn.value": (x_p, w_v)}
+
+
+def operand_arrays(x, w):
+    """The value tensors of a dispatch operand pair."""
+    from repro_torch.sparse.activation import SparseActivation
+    from repro_torch.sparse.weights import PlannedWeight
+    return (x.values if isinstance(x, SparseActivation) else x,
+            w.w if isinstance(w, PlannedWeight) else w)
+
+
+def as_dtype(x, w, dtype):
+    """(x, w) of :func:`attention_products` with values cast to
+    ``dtype`` (the metadata stays)."""
+    from repro_torch.sparse.weights import PlannedWeight
+    x = dataclasses.replace(x, values=x.values.to(dtype))
+    if isinstance(w, PlannedWeight):
+        return x, dataclasses.replace(w, w=w.w.to(dtype))
+    return x, w.to(dtype)
+
+
+def phase_grouped(torch, cfg):
+    """K3/K4 against their plain versions at the decode attention shapes
+    and a ragged shape; timings at the served types (score bf16 in,
+    value float32 in, float32 out), summed over one generate's
+    KV_CALLS launches per site."""
+    from repro_torch.kernels import grouped_spgemm as gsk
+    from repro_torch.sparse import dispatch as dsp
+    from repro_torch.sparse import plan as pln
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    kv_cfg = dataclasses.replace(cfg, **KV_MODES["dual+kv"])
+    kernels = {
+        "K3": (gsk.grouped_spgemm_planned,
+               gsk.grouped_spgemm_planned_plain, None),
+        "K4": (gsk.grouped_spgemm_kfused_planned,
+               gsk.grouped_spgemm_kfused_planned_plain, "k"),
+    }
+    served = {"attn.score": "bfloat16", "attn.value": "float32"}
+    err = {kn: 0.0 for kn in kernels}
+    totals = {kn: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, plan_ms=0.0,
+                       nbytes=0.0, op_s=0.0) for kn in kernels}
+
+    def pair(kn, x, w, geom, out_dtype):
+        """(kernel out, plain out, kernel fn, plain fn, sched, counts)."""
+        kern, plain, condense = kernels[kn]
+        sched, counts = dsp.schedule(x, w, mode="dual", condense=condense,
+                                     **geom)
+        a, b = operand_arrays(x, w)
+        a, b = a.contiguous(), b.to(a.dtype).contiguous()
+        ks = sched.gk if condense else sched
+        y = kern(a, b, ks, counts, out_dtype=out_dtype, **geom)
+        p = plain(a, b, ks, counts, out_dtype=out_dtype, **geom)
+        torch.cuda.synchronize()
+        return (y, p, lambda: kern(a, b, ks, counts, out_dtype=out_dtype,
+                                   **geom),
+                lambda: plain(a, b, ks, counts, out_dtype=out_dtype, **geom),
+                a, b, sched, counts)
+
+    for written in KV_WRITTEN:
+        ops = attention_products(torch, kv_cfg, written, g)
+        for op, (x32, w32) in ops.items():
+            a32, b32 = operand_arrays(x32, w32)
+            c, k, n = a32.shape[1], a32.shape[2], b32.shape[2]
+            geom = site_geometry(kv_cfg, op, c, n, k)
+            for dtype in ("bfloat16", "float32"):
+                x, w = as_dtype(x32, w32, getattr(torch, dtype))
+                line = [f"{op} E={a32.shape[0]} M={c} K={k} N={n} "
+                        f"{dtype} in, float32 out, {written} slots written, "
+                        f"blocks {tuple(geom.values())}"]
+                for kn in kernels:
+                    y, p, kfn, pfn, a, b, sched, counts = pair(
+                        kn, x, w, geom, torch.float32)
+                    e = check_pair(torch, kn, y, p, "float32", line[0])
+                    err[kn] = max(err[kn], e)
+                    s = counts.numel() * (
+                        sched.gk.shape[-2] if kernels[kn][2] else
+                        sched.shape[-1])
+                    line.append(f"{kn} steps {int(counts.sum())} of {s}, err "
+                                f"{e:.2e}")
+                    ms = cuda_ms(torch, kfn, 20)
+                    pms = cuda_ms(torch, pfn, 3)
+                    lms = cuda_ms(torch, lambda: torch.bmm(a, b), 20)
+                    plan_ms = cuda_ms(torch, lambda: dsp.schedule(
+                        x, w, mode="dual", condense=kernels[kn][2], **geom),
+                        5)
+                    nb, fl = needed_work(torch, a, b, torch.float32, geom,
+                                         sched, counts, kernels[kn][2])
+                    bound = max(nb / HBM_BYTES_PER_S,
+                                fl / PEAK_FLOPS[dtype]) * 1e3
+                    line.append(f"{ms:.4f} ms (bound {bound:.4f}, plain "
+                                f"{pms:.2f}, torch.bmm over all {CAPACITY} "
+                                f"slots {lms:.4f}, planning {plan_ms:.3f})")
+                    if dtype == served[op]:
+                        t = totals[kn]
+                        mult = KV_CALLS / len(KV_WRITTEN)
+                        t["ms"] += mult * ms
+                        t["plain_ms"] += mult * pms
+                        t["library_ms"] += mult * lms
+                        t["plan_ms"] += mult * plan_ms
+                        t["nbytes"] += mult * nb
+                        # each product's operations at its own type's peak
+                        t["op_s"] += mult * fl / PEAK_FLOPS[dtype]
+                log("grouped: " + "; ".join(line))
+        del ops
+        torch.cuda.empty_cache()
+
+    # ragged: odd M, N, K, partial slices, an empty problem, and problems
+    # filled to different depths
+    e, c, k, n = 5, 37, 200, 50
+    a32 = torch.randn(e, c, k, device=dev, generator=g)
+    b32 = torch.randn(e, k, n, device=dev, generator=g)
+    b32[torch.rand(e, k, n, device=dev, generator=g) < 0.3] = 0
+    for i, frac in enumerate((1.0, 0.6, 0.0, 0.25, 0.9)):
+        a32[i, int(c * frac):] = 0
+    geom = dict(block_m=16, block_n=16, slice_k=32)
+    for dtype in ("bfloat16", "float32"):
+        for out_dtype in (None, torch.float32, torch.bfloat16):
+            a, b = a32.to(getattr(torch, dtype)), b32.to(getattr(torch, dtype))
+            odt = dtype if out_dtype is None else str(out_dtype)[6:]
+            for kn in kernels:
+                y, p, *_, counts = pair(kn, a, b, geom, out_dtype)
+                if not (counts[2] == 0).all() or y[2].any():
+                    raise AssertionError(f"{kn}: the empty problem ran")
+                if y.dtype != p.dtype:
+                    raise AssertionError(f"{kn}: dtype {y.dtype}")
+                err[kn] = max(err[kn], check_pair(
+                    torch, kn, y, p, odt, f"ragged {e}x{c}x{k}x{n}"))
+    log(f"grouped: ragged E={e} M={c} K={k} N={n} geometry "
+        f"{tuple(geom.values())}, problem 2 empty: K3 and K4 agree with "
+        "their plain versions (bf16/float32 in, default/float32/bf16 out)")
+    return err, totals
+
+
+# ---------------------------------------------------------------------------
+# phase 5: a small reference
 # ---------------------------------------------------------------------------
 
 def phase_reference(torch):
@@ -329,17 +547,27 @@ def phase_reference(torch):
             raise AssertionError(f"smoke {mode}: tokens differ")
         log(f"reference: smoke {mode} on the card == CPU plain path "
             f"(logits max err {err:.2e}, 6 greedy tokens equal)")
+    for mode in ("dual+kv", "dual+kc+kv"):
+        # a 48-slot context in 8-slot blocks, 15 of its slots live
+        c = dataclasses.replace(cfg, sparse_block_t=8, **KV_MODES[mode])
+        tc = serve_loop.generate(cpu, {"tokens": tokens}, c,
+                                 max_new_tokens=7, capacity=48, rc=rc,
+                                 device="cpu")
+        tg = serve_loop.generate(gpu, {"tokens": tokens}, c,
+                                 max_new_tokens=7, capacity=48, rc=rc)
+        if not torch.equal(tc, tg.cpu()):
+            raise AssertionError(f"smoke {mode}: tokens differ")
+        log(f"reference: smoke {mode} (48-slot cache) on the card == CPU "
+            "plain path (7 greedy tokens equal)")
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving at full width
+# phase 6: serving at full width
 # ---------------------------------------------------------------------------
 
-def phase_serving(torch, cfg):
-    from repro_torch.kernels import bitmap_spgemm as bsk
+def make_model(torch, cfg):
+    """The served model: full width, random bf16 weights from a seed."""
     from repro_torch.models import transformer as tfm
-    from repro_torch.serving import serve_loop
-    from repro_torch.sparse import tape
     t0 = time.perf_counter()
     model = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                            dtype=torch.bfloat16)
@@ -349,6 +577,46 @@ def phase_serving(torch, cfg):
         f"{n_params / 1e9:.2f} B bf16 parameters "
         f"({torch.cuda.memory_allocated() / 1e9:.1f} GB), made in "
         f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def site_steps(tape, entries):
+    """{tape name: [dense, counted, executed]} summed over the entries."""
+    sites = {}
+    for e in tape.summarize(entries):
+        s = sites.setdefault(e["name"], [0, 0, 0])
+        s[0] += e["dense_steps"]
+        s[1] += e["sparse_steps"]
+        s[2] += e["executed_steps"]
+    return sites
+
+
+def parting_report(torch, mode, toks, base_toks, base_steps, tol):
+    """Greedy tokens may part from the baseline only where the
+    baseline's top-2 logits are within ``tol``."""
+    agree = []
+    for r in range(toks.shape[0]):
+        diff = (toks[r] != base_toks[r]).nonzero()
+        if len(diff) == 0:
+            agree.append(f"row {r}: all {toks.shape[1]} equal")
+            continue
+        t = int(diff[0])
+        top2 = torch.topk(base_steps[t][r], 2).values
+        gap = float(top2[0] - top2[1])
+        if not gap <= tol:
+            raise AssertionError(
+                f"{mode}: row {r} parts from the baseline at step {t} "
+                f"where its top-2 gap {gap:.3f} > {tol:.3f}")
+        agree.append(f"row {r}: parts at step {t}, baseline top-2 gap "
+                     f"{gap:.3f}")
+    return agree
+
+
+def phase_serving(torch, cfg, model):
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.sparse import tape
     prompts = torch.randint(0, cfg.vocab_size, (PROMPTS, PROMPT_LEN),
                             generator=torch.Generator().manual_seed(2))
     batch = {"tokens": prompts.cuda()}
@@ -378,17 +646,13 @@ def phase_serving(torch, cfg):
         if tuple(out.shape) != (PROMPTS, NEW_TOKENS):
             raise AssertionError(f"{mode}: tokens of shape {out.shape}")
         tokens[mode] = out.cpu()
-        sites = {}
-        for e in tape.summarize(entries):
-            s = sites.setdefault(e["name"], [0, 0])
-            s[0] += e["dense_steps"]
-            s[1] += e["executed_steps"]
+        sites = site_steps(tape, entries)
         log(f"serving: {mode}: {PROMPTS * NEW_TOKENS / dt:.2f} tokens/s "
             f"({dt:.2f} s for generate, stats tape on), launches K1/K2 "
             f"{counts}, peak memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
             "dense/executed steps " + ", ".join(
-                f"{k} {v[0]}/{v[1]}" for k, v in sites.items()))
+                f"{k} {v[0]}/{v[2]}" for k, v in sites.items()))
 
     # prefill logits of each path, and dense's per-step logits
     logits = {}
@@ -417,25 +681,241 @@ def phase_serving(torch, cfg):
         if not err <= tol:
             raise AssertionError(f"{mode}: prefill logits differ from dense "
                                  f"by {err:.3f} > {tol:.3f}")
-        agree = []
-        for r in range(PROMPTS):
-            diff = (tokens[mode][r] != tokens["dense"][r]).nonzero()
-            if len(diff) == 0:
-                agree.append(f"row {r}: all {NEW_TOKENS} equal")
-                continue
-            t = int(diff[0])
-            top2 = torch.topk(steps[t][r], 2).values
-            gap = float(top2[0] - top2[1])
-            if not gap <= tol:
-                raise AssertionError(
-                    f"{mode}: row {r} parts from dense at step {t} where "
-                    f"dense's top-2 gap {gap:.3f} > {tol:.3f}")
-            agree.append(f"row {r}: parts at step {t}, dense top-2 gap "
-                         f"{gap:.3f}")
+        agree = parting_report(torch, mode, tokens[mode], tokens["dense"],
+                               steps, tol)
         log(f"serving: {mode}: prefill logits max |diff| {err:.4f} <= "
             f"{tol:.4f} ({SERVE_RTOL} x max|dense| {scale:.2f}); "
             + "; ".join(agree))
     return launches, walls
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving with sparse KV caches
+# ---------------------------------------------------------------------------
+
+def phase_serving_kv(torch, cfg, model):
+    """Long allocated context, short live one: 2 prompts of 256 tokens in
+    a 4096-slot cache, 16 new tokens, through ``generate``."""
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import grouped_spgemm as gsk
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.sparse import tape
+    prompts = torch.randint(0, cfg.vocab_size, (KV_PROMPTS, KV_PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": prompts.cuda()}
+    counters = {"K1": bsk.bitmap_spgemm_planned,
+                "K2": bsk.bitmap_spgemm_kfused_planned,
+                "K3": gsk.grouped_spgemm_planned,
+                "K4": gsk.grouped_spgemm_kfused_planned}
+    proj = 13 * KV_NEW_TOKENS              # K1/K2: 13 dispatches a forward
+    grouped = 2 * KV_CALLS                 # K3/K4: 2 sites a layer and step
+    expect = {"dual": {"K1": proj},
+              "dual+kv": {"K1": proj, "K3": grouped},
+              "dual+kc+kv": {"K2": proj, "K4": grouped}}
+    launches, tokens, walls, fractions = {}, {}, {}, {}
+    for mode, knobs in KV_MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            out = serve_loop.generate(model, batch, c, capacity=CAPACITY,
+                                      max_new_tokens=KV_NEW_TOKENS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        walls[mode] = dt * 1e3
+        got = {kn: fn.launches for kn, fn in counters.items()}
+        launches[mode] = got
+        want = {kn: expect[mode].get(kn, 0) for kn in counters}
+        if got != want:
+            raise AssertionError(f"{mode}: launches {got}, expected {want}")
+        if tuple(out.shape) != (KV_PROMPTS, KV_NEW_TOKENS):
+            raise AssertionError(f"{mode}: tokens of shape {out.shape}")
+        tokens[mode] = out.cpu()
+        sites = site_steps(tape, entries)
+        attn_entries = [e for e in tape.summarize(entries)
+                        if e["name"] in ("attn.score", "attn.value")]
+        if knobs.get("sparse_kv"):
+            if len(attn_entries) != grouped:
+                raise AssertionError(f"{mode}: {len(attn_entries)} attention "
+                                     f"tape entries, expected {grouped}")
+            for e in attn_entries:
+                if not (e["executed_steps"] == e["sparse_steps"]
+                        < e["dense_steps"]):
+                    raise AssertionError(f"{mode}: tape entry {e}")
+            fractions[mode] = {
+                k: sites[k][1] / sites[k][0]
+                for k in ("attn.score", "attn.value")}
+        elif attn_entries:
+            raise AssertionError(f"{mode}: plain caches ran attend_sparse")
+        log(f"serving kv: {mode}: {KV_PROMPTS * KV_NEW_TOKENS / dt:.2f} "
+            f"tokens/s ({dt:.2f} s for generate, {KV_PROMPTS} x "
+            f"{KV_PROMPT_LEN}-token prompts, {CAPACITY}-slot caches, "
+            f"stats tape on), launches {got}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB"
+            + ("; scheduled share of cache-block steps " + ", ".join(
+                f"{k} {v:.4f}" for k, v in fractions[mode].items())
+               if mode in fractions else "")
+            + "; dense/counted/executed steps " + ", ".join(
+                f"{k} {v[0]}/{v[1]}/{v[2]}" for k, v in sites.items()))
+
+    # logits: the baseline stepwise, then each KV mode's prefill and its
+    # decode fed the baseline's tokens
+    base = dataclasses.replace(cfg, **KV_MODES["dual"])
+    state, lg = serve_loop.make_prefill_step(base)(
+        model, batch, tfm.init_caches(base, KV_PROMPTS, CAPACITY))
+    base_prefill = lg.float()
+    steps, toks = [lg[:, -1].float()], [state.last_token[:, 0]]
+    decode = serve_loop.make_decode_step(base)
+    for _ in range(KV_NEW_TOKENS - 1):
+        state, lg1 = decode(model, state)
+        steps.append(lg1.float())
+        toks.append(state.last_token[:, 0])
+    if not torch.equal(torch.stack(toks, 1).int().cpu(), tokens["dual"]):
+        raise AssertionError("dual stepwise != dual generate")
+    tol = SERVE_RTOL * base_prefill.abs().max().item()
+    base_toks = tokens["dual"].cuda().long()
+    for mode in ("dual+kv", "dual+kc+kv"):
+        c = dataclasses.replace(cfg, **KV_MODES[mode])
+        plain = dataclasses.replace(c, sparse_kv=False)
+        state, lg = serve_loop.make_prefill_step(c)(
+            model, batch, tfm.init_caches(c, KV_PROMPTS, CAPACITY))
+        _, lg_plain = serve_loop.make_prefill_step(plain)(
+            model, batch, tfm.init_caches(plain, KV_PROMPTS, CAPACITY))
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{mode}: non-finite prefill logits")
+        if not torch.equal(lg, lg_plain):
+            raise AssertionError(f"{mode}: prefill logits differ from the "
+                                 "same mode's with plain caches")
+        pre_err = (lg.float() - base_prefill).abs().max().item()
+        decode = serve_loop.make_decode_step(c)
+        dec_err = 0.0
+        for t in range(1, KV_NEW_TOKENS):
+            state = state._replace(last_token=base_toks[:, t - 1:t])
+            state, lg1 = decode(model, state)
+            if not torch.isfinite(lg1).all():
+                raise AssertionError(f"{mode}: non-finite decode logits")
+            dec_err = max(dec_err,
+                          (lg1.float() - steps[t]).abs().max().item())
+        if not (pre_err <= tol and dec_err <= tol):
+            raise AssertionError(
+                f"{mode}: logits differ from the dual baseline by "
+                f"{pre_err:.3f} (prefill) / {dec_err:.3f} (decode) > "
+                f"{tol:.3f}")
+        agree = parting_report(torch, mode, tokens[mode], tokens["dual"],
+                               steps, tol)
+        log(f"serving kv: {mode}: prefill logits == the same mode's with "
+            f"plain caches; max |diff| to the dual baseline {pre_err:.4f} "
+            f"(prefill), {dec_err:.4f} (15 decodes fed its tokens) <= "
+            f"{tol:.4f} ({SERVE_RTOL} x max|baseline| "
+            f"{tol / SERVE_RTOL:.2f}); " + "; ".join(agree))
+    return launches, walls, fractions
+
+
+def phase_attention_split(torch, cfg):
+    """One decode attention call at the served geometry (2 rows, a
+    4096-slot cache holding 264 tokens), timed whole and in parts:
+    planning (occupancy, the slot schedule, the operands' metadata and
+    both dispatch schedules), operand copies (the (E, T, hd) views of K
+    and V and the float32 cast of V), the two kernels, and the rest
+    (scaling, masks, softmax, reshapes); beside it the dense attention
+    the plain-cache baseline runs over every slot.  Returns ms per
+    call."""
+    from repro_torch.kernels import grouped_spgemm as gsk
+    from repro_torch.models import attention as attn
+    from repro_torch.models import cache as kvc
+    from repro_torch.sparse import dispatch as dsp
+    from repro_torch.sparse import kvcache as skvc
+    from repro_torch.sparse import plan as pln
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, kvh, hd = KV_PROMPTS, cfg.n_kv_heads, cfg.hd
+    grp, ne = cfg.n_heads // kvh, KV_PROMPTS * cfg.n_kv_heads
+    written = KV_PROMPT_LEN + KV_NEW_TOKENS // 2
+    cache = skvc.init_sparse_cache(b, CAPACITY, kvh, hd, window=CAPACITY,
+                                   block_t=cfg.sparse_block_t, device=dev)
+    kv = torch.randn(2, b, written, kvh, hd, device=dev, generator=g,
+                     dtype=torch.bfloat16)
+    cache = skvc.update(cache, kv[0], kv[1])
+    q = torch.randn(b, 1, cfg.n_heads, hd, device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    qpos = torch.tensor([written - 1], device=dev)
+    kpos = kvc.key_positions(cache)
+    split = {}
+    for mode, kn in (("dual+kv", "K3"), ("dual+kc+kv", "K4")):
+        c = dataclasses.replace(cfg, **KV_MODES[mode])
+        condense = "k" if c.sparse_kcondense else None
+        kern = (gsk.grouped_spgemm_kfused_planned if condense
+                else gsk.grouped_spgemm_planned)
+
+        def copies():
+            kd, vd, _ = kvc.read(cache, dtype=q.dtype)
+            k_e = kd.transpose(1, 2).reshape(ne, CAPACITY, hd)
+            v_e = vd.transpose(1, 2).reshape(ne, CAPACITY, hd)
+            return k_e, v_e, v_e.float()
+
+        k_e, v_e, v32 = copies()
+        q_e = q.reshape(b, kvh, grp, hd).transpose(2, 3).reshape(ne, hd, grp)
+        p_e = torch.rand(ne, grp, CAPACITY, device=dev, generator=g)
+        g_s = site_geometry(c, "attn.score", CAPACITY, grp, hd)
+        g_v = site_geometry(c, "attn.value", grp, hd, CAPACITY)
+
+        def planning():
+            occ = skvc.occupancy_mask(cache)
+            sched = pln.kv_decode_slots(occ, kpos, qpos[0], None)
+            x_k = skvc.score_operand(k_e, sched, g_s["slice_k"])
+            s_s = dsp.schedule(x_k, q_e, mode="dual", condense=condense,
+                               **g_s)
+            x_p, w_v = skvc.value_operands(occ, p_e * sched, v_e, sched,
+                                           g_v["slice_k"])
+            s_v = dsp.schedule(x_p, w_v, mode="dual", condense=condense,
+                               w_arr=v32, **g_v)
+            return s_s, s_v, x_p.values
+
+        (ks_s, cnt_s), (ks_v, cnt_v), p_sched = planning()
+        if condense:
+            ks_s, ks_v = ks_s.gk, ks_v.gk
+        f32 = torch.float32
+        # the dispatch hands the kernels contiguous operands
+        q_c, p_c = q_e.contiguous(), p_sched.contiguous()
+
+        def kernels():
+            kern(k_e, q_c, ks_s, cnt_s, out_dtype=f32, **g_s)
+            kern(p_c, v32, ks_v, cnt_v, out_dtype=f32, **g_v)
+
+        def dense():
+            kd, vd, _ = kvc.read(cache, dtype=q.dtype)
+            return attn.attend(q, kd, vd, qpos=qpos, kpos=kpos)
+
+        parts = {"total": lambda: attn.attend_sparse(q, cache, c, qpos=qpos,
+                                                     kpos=kpos),
+                 "planning": planning, "copies": copies, "kernels": kernels,
+                 "dense": dense}
+        n0 = kern.launches
+        # host-bound parts drift: time them in turns, 30 rounds, medians
+        times = {name: [] for name in parts}
+        for _ in range(30):
+            for name, fn in parts.items():
+                times[name].append(cuda_ms(torch, fn, 1))
+        if kern.launches == n0:
+            raise AssertionError(f"{kn}: attention split launched nothing")
+        t = {name: statistics.median(v) for name, v in times.items()}
+        t["rest"] = t["total"] - t["planning"] - t["copies"] - t["kernels"]
+        split[mode] = t
+        copy_mb = (2 * k_e.numel() * k_e.element_size()
+                   + v32.numel() * v32.element_size()) / 1e6
+        log(f"attention split: {mode}: one decode attention call "
+            f"{t['total']:.3f} ms = planning {t['planning']:.3f} + operand "
+            f"copies {t['copies']:.3f} ({copy_mb:.1f} MB written) + {kn} "
+            f"score and value {t['kernels']:.3f} + the rest "
+            f"{t['rest']:.3f} (medians of 30 rounds in turns); x "
+            f"{KV_CALLS} calls a generate = {t['total'] * KV_CALLS:.1f} ms; "
+            f"dense attention over all {CAPACITY} slots {t['dense']:.3f} ms "
+            f"a call")
+    return split
 
 
 def main() -> int:
@@ -456,8 +936,16 @@ def main() -> int:
     phase_build()
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
     err, totals = phase_kernels(torch, cfg)
+    g_err, g_totals = phase_grouped(torch, cfg)
+    err.update(g_err)
+    totals.update(g_totals)
     phase_reference(torch)
-    launches, walls = phase_serving(torch, cfg)
+    model = make_model(torch, cfg)
+    launches, walls = phase_serving(torch, cfg, model)
+    kv_launches, kv_walls, _ = phase_serving_kv(torch, cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_attention_split(torch, cfg)
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -465,21 +953,37 @@ def main() -> int:
             f"per-call planning {t['plan_ms']:.0f} ms (dense generate "
             f"{walls['dense']:.0f} ms, its projections "
             f"{t['library_ms']:.0f} ms as torch.matmul)")
+    for mode, kn in (("dual+kv", "K3"), ("dual+kc+kv", "K4")):
+        t = totals[kn]
+        log(f"time: {mode} generate {kv_walls[mode]:.0f} ms against "
+            f"{kv_walls['dual']:.0f} ms with plain caches; timed alone, its "
+            f"{kn} launches take {t['ms']:.2f} ms and their planning "
+            f"{t['plan_ms']:.1f} ms (torch.bmm over every slot "
+            f"{t['library_ms']:.2f} ms)")
 
     meta = {
         "K1": ("bitmap_spgemm_planned",
                "src/repro_torch/kernels/csrc/bitmap_spgemm.cu",
-               "src/repro/kernels/bitmap_spgemm.py:106", launches["dual"][0]),
+               "src/repro/kernels/bitmap_spgemm.py:106",
+               launches["dual"][0]),
         "K2": ("bitmap_spgemm_kfused_planned",
                "src/repro_torch/kernels/csrc/bitmap_spgemm_kfused.cu",
                "src/repro/kernels/bitmap_spgemm.py:266",
                launches["dual+kc"][1]),
+        "K3": ("grouped_spgemm_planned",
+               "src/repro_torch/kernels/csrc/grouped_spgemm.cu",
+               "src/repro/kernels/grouped_spgemm.py:94",
+               kv_launches["dual+kv"]["K3"]),
+        "K4": ("grouped_spgemm_kfused_planned",
+               "src/repro_torch/kernels/csrc/grouped_spgemm_kfused.cu",
+               "src/repro/kernels/grouped_spgemm.py:209",
+               kv_launches["dual+kc+kv"]["K4"]),
     }
     rows = []
     for kn, (name, source, replaces, n_launch) in meta.items():
         t = totals[kn]
         t_bytes = t["nbytes"] / HBM_BYTES_PER_S
-        t_ops = t["flops"] / PEAK_FLOPS["bfloat16"]
+        t_ops = t["op_s"]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch,
@@ -487,10 +991,13 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": t["library_ms"]})
-    log(f"kernels line: ms, plain_ms, bound_ms and library_ms are bf16 "
-        f"times summed over one generate's {13 * NEW_TOKENS} dispatches "
-        f"(1 prefill of {PROMPTS * PROMPT_LEN} rows, {NEW_TOKENS - 1} "
-        f"decodes of {PROMPTS}); library_ms is torch.matmul; total "
+    log(f"kernels line: ms, plain_ms, bound_ms and library_ms are summed "
+        f"over one generate's launches at the served types: K1/K2 bf16 over "
+        f"{13 * NEW_TOKENS} dispatches (1 prefill of {PROMPTS * PROMPT_LEN} "
+        f"rows, {NEW_TOKENS - 1} decodes of {PROMPTS}), library_ms "
+        f"torch.matmul; K3/K4 over {KV_CALLS} score (bf16 in) and "
+        f"{KV_CALLS} value (float32) products of the sparse-KV generate, "
+        f"library_ms torch.bmm over all {CAPACITY} slots; total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

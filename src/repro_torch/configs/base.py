@@ -38,6 +38,12 @@ class ModelConfig:
     sparse_block_m: int = 128
     sparse_block_n: int = 128
     sparse_slice_k: int = 128
+    # sparse KV cache (repro_torch.sparse.kvcache): decode attention
+    # schedules cache blocks from occupancy bitmaps ANDed with the
+    # causal/window mask.  Effective only with a non-dense sparse_mode
+    # (dense mode keeps plain caches).
+    sparse_kv: bool = False        # SparseKVCache + bitmap-scheduled decode
+    sparse_block_t: int = 32       # cache slots per occupancy block
     # norms
     norm_kind: str = "rms"         # rms | layer
     norm_eps: float = 1e-5

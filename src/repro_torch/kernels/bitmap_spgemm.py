@@ -23,7 +23,9 @@ previous chunk multiplies, and masked edges instead of padded copies.
 The wrapper takes ``device=None``, meaning the card.  For CPU tensors
 (``device="cpu"``) it runs the plain version; for CUDA tensors it launches
 the kernel or raises — there is no fallback.  ``launches`` on each wrapper
-counts kernel launches.
+counts kernel launches.  The checks, the launch and the plain walks take
+a leading problem axis, so the grouped K3/K4
+(:mod:`repro_torch.kernels.grouped_spgemm`) share them.
 """
 from __future__ import annotations
 
@@ -39,39 +41,47 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _pad2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """Zero-pad a 2-D tensor up to (rows, cols); no copy when it fits."""
-    r, c = x.shape
+def _pad_last2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Zero-pad the last two axes up to (rows, cols); no copy when they
+    fit."""
+    r, c = x.shape[-2:]
     if (r, c) == (rows, cols):
         return x
     return F.pad(x, (0, cols - c, 0, rows - r))
 
 
-def _check(a, b, sched, counts, block_m, block_n, slice_k, kfused):
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+def check_problem(a, b, sched, counts, block_m, block_n, slice_k, kfused):
+    """Check a stacked product A (E, M, K) @ B (E, K, N) against its
+    schedule (E, Mt, Nt, S[, slice_k]) / counts (E, Mt, Nt); returns
+    (e, m, n, k, mt, nt, s)."""
+    if (a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]
+            or a.shape[2] != b.shape[1]):
         raise ValueError(f"bad operand shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    m, k = a.shape
-    n = b.shape[1]
-    want = 4 if kfused else 3
-    if sched.ndim != want or counts.ndim != 2:
-        raise ValueError(f"schedule must be {want}-D with 2-D counts, got "
+    e, m, k = a.shape
+    n = b.shape[2]
+    want = 5 if kfused else 4
+    if sched.ndim != want or counts.ndim != 3:
+        raise ValueError(f"schedule must be {want}-D with 3-D counts "
+                         f"(a leading problem axis), got "
                          f"{tuple(sched.shape)} / {tuple(counts.shape)}")
-    mt, nt, s = sched.shape[:3]
-    if kfused and sched.shape[3] != slice_k:
-        raise ValueError(f"gk lanes {sched.shape[3]} != slice_k {slice_k}")
-    if tuple(counts.shape) != (mt, nt):
-        raise ValueError(f"counts {tuple(counts.shape)} != ({mt}, {nt})")
+    e2, mt, nt, s = sched.shape[:4]
+    if kfused and sched.shape[4] != slice_k:
+        raise ValueError(f"gk lanes {sched.shape[4]} != slice_k {slice_k}")
+    if e2 != e or tuple(counts.shape) != (e, mt, nt):
+        raise ValueError(f"counts {tuple(counts.shape)} != ({e}, {mt}, "
+                         f"{nt}) for schedule {tuple(sched.shape)}")
     if mt * block_m < m or nt * block_n < n or s * slice_k < k:
         raise ValueError(
             f"schedule grid ({mt}, {nt}, {s}) at blocks ({block_m}, "
             f"{block_n}, {slice_k}) does not cover ({m}, {n}, {k})")
-    return m, n, k, mt, nt, s
+    return e, m, n, k, mt, nt, s
 
 
-def _launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
-            out_dtype, geom) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output and launch."""
+def launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
+           out_dtype, geom) -> torch.Tensor:
+    """Check what the kernel in ``csrc/<src>`` takes, allocate the
+    (E, M, N) output and launch on the current stream."""
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16 operands of one "
                         f"dtype, got {a.dtype} @ {b.dtype}")
@@ -85,13 +95,13 @@ def _launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
     for t, what in ((sched, "schedule"), (counts, "counts")):
         if t.dtype != torch.int32:
             raise TypeError(f"kernel takes an int32 {what}, got {t.dtype}")
-    m, n, k, mt, nt, s = geom
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    e, m, n, k, mt, nt, s = geom
+    out = torch.empty((e, m, n), dtype=out_dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = build.function(src)(
         _DTYPE_CODE[a.dtype], int(out_dtype == torch.float32),
         a.data_ptr(), b.data_ptr(), sched.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), m, n, k, mt, nt, s, block_m, block_n, slice_k,
+        out.data_ptr(), e, m, n, k, mt, nt, s, block_m, block_n, slice_k,
         stream)
     if rc != 0:
         raise RuntimeError(f"{src}: kernel launch failed with CUDA error "
@@ -100,58 +110,90 @@ def _launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
 
 
 # ---------------------------------------------------------------------------
-# plain versions: the same schedules, walked step by step in PyTorch
+# plain versions: the same schedules, walked step by step in PyTorch, over
+# a leading problem axis (E = 1 for K1/K2)
 # ---------------------------------------------------------------------------
 
-def bitmap_spgemm_planned_plain(a, b, ks, counts, *, block_m: int,
-                                block_n: int, slice_k: int,
-                                out_dtype=None) -> torch.Tensor:
-    """K1's plain version: step t adds, for every block with
+def walk_slices(a, b, ks, counts, *, block_m: int, block_n: int,
+                slice_k: int, out_dtype=None) -> torch.Tensor:
+    """The plain K1/K3 walk: step t adds, for every block with
     ``t < counts``, the product of its A block and B block at k-slice
-    ``ks[i, j, t]``, in float32; cast once at the end."""
-    m, n, k, mt, nt, s = _check(a, b, ks, counts, block_m, block_n,
-                                slice_k, kfused=False)
+    ``ks[e, i, j, t]``, in float32; cast once at the end.  a (E, M, K),
+    b (E, K, N) → (E, M, N)."""
+    e, m, n, k, mt, nt, s = check_problem(a, b, ks, counts, block_m,
+                                          block_n, slice_k, kfused=False)
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
-    av = _pad2(a, mt * block_m, s * slice_k).reshape(mt, block_m, s, slice_k)
-    bv = _pad2(b, s * slice_k, nt * block_n).reshape(s, slice_k, nt, block_n)
-    acc = torch.zeros(mt, nt, block_m, block_n, dtype=torch.float32,
+    av = _pad_last2(a, mt * block_m, s * slice_k).reshape(
+        e, mt, block_m, s, slice_k)
+    bv = _pad_last2(b, s * slice_k, nt * block_n).reshape(
+        e, s, slice_k, nt, block_n)
+    acc = torch.zeros(e, mt, nt, block_m, block_n, dtype=torch.float32,
                       device=a.device)
     cnt = torch.clamp(counts.to(torch.int64), max=s)
     ks = ks.to(torch.int64)
     for t in range(int(cnt.max()) if cnt.numel() else 0):
-        ti, tj = torch.nonzero(t < cnt, as_tuple=True)
-        sl = ks[ti, tj, t]
-        a_t = av[ti, :, sl, :].to(torch.float32)         # (L, bm, sk)
-        b_t = bv[sl, :, tj, :].to(torch.float32)         # (L, sk, bn)
-        acc[ti, tj] += a_t @ b_t
-    out = acc.permute(0, 2, 1, 3).reshape(mt * block_m, nt * block_n)
-    return out[:m, :n].to(out_dtype)
+        te, ti, tj = torch.nonzero(t < cnt, as_tuple=True)
+        sl = ks[te, ti, tj, t]
+        a_t = av[te, ti, :, sl, :].to(torch.float32)    # (L, bm, sk)
+        b_t = bv[te, sl, :, tj, :].to(torch.float32)    # (L, sk, bn)
+        acc[te, ti, tj] += a_t @ b_t
+    out = acc.permute(0, 1, 3, 2, 4).reshape(e, mt * block_m, nt * block_n)
+    return out[:, :m, :n].to(out_dtype)
 
 
-def bitmap_spgemm_kfused_planned_plain(a, b, gk, counts, *, block_m: int,
-                                       block_n: int, slice_k: int,
-                                       out_dtype=None) -> torch.Tensor:
-    """K2's plain version: step t adds, for every block with
-    ``t < counts``, the product of A's columns and B's rows at the gathered
-    positions ``gk[i, j, t, :]`` (positions past K read zero)."""
-    m, n, k, mt, nt, s = _check(a, b, gk, counts, block_m, block_n,
-                                slice_k, kfused=True)
+def walk_gathers(a, b, gk, counts, *, block_m: int, block_n: int,
+                 slice_k: int, out_dtype=None) -> torch.Tensor:
+    """The plain K2/K4 walk: step t adds, for every block with
+    ``t < counts``, the product of A's columns and B's rows at the
+    gathered positions ``gk[e, i, j, t, :]`` (positions past K read
+    zero)."""
+    e, m, n, k, mt, nt, s = check_problem(a, b, gk, counts, block_m,
+                                          block_n, slice_k, kfused=True)
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
     kp = s * slice_k
-    av = _pad2(a, mt * block_m, kp).reshape(mt, block_m, kp)
-    bv = _pad2(b, kp, nt * block_n).reshape(kp, nt, block_n)
-    acc = torch.zeros(mt, nt, block_m, block_n, dtype=torch.float32,
+    av = _pad_last2(a, mt * block_m, kp).reshape(e, mt, block_m, kp)
+    bv = _pad_last2(b, kp, nt * block_n).reshape(e, kp, nt, block_n)
+    acc = torch.zeros(e, mt, nt, block_m, block_n, dtype=torch.float32,
                       device=a.device)
     cnt = torch.clamp(counts.to(torch.int64), max=s)
     gk = gk.to(torch.int64)
     for t in range(int(cnt.max()) if cnt.numel() else 0):
-        ti, tj = torch.nonzero(t < cnt, as_tuple=True)
-        g = gk[ti, tj, t]                                # (L, sk)
-        a_t = av[ti[:, None], :, g].transpose(1, 2)      # (L, bm, sk)
-        b_t = bv[g, tj[:, None], :]                      # (L, sk, bn)
-        acc[ti, tj] += a_t.to(torch.float32) @ b_t.to(torch.float32)
-    out = acc.permute(0, 2, 1, 3).reshape(mt * block_m, nt * block_n)
-    return out[:m, :n].to(out_dtype)
+        te, ti, tj = torch.nonzero(t < cnt, as_tuple=True)
+        g = gk[te, ti, tj, t]                           # (L, sk)
+        a_t = av[te[:, None], ti[:, None], :, g].transpose(1, 2)
+        b_t = bv[te[:, None], g, tj[:, None], :]        # (L, sk, bn)
+        acc[te, ti, tj] += a_t.to(torch.float32) @ b_t.to(torch.float32)
+    out = acc.permute(0, 1, 3, 2, 4).reshape(e, mt * block_m, nt * block_n)
+    return out[:, :m, :n].to(out_dtype)
+
+
+def bitmap_spgemm_planned_plain(a, b, ks, counts, **kw) -> torch.Tensor:
+    """K1's plain version: :func:`walk_slices` on one problem."""
+    return walk_slices(a[None], b[None], ks[None], counts[None], **kw)[0]
+
+
+def bitmap_spgemm_kfused_planned_plain(a, b, gk, counts,
+                                       **kw) -> torch.Tensor:
+    """K2's plain version: :func:`walk_gathers` on one problem."""
+    return walk_gathers(a[None], b[None], gk[None], counts[None], **kw)[0]
+
+
+def run(src: str, plain, a, b, sched, counts, *, kfused: bool,
+        block_m: int, block_n: int, slice_k: int, out_dtype, device
+        ) -> torch.Tensor:
+    """The body of every wrapper: (E, ...) operands on ``device`` (None:
+    the card) → the plain walk for CPU tensors, else the kernel in
+    ``csrc/<src>``; there is no fallback."""
+    dev = devmod.resolve(device)
+    for t, what in ((a, "a"), (b, "b"), (sched, "schedule"),
+                    (counts, "counts")):
+        devmod.check_on(t, dev, what)
+    kw = dict(block_m=block_m, block_n=block_n, slice_k=slice_k)
+    if dev.type == "cpu":
+        return plain(a, b, sched, counts, out_dtype=out_dtype, **kw)
+    geom = check_problem(a, b, sched, counts, kfused=kfused, **kw)
+    return launch(src, a, b, sched, counts, block_m, block_n, slice_k,
+                  out_dtype, geom)
 
 
 # ---------------------------------------------------------------------------
@@ -168,17 +210,11 @@ def bitmap_spgemm_planned(a: torch.Tensor, b: torch.Tensor,
     ``out_dtype`` defaults to the promoted input dtype; accumulation is
     float32.  ``device=None`` means the card.
     """
-    dev = devmod.resolve(device)
-    for t, what in ((a, "a"), (b, "b"), (ks, "ks"), (counts, "counts")):
-        devmod.check_on(t, dev, what)
-    kw = dict(block_m=block_m, block_n=block_n, slice_k=slice_k)
-    if dev.type == "cpu":
-        return bitmap_spgemm_planned_plain(a, b, ks, counts,
-                                           out_dtype=out_dtype, **kw)
-    geom = _check(a, b, ks, counts, kfused=False, **kw)
-    out = _launch("bitmap_spgemm.cu", a, b, ks, counts, block_m, block_n,
-                  slice_k, out_dtype, geom)
-    bitmap_spgemm_planned.launches += 1
+    out = run("bitmap_spgemm.cu", walk_slices, a[None], b[None], ks[None],
+              counts[None], kfused=False, block_m=block_m, block_n=block_n,
+              slice_k=slice_k, out_dtype=out_dtype, device=device)[0]
+    if out.is_cuda:
+        bitmap_spgemm_planned.launches += 1
     return out
 
 
@@ -191,17 +227,12 @@ def bitmap_spgemm_kfused_planned(a: torch.Tensor, b: torch.Tensor,
     """K2: ``a @ b`` over the element-condensed schedule
     ``gk (Mt, Nt, S, slice_k)``/``counts``.  ``device=None`` means the
     card."""
-    dev = devmod.resolve(device)
-    for t, what in ((a, "a"), (b, "b"), (gk, "gk"), (counts, "counts")):
-        devmod.check_on(t, dev, what)
-    kw = dict(block_m=block_m, block_n=block_n, slice_k=slice_k)
-    if dev.type == "cpu":
-        return bitmap_spgemm_kfused_planned_plain(a, b, gk, counts,
-                                                  out_dtype=out_dtype, **kw)
-    geom = _check(a, b, gk, counts, kfused=True, **kw)
-    out = _launch("bitmap_spgemm_kfused.cu", a, b, gk, counts, block_m,
-                  block_n, slice_k, out_dtype, geom)
-    bitmap_spgemm_kfused_planned.launches += 1
+    out = run("bitmap_spgemm_kfused.cu", walk_gathers, a[None], b[None],
+              gk[None], counts[None], kfused=True, block_m=block_m,
+              block_n=block_n, slice_k=slice_k, out_dtype=out_dtype,
+              device=device)[0]
+    if out.is_cuda:
+        bitmap_spgemm_kfused_planned.launches += 1
     return out
 
 

@@ -25,9 +25,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = {
     "bitmap_spgemm.cu": "repro_bitmap_spgemm",
     "bitmap_spgemm_kfused.cu": "repro_bitmap_spgemm_kfused",
+    "grouped_spgemm.cu": "repro_grouped_spgemm",
+    "grouped_spgemm_kfused.cu": "repro_grouped_spgemm_kfused",
 }
+# (dtype_code, out_f32, a, b, sched, counts, out, e, m, n, k, mt, nt, s,
+#  block_m, block_n, slice_k, stream)
 _ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-             + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 _FUNCS: Dict[str, object] = {}
 _LIBS = []            # keeps the loaded libraries alive

@@ -8,17 +8,17 @@
 // A's columns and B's rows in device memory (the TPU kept full-K panels
 // resident in VMEM; a 128-row bf16 panel at nemotron's d_ff is 18.9 MB,
 // far past an SM's shared memory).  Lanes in [K, S*slice_k) read zero.
-// See spgemm_tile.cuh for the tiling and what bounds it.
+// See spgemm_tile.cuh for the tiling and what bounds it.  Takes e = 1.
 #include "spgemm_tile.cuh"
 
 extern "C" int repro_bitmap_spgemm_kfused(int dtype_code, int out_f32,
                                           const void* a, const void* b,
                                           const void* gk, const void* counts,
-                                          void* out, int m, int n, int k,
-                                          int mt, int nt, int s, int block_m,
-                                          int block_n, int slice_k,
-                                          void* stream) {
+                                          void* out, int e, int m, int n,
+                                          int k, int mt, int nt, int s,
+                                          int block_m, int block_n,
+                                          int slice_k, void* stream) {
   return repro::launch_spgemm<true>(dtype_code, out_f32, a, b, gk, counts,
-                                    out, m, n, k, mt, nt, s, block_m,
+                                    out, e, m, n, k, mt, nt, s, block_m,
                                     block_n, slice_k, stream);
 }

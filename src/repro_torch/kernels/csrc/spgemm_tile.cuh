@@ -1,13 +1,19 @@
-// Shared tile kernel of the two dual-side sparse GEMMs (K1 and K2).
+// Shared tile kernel of the dual-side sparse GEMMs K1/K2 and of their
+// grouped forms K3/K4.
 //
-// C = A @ B, A (M, K) and B (K, N) row-major, float32 or bfloat16, with the
-// output tiled into (block_m x block_n) blocks and a per-block schedule:
+// C[e] = A[e] @ B[e] for E stacked problems (E = 1 for K1/K2), A (E, M, K)
+// and B (E, K, N) row-major, float32 or bfloat16, with each output tiled
+// into (block_m x block_n) blocks and a per-block schedule:
 //
-//   K1 (KFUSED = false): ks (Mt, Nt, S) int32, front-packed active k-slice
-//      indices; step t of block (i, j) covers contraction positions
-//      [ks[i,j,t] * slice_k, ks[i,j,t] * slice_k + slice_k).
-//   K2 (KFUSED = true):  gk (Mt, Nt, S, slice_k) int32 gather maps; lane l
-//      of step t is contraction position gk[i,j,t,l].
+//   K1/K3 (KFUSED = false): ks (E, Mt, Nt, S) int32, front-packed active
+//      k-slice indices; step t of block (e, i, j) covers contraction
+//      positions [ks[e,i,j,t] * slice_k, ks[e,i,j,t] * slice_k + slice_k).
+//   K2/K4 (KFUSED = true):  gk (E, Mt, Nt, S, slice_k) int32 gather maps;
+//      lane l of step t is contraction position gk[e,i,j,t,l].
+//
+// The problem index is folded into the 1-D grid; each problem's operands,
+// schedule and output sit at fixed strides, so a grouped product is the
+// same tile loop as a single one.
 //
 // Both walk t < min(counts[i, j], S) only.  Contraction positions outside
 // [0, K) (K1's partial last slice, K2's tail lanes in [K, S*slice_k)) read
@@ -34,6 +40,15 @@
 // and A (a few rows) is re-read from L2.  SIMT float math caps prefill
 // near 67 TFLOP/s; wgmma, TMA and splitting narrow N over more blocks are
 // later work.
+//
+// At the attention decode sites (K3/K4 with E = batch x KV heads) the
+// score product K[e] (T, hd) @ q[e] (hd, G) reads only the cache-key rows
+// of scheduled slot blocks, and the value product p[e] (G, T) @ V[e]
+// (T, hd) only V's scheduled slot slices; both do about 2*G flops per byte
+// read, so bytes bound them too.  An unscheduled tile loads nothing and
+// only stores its zeros (the score output is written whole, as the TPU
+// kernel flushes it).  G = 12 columns leave most lanes of a 128-column
+// block idle; a layout for narrow N is later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,7 +88,7 @@ spgemm_tile_kernel(const void* __restrict__ a_ptr,
                    const int* __restrict__ sched,
                    const int* __restrict__ counts,
                    void* __restrict__ out, int out_f32,
-                   int m, int n, int k, int nt, int s,
+                   int m, int n, int k, int mt, int nt, int s,
                    int block_m, int block_n, int slice_k,
                    int msub, int nsub, int vec_ok) {
   using R = typename Raw<EB>::T;
@@ -86,15 +101,18 @@ spgemm_tile_kernel(const void* __restrict__ a_ptr,
   __shared__ float As[kChunk][RB + 1];       // +1: no bank conflicts
   __shared__ __align__(16) float Bs[kChunk][kCols];
 
-  const R* a = static_cast<const R*>(a_ptr);
-  const R* b = static_cast<const R*>(b_ptr);
-
   long long bid = blockIdx.x;
   const int nj = static_cast<int>(bid % nsub); bid /= nsub;
   const int j = static_cast<int>(bid % nt); bid /= nt;
   const int mi = static_cast<int>(bid % msub); bid /= msub;
-  const int i = static_cast<int>(bid);
-  const long long tile = static_cast<long long>(i) * nt + j;
+  const int i = static_cast<int>(bid % mt); bid /= mt;
+  const long long p = bid;                   // problem
+  // tiles are numbered across problems, as the schedule is laid out
+  const long long tile = (p * mt + i) * nt + j;
+
+  const R* a = static_cast<const R*>(a_ptr) + p * m * k;
+  const R* b = static_cast<const R*>(b_ptr) + p * k * n;
+  const long long out_base = p * m * n;
 
   const int row_lo = i * block_m + mi * RB;
   const int row_hi = min(min(i * block_m + block_m, row_lo + RB), m);
@@ -213,7 +231,7 @@ spgemm_tile_kernel(const void* __restrict__ a_ptr,
     for (int v = 0; v < 4; ++v) {
       const int col = col_lo + cg * 4 + v;
       if (col >= col_hi) continue;
-      const long long idx = static_cast<long long>(row) * n + col;
+      const long long idx = out_base + static_cast<long long>(row) * n + col;
       if (out_f32) static_cast<float*>(out)[idx] = acc[u][v];
       else static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16(acc[u][v]);
     }
@@ -223,34 +241,38 @@ spgemm_tile_kernel(const void* __restrict__ a_ptr,
 template <int EB, int TM, bool KFUSED>
 static void launch_tm(dim3 grid, cudaStream_t stream, const void* a,
                       const void* b, const int* sched, const int* counts,
-                      void* out, int out_f32, int m, int n, int k, int nt,
-                      int s, int block_m, int block_n, int slice_k, int msub,
-                      int nsub, int vec_ok) {
+                      void* out, int out_f32, int m, int n, int k, int mt,
+                      int nt, int s, int block_m, int block_n, int slice_k,
+                      int msub, int nsub, int vec_ok) {
   spgemm_tile_kernel<EB, TM, KFUSED><<<grid, kThreads, 0, stream>>>(
-      a, b, sched, counts, out, out_f32, m, n, k, nt, s, block_m, block_n,
-      slice_k, msub, nsub, vec_ok);
+      a, b, sched, counts, out, out_f32, m, n, k, mt, nt, s, block_m,
+      block_n, slice_k, msub, nsub, vec_ok);
 }
 
-// dtype_code: 0 = float32, 1 = bfloat16 (A and B alike).  Returns the
-// cudaError_t of the launch (0 on success).
+// dtype_code: 0 = float32, 1 = bfloat16 (A and B alike); e problems (1 for
+// K1/K2).  Returns the cudaError_t of the launch (0 on success); an empty
+// grid launches nothing and succeeds.
 template <bool KFUSED>
 static int launch_spgemm(int dtype_code, int out_f32, const void* a,
                          const void* b, const void* sched,
-                         const void* counts, void* out, int m, int n, int k,
-                         int mt, int nt, int s, int block_m, int block_n,
-                         int slice_k, void* stream_ptr) {
+                         const void* counts, void* out, int e, int m, int n,
+                         int k, int mt, int nt, int s, int block_m,
+                         int block_n, int slice_k, void* stream_ptr) {
   if ((dtype_code != 0 && dtype_code != 1) || block_m <= 0 ||
-      block_n <= 0 || slice_k <= 0 || m < 0 || n < 0 || k < 0)
+      block_n <= 0 || slice_k <= 0 || e < 0 || m < 0 || n < 0 || k < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tm = block_m <= 8 ? 1 : block_m <= 16 ? 2 : block_m <= 32 ? 4
                : block_m <= 64 ? 8 : 16;
   const int msub = (block_m + 8 * tm - 1) / (8 * tm);
   const int nsub = (block_n + kCols - 1) / kCols;
-  const long long blocks = static_cast<long long>(mt) * msub * nt * nsub;
+  const long long blocks =
+      static_cast<long long>(e) * mt * msub * nt * nsub;
   if (blocks == 0 || m == 0 || n == 0) return static_cast<int>(cudaSuccess);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int eb = dtype_code == 0 ? 4 : 2;
   const int vec = 16 / eb;
+  // problem p's B starts p*k*n elements in: still 16-byte aligned when n
+  // is a multiple of the vector
   const int vec_ok = (reinterpret_cast<uintptr_t>(b) % 16 == 0) &&
                      (n % vec == 0) && (block_n % vec == 0);
   const dim3 grid(static_cast<unsigned>(blocks));
@@ -259,8 +281,8 @@ static int launch_spgemm(int dtype_code, int out_f32, const void* a,
   const int* cn = static_cast<const int*>(counts);
 #define REPRO_LAUNCH(EB, TM)                                                 \
   launch_tm<EB, TM, KFUSED>(grid, stream, a, b, sc, cn, out, out_f32, m, n,  \
-                            k, nt, s, block_m, block_n, slice_k, msub, nsub, \
-                            vec_ok)
+                            k, mt, nt, s, block_m, block_n, slice_k, msub,   \
+                            nsub, vec_ok)
 #define REPRO_BY_TM(EB)                    \
   switch (tm) {                            \
     case 1: REPRO_LAUNCH(EB, 1); break;    \

@@ -1,10 +1,12 @@
-"""Attention: GQA with RoPE over a plain KV cache.
+"""Attention: GQA with RoPE over a plain or sparse KV cache.
 
 Grouped-query attention never materialises repeated KV heads (an explicit
 group dim), and the softmax runs in float32.  ``Attention.forward`` is the
-JAX package's ``attention_forward`` for self-attention; its KV-chunked
-long-context path (``chunk``) is not ported — this :func:`attend` is the
-single-block path, the same function up to rounding.
+JAX package's ``attention_forward`` for causal self-attention; its
+KV-chunked long-context path (``chunk``) is not ported — this
+:func:`attend` is the single-block path, the same function up to rounding.
+Decode over a :class:`~repro_torch.sparse.kvcache.SparseKVCache` in a
+sparse mode runs :func:`attend_sparse`.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cache as kvc
+from repro_torch.sparse import kvcache as skvc
+from repro_torch.sparse import plan as pln
 from repro_torch.sparse import site
 
 NEG_INF = -1e30
@@ -90,6 +94,76 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def attend_sparse(q: torch.Tensor, cache: skvc.SparseKVCache,
+                  cfg: ModelConfig, *, qpos: torch.Tensor,
+                  kpos: torch.Tensor,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Bitmap-scheduled decode attention over a ``SparseKVCache``.
+
+    q: (B, 1, H, hd).  The masked-softmax GQA of :func:`attend`, with both
+    products sent through the grouped dispatch as E = B·KV stacked
+    problems, so the tape counts scheduled against skipped cache blocks
+    and, with ``cfg.sparse_use_kernel``, K3 (K4 under kcondense) skips
+    them:
+
+    * score: ``scoresᵀ[e] = K[e] (T, hd) @ qᵀ[e] (hd, G)`` — cache slots
+      are block-rows, scheduled by occupancy AND the causal/window mask
+      (unscheduled rows are masked to -inf, so skipping them changes
+      nothing);
+    * value: ``out[e] = p[e] (G, T) @ V[e] (T, hd)`` — cache slots are
+      the contraction; unwritten blocks are zero k-slices of V.
+
+    Both accumulate in float32 (the sites pin ``out_dtype``), as dense
+    attention does.  As in the JAX package, p stays float32, so the
+    dispatch casts V to float32 over the whole capacity.
+    """
+    b, _, h, hd = q.shape
+    t = cache.capacity
+    kvh = cache.k.shape[-2]
+    g = h // kvh
+    ne = b * kvh
+
+    kd, vd, _ = kvc.read(cache, dtype=q.dtype)
+    occ = skvc.occupancy_mask(cache)
+    k_e = kd.transpose(1, 2).reshape(ne, t, hd)
+    v_e = vd.transpose(1, 2).reshape(ne, t, hd)
+    q_e = q.reshape(b, kvh, g, hd).transpose(2, 3).reshape(ne, hd, g)
+
+    # occupancy equals kpos >= 0, so the schedule is also the softmax mask
+    sched = pln.kv_decode_slots(occ, kpos, qpos[0], window)
+    # attn.score tiles slot rows at block_m, attn.value slices the slot
+    # contraction at slice_k; both resolve before the operands are built,
+    # which must carry metadata at the served tiles
+    st_s = site.make("attn.score", "attn.score", out_dtype="float32")
+    st_v = site.make("attn.value", "attn.value", out_dtype="float32")
+    kw_s = site.resolve(st_s, cfg)
+    kw_v = site.resolve(st_v, cfg)
+    bt = pln.effective_slice_k(t, kw_v["slice_k"])
+    sk_hd = pln.effective_slice_k(hd, kw_s["slice_k"])
+
+    x_k = skvc.score_operand(k_e, sched, sk_hd)
+    scores_t, _ = site.grouped_matmul(x_k, q_e, st_s, cfg, resolved=kw_s)
+    scores = scores_t.reshape(b, kvh, t, g).transpose(2, 3)
+    scores = scores[:, :, :, None, :] * (hd ** -0.5)     # (B,KV,G,1,T)
+
+    valid = sched[None, None, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(-1)
+    e = torch.exp(scores - m[..., None])
+    e = torch.where(valid, e, 0.0)
+    l = e.sum(-1)                                        # (B,KV,G,1)
+
+    p_e = e[:, :, :, 0, :].reshape(ne, g, t)
+    x_p, w_v = skvc.value_operands(occ, p_e, v_e, sched, bt)
+    acc_e, _ = site.grouped_matmul(x_p, w_v, st_v, cfg,
+                                   resolved={**kw_v, "slice_k": bt})
+
+    acc = acc_e.reshape(b, kvh, g, hd)[:, None]          # (B,1,KV,G,hd)
+    l = l.permute(0, 3, 1, 2)                            # (B,1,KV,G)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, name: str,
           n_contract: int = 1, plan_act=None) -> torch.Tensor:
     """``bsd,dhk->bshk`` (n_contract=1) / ``bshk,hkd->bsd``
@@ -148,8 +222,17 @@ class Attention(nn.Module):
         q = apply_rope(q, positions, cfg.rope_style, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_style, cfg.rope_theta)
         window = cfg.sliding_window or None
-        if cache is not None:
+        if isinstance(cache, skvc.SparseKVCache):
+            cache = skvc.update(cache, k, v)
+        elif cache is not None:
             cache = kvc.update(cache, k, v)
+        if (isinstance(cache, skvc.SparseKVCache)
+                and cfg.sparse_mode != "dense" and q.shape[1] == 1):
+            # bitmap-scheduled decode: both attention products go through
+            # the grouped dispatch
+            out = attend_sparse(q, cache, cfg, qpos=positions,
+                                kpos=kvc.key_positions(cache), window=window)
+        elif cache is not None:
             kd, vd, kpos = kvc.read(cache, dtype=x.dtype)
             out = attend(q, kd, vd, qpos=positions, kpos=kpos, window=window)
         else:

@@ -56,14 +56,32 @@ def update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
     return dataclasses.replace(cache, pos=cache.pos + s)
 
 
-def key_positions(cache: KVCache) -> torch.Tensor:
+def written_slot_mask(pos: int, window: int, capacity: int, s: int,
+                      device=None) -> torch.Tensor:
+    """(capacity,) bool: the slots an :func:`update` of ``s`` tokens at
+    ring cursor ``pos`` writes.  Closed form of its placement: only the
+    newest ``min(s, window)`` tokens survive, at slots
+    ``(pos + s - n + j) mod window``.  Ring metadata only; no buffer is
+    read."""
+    slots = torch.arange(capacity, device=device)
+    n = min(s, window)
+    start = (pos + s - n) % window
+    return (slots < window) & (((slots - start) % window) < n)
+
+
+def key_positions_at(pos: int, window: int, capacity: int,
+                     device=None) -> torch.Tensor:
     """Absolute token position held in each slot (-1 = empty): slot i
     holds the newest p < pos with p ≡ i (mod window)."""
-    slots = torch.arange(cache.capacity, device=cache.k.device)
-    last = cache.pos - 1
-    kpos = last - ((last - slots) % cache.window)
-    return torch.where((slots < cache.window) & (kpos >= 0) & (cache.pos > 0),
-                       kpos, -1)
+    slots = torch.arange(capacity, device=device)
+    last = pos - 1
+    kpos = last - ((last - slots) % window)
+    return torch.where((slots < window) & (kpos >= 0) & (pos > 0), kpos, -1)
+
+
+def key_positions(cache: KVCache) -> torch.Tensor:
+    return key_positions_at(cache.pos, cache.window, cache.capacity,
+                            cache.k.device)
 
 
 def read(cache: KVCache, dtype=torch.bfloat16

@@ -19,6 +19,7 @@ from repro_torch.models import cache as kvc
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
 from repro_torch.models.nn import apply_norm, init_norm
+from repro_torch.sparse import kvcache as skvc
 from repro_torch.sparse import plan as pln
 from repro_torch.sparse import site
 from repro_torch.sparse import weights as spw
@@ -147,7 +148,7 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
     sk = cfg.sparse_slice_k
 
     def plan_of(w: torch.Tensor) -> torch.Tensor:
-        return spw.stacked_slice_activity(
+        return pln.slice_activity_rhs(
             w, pln.effective_slice_k(w.shape[-2], sk))
 
     layers: List[Dict[str, Any]] = []
@@ -170,9 +171,22 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
                 dtype=torch.bfloat16, device=None) -> List[kvc.KVCache]:
-    """One plain KV cache per layer.  bf16 whatever the activation dtype,
-    as in the JAX package; a sliding window keeps ``window`` ring slots."""
+    """One KV cache per layer, bf16 whatever the activation dtype, as in
+    the JAX package.
+
+    ``cfg.sparse_kv`` in a non-dense sparse mode allocates
+    :class:`~repro_torch.sparse.kvcache.SparseKVCache` s of the full
+    ``capacity`` with no ring (``window=capacity``): a sliding window is
+    applied as the attention mask instead, and the blocks it hides are
+    what the decode schedule skips.  Plain caches of a sliding-window
+    model keep ``window`` ring slots.
+    """
     dev = devmod.resolve(device)
+    if cfg.sparse_kv and cfg.sparse_mode != "dense":
+        return [skvc.init_sparse_cache(batch, capacity, cfg.n_kv_heads,
+                                       cfg.hd, dtype=dtype, window=capacity,
+                                       block_t=cfg.sparse_block_t, device=dev)
+                for _ in range(cfg.n_layers)]
     ring = min(cfg.sliding_window or capacity, capacity)
     return [kvc.init_cache(batch, ring, cfg.n_kv_heads, cfg.hd, dtype=dtype,
                            window=ring, device=dev)

@@ -2,7 +2,9 @@
 
 Every projection of the served model — attention q/k/v/o, MLP up/down and
 the LM head — routes through :func:`matmul` (via :func:`project` for the
-attention head layouts).  The dispatch
+attention head layouts); the sparse-KV decode attention's score and value
+products route through :func:`grouped_matmul` as stacked problems.  The
+dispatch
 
 * accepts any leading batch shape ``(..., K)`` and flattens it;
 * takes a :class:`~repro_torch.sparse.activation.SparseActivation` on the
@@ -15,8 +17,9 @@ attention head layouts).  The dispatch
 Modes: ``dense`` (plain matmul, dense accounting), ``weight`` (static
 weight-side skips only) and ``dual`` (weight AND activation skips; with
 ``use_kernel`` the K1 kernel executes the condensed schedule, or K2 under
-``condense="k"``, which plans per contraction index).  All modes compute
-``x @ w``: sparsity changes the schedule, not the math.
+``condense="k"``, which plans per contraction index; K3/K4 for the
+grouped form).  All modes compute ``x @ w``: sparsity changes the
+schedule, not the math.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch.core import stats
 from repro_torch.kernels import bitmap_spgemm as bsk
+from repro_torch.kernels import grouped_spgemm as gsk
 from repro_torch.sparse import plan as pln
 from repro_torch.sparse import tape
 from repro_torch.sparse.activation import SparseActivation
@@ -48,23 +52,25 @@ def _weight_array(w: Weight) -> torch.Tensor:
     return w.w if isinstance(w, PlannedWeight) else w
 
 
-def _lhs_activity(x: Operand, x2: torch.Tensor, block_m: int, slice_k: int,
+def _lhs_activity(x: Operand, block_m: int, slice_k: int,
                   mode: str) -> torch.Tensor:
-    """(Mt, S) block-row slice activity of the activation side."""
+    """(..., Mt, S) block-row slice activity of the activation side
+    (..., M, K)."""
+    xv = _values(x)
+    *lead, m, k = xv.shape
     if mode == "weight":  # activation treated as dense
-        return torch.ones(pln._cdiv(x2.shape[0], block_m),
-                          pln._cdiv(x2.shape[1], slice_k), dtype=torch.bool,
-                          device=x2.device)
+        return torch.ones(*lead, pln._cdiv(m, block_m), pln._cdiv(k, slice_k),
+                          dtype=torch.bool, device=xv.device)
     if isinstance(x, SparseActivation):
-        rows = x.flatten_leading().row_slice_activity(slice_k)
+        rows = x.row_slice_activity(slice_k)
     else:
-        rows = pln.slice_activity_lhs(x2, slice_k)
+        rows = pln.slice_activity_lhs(xv, slice_k)
     return pln.block_reduce_lhs(rows, block_m)
 
 
 def _rhs_activity(w: Weight, w_arr: torch.Tensor, block_n: int,
                   slice_k: int) -> torch.Tensor:
-    """(S, Nt) block-col slice activity of the weight side."""
+    """(..., S, Nt) block-col slice activity of the weight side."""
     if isinstance(w, PlannedWeight):
         cols = w.col_slice_activity(slice_k)
     else:
@@ -72,25 +78,122 @@ def _rhs_activity(w: Weight, w_arr: torch.Tensor, block_n: int,
     return pln.block_reduce_rhs(cols, block_n)
 
 
-def _lhs_element(x: Operand, x2: torch.Tensor, block_m: int,
-                 mode: str) -> torch.Tensor:
-    """(Mt, K) block-row element k-activity of the activation side (from
-    the packed bitmap when the operand carries one)."""
+def _lhs_element(x: Operand, block_m: int, mode: str) -> torch.Tensor:
+    """(..., Mt, K) block-row element k-activity of the activation side
+    (from the packed bitmap when the operand carries one)."""
+    xv = _values(x)
+    *lead, m, k = xv.shape
     if mode == "weight":  # activation treated as dense
-        return torch.ones(pln._cdiv(x2.shape[0], block_m), x2.shape[1],
-                          dtype=torch.bool, device=x2.device)
+        return torch.ones(*lead, pln._cdiv(m, block_m), k, dtype=torch.bool,
+                          device=xv.device)
     if isinstance(x, SparseActivation):
-        return pln.element_activity_lhs(
-            x.flatten_leading().element_mask(), block_m)
-    return pln.element_activity_lhs(x2, block_m)
+        return pln.element_activity_lhs(x.element_mask(), block_m)
+    return pln.element_activity_lhs(xv, block_m)
 
 
 def _rhs_element(w: Weight, w_arr: torch.Tensor,
                  block_n: int) -> torch.Tensor:
-    """(K, Nt) block-col element k-activity of the weight side."""
+    """(..., K, Nt) block-col element k-activity of the weight side."""
     if isinstance(w, PlannedWeight):
         return w.col_element_activity(block_n)
     return pln.element_activity_rhs(w_arr, block_n)
+
+
+def schedule(x: Operand, w: Weight, *, mode: str, block_m: int,
+             block_n: int, slice_k: int, condense: Optional[str],
+             pack: bool = True, w_arr: Optional[torch.Tensor] = None):
+    """The schedule of ``x @ w`` at already-clamped geometry: (sched,
+    counts), with ``sched`` the K1/K3 slice list ``ks`` or the K2/K4
+    :class:`~repro_torch.sparse.plan.KPlan` gather maps — or None when
+    ``pack`` is off and only the counts are wanted (the stats tape).
+    x (..., M, K) values or SparseActivation, w (..., K, N); ``w_arr`` is
+    the weight's values as the product reads them (default: ``w``'s)."""
+    if w_arr is None:
+        w_arr = _weight_array(w)
+    if condense == "k":
+        col = _lhs_element(x, block_m, mode)
+        row = _rhs_element(w, w_arr, block_n)
+        if pack:
+            kplan = pln.plan_kcondensed(col, row, slice_k)
+            return kplan, kplan.counts
+        return None, pln.kcondensed_counts(col, row, slice_k)
+    col = _lhs_activity(x, block_m, slice_k, mode)
+    row = _rhs_activity(w, w_arr, block_n, slice_k)
+    if pack:
+        return pln.plan_from_activity(col, row)
+    return None, pln.counts_from_activity(col, row)
+
+
+def _plain_product(xv: torch.Tensor, w_arr: torch.Tensor,
+                   out_dtype) -> torch.Tensor:
+    """``xv @ w_arr`` as one PyTorch matmul; with ``out_dtype`` computed
+    in the wider of the two types, then cast."""
+    if out_dtype is None:
+        return xv @ w_arr
+    ct = torch.promote_types(xv.dtype, out_dtype)
+    return (xv.to(ct) @ w_arr.to(ct)).to(out_dtype)
+
+
+def _dispatch(x: Operand, w: Weight, *, mode: str,
+              block_m: int, block_n: int, slice_k: int, use_kernel: bool,
+              condense: Optional[str], out_dtype, collect_stats: bool,
+              name: str) -> Tuple[torch.Tensor, Optional[stats.StepCounts]]:
+    """The body :func:`matmul` ((M, K) @ (K, N)) and :func:`grouped_matmul`
+    ((E, C, K) @ (E, K, N)) share: clamp, plan, run, record."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if condense not in CONDENSE:
+        raise ValueError(
+            f"condense must be one of {CONDENSE}, got {condense!r}")
+    xv = _values(x)
+    grouped = xv.ndim == 3
+    w_arr = _weight_array(w).to(xv.dtype)
+    c, k = xv.shape[-2:]
+    n = w_arr.shape[-1]
+    block_m, block_n, slice_k = pln.clamp_geometry(
+        c, n, k, block_m, block_n, slice_k)
+    geom = dict(block_m=block_m, block_n=block_n, slice_k=slice_k)
+    s = pln._cdiv(k, slice_k)
+
+    want_stats = collect_stats or tape.active()
+    steps = None
+    run_kernel = use_kernel and mode != "dense"
+    if mode == "dense":
+        if use_kernel or condense:
+            warnings.warn(
+                f"sparse.{name}: use_kernel/condense have no effect in dense "
+                "mode — there is no condensed schedule; executing the dense "
+                "matmul (executed == dense steps)", RuntimeWarning,
+                stacklevel=3)
+        if want_stats:
+            e = xv.shape[0] if grouped else 1
+            dense = torch.tensor(
+                e * pln._cdiv(c, block_m) * pln._cdiv(n, block_n) * s)
+            steps = stats.StepCounts(dense=dense, sparse=dense,
+                                     tiles_skipped=torch.tensor(0))
+    elif run_kernel or want_stats:
+        # plan only when something consumes it: the kernel's schedule or
+        # the stats accounting
+        sched, counts = schedule(x, w, mode=mode, condense=condense,
+                                 pack=run_kernel, w_arr=w_arr, **geom)
+        if want_stats:
+            steps = pln.counts_to_steps(counts, s)
+    if run_kernel:
+        if grouped:
+            kern = (gsk.grouped_spgemm_kfused_planned if condense == "k"
+                    else gsk.grouped_spgemm_planned)
+        else:
+            kern = (bsk.bitmap_spgemm_kfused_planned if condense == "k"
+                    else bsk.bitmap_spgemm_planned)
+        ks = sched.gk if condense == "k" else sched
+        y = kern(xv.contiguous(), w_arr.contiguous(), ks, counts,
+                 out_dtype=out_dtype, device=xv.device, **geom)
+    else:
+        y = _plain_product(xv, w_arr, out_dtype)
+    if steps is not None:
+        # the kernels execute the condensed schedule; a matmul runs dense
+        tape.record(name, steps, steps.sparse if run_kernel else None)
+    return y, steps
 
 
 def matmul(
@@ -103,6 +206,7 @@ def matmul(
     slice_k: int = pln.SLICE_K,
     use_kernel: bool = False,
     condense: Optional[str] = None,
+    out_dtype: Optional[torch.dtype] = None,
     collect_stats: bool = False,
     name: str = "matmul",
 ) -> Tuple[torch.Tensor, Optional[stats.StepCounts]]:
@@ -114,80 +218,55 @@ def matmul(
     on the operands' device: their plain versions on the CPU, K1/K2 on
     the card.
     """
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if condense not in CONDENSE:
-        raise ValueError(
-            f"condense must be one of {CONDENSE}, got {condense!r}")
     w_arr = _weight_array(w)
     if w_arr.ndim != 2:
         raise ValueError(f"matmul expects 2-D weights, got "
                          f"{tuple(w_arr.shape)}")
     xv = _values(x)
     lead = xv.shape[:-1]
-    k = xv.shape[-1]
-    x2 = xv.reshape(-1, k)
-    t = x2.shape[0]
-    n = w_arr.shape[1]
-    w_arr = w_arr.to(xv.dtype)
+    x2 = (x.flatten_leading() if isinstance(x, SparseActivation)
+          else xv.reshape(-1, xv.shape[-1]))
+    y, steps = _dispatch(x2, w, mode=mode, block_m=block_m, block_n=block_n,
+                         slice_k=slice_k, use_kernel=use_kernel,
+                         condense=condense, out_dtype=out_dtype,
+                         collect_stats=collect_stats, name=name)
+    return y.reshape(*lead, y.shape[-1]), steps
 
-    block_m, block_n, slice_k = pln.clamp_geometry(
-        t, n, k, block_m, block_n, slice_k)
-    mt, nt, s = (pln._cdiv(t, block_m), pln._cdiv(n, block_n),
-                 pln._cdiv(k, slice_k))
 
-    want_stats = collect_stats or tape.active()
-    steps = None
-    if mode == "dense":
-        if use_kernel or condense:
-            warnings.warn(
-                "sparse.matmul: use_kernel/condense have no effect in dense "
-                "mode — there is no condensed schedule; executing the dense "
-                "matmul (executed == dense steps)", RuntimeWarning,
-                stacklevel=2)
-        y = x2 @ w_arr
-        if want_stats:
-            dense = torch.tensor(mt * nt * s)
-            steps = stats.StepCounts(dense=dense, sparse=dense,
-                                     tiles_skipped=torch.tensor(0))
-    else:
-        # plan only when something consumes it: the kernel's schedule or
-        # the stats accounting
-        if use_kernel or want_stats:
-            if condense == "k":
-                col_e = _lhs_element(x, x2, block_m, mode)
-                row_e = _rhs_element(w, w_arr, block_n)
-                if use_kernel:
-                    kplan = pln.plan_kcondensed(col_e, row_e, slice_k)
-                    counts = kplan.counts
-                else:
-                    counts = pln.kcondensed_counts(col_e, row_e, slice_k)
-            else:
-                col = _lhs_activity(x, x2, block_m, slice_k, mode)
-                row = _rhs_activity(w, w_arr, block_n, slice_k)
-                if use_kernel:
-                    ks, counts = pln.plan_from_activity(col, row)
-                else:
-                    counts = pln.counts_from_activity(col, row)
-            if want_stats:
-                steps = pln.counts_to_steps(counts, s)
-        if use_kernel:
-            geom = dict(block_m=block_m, block_n=block_n, slice_k=slice_k,
-                        device=x2.device)
-            a, b = x2.contiguous(), w_arr.contiguous()
-            if condense == "k":
-                y = bsk.bitmap_spgemm_kfused_planned(
-                    a, b, kplan.gk, kplan.counts, **geom)
-            else:
-                y = bsk.bitmap_spgemm_planned(a, b, ks, counts, **geom)
-        else:
-            y = x2 @ w_arr
-    if steps is not None:
-        # the kernels execute the condensed schedule; a matmul runs dense
-        tape.record(name, steps,
-                    steps.sparse if mode != "dense" and use_kernel
-                    else None)
-    return y.reshape(*lead, n), steps
+def grouped_matmul(
+    x: Operand,
+    w: Weight,
+    *,
+    mode: str = "dense",
+    block_m: int = 128,
+    block_n: int = 128,
+    slice_k: int = pln.SLICE_K,
+    use_kernel: bool = False,
+    condense: Optional[str] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    collect_stats: bool = False,
+    name: str = "grouped_matmul",
+) -> Tuple[torch.Tensor, Optional[stats.StepCounts]]:
+    """Stacked-weights matmul: x (E, C, K) @ w (E, K, N) → (E, C, N).
+
+    Each problem has its own weight and its own activation rows, filled
+    to a different count (ragged occupancy: MoE capacity buffers, or the
+    decode attention's per-(batch, KV head) cache slots).  With
+    ``use_kernel`` K3 (K4 under ``condense="k"``) runs one grid over every
+    problem and executes the per-problem schedules; otherwise one
+    ``torch.matmul`` with the same schedule accounting, whose summed
+    StepCounts the tape records as one entry.  ``out_dtype`` sets the
+    accumulation and output type (f32 for the attention sites).
+    """
+    xv = _values(x)
+    w_arr = _weight_array(w)
+    if xv.ndim != 3 or w_arr.ndim != 3:
+        raise ValueError(f"grouped_matmul expects (E,C,K)×(E,K,N), got "
+                         f"{tuple(xv.shape)} × {tuple(w_arr.shape)}")
+    return _dispatch(x, w, mode=mode, block_m=block_m, block_n=block_n,
+                     slice_k=slice_k, use_kernel=use_kernel,
+                     condense=condense, out_dtype=out_dtype,
+                     collect_stats=collect_stats, name=name)
 
 
 # every knob project may forward to matmul: a typo'd knob must raise

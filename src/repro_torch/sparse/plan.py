@@ -12,14 +12,18 @@ Every sparse matmul schedules its work from the same recipe:
    in the inactive tail.
 
 Under ``condense="k"`` the AND is taken per contraction index instead and
-packed into per-block gather maps (:func:`plan_kcondensed`).
+packed into per-block gather maps (:func:`plan_kcondensed`).  Every step
+takes leading axes, so the grouped schedules of K3/K4 (a leading problem
+axis) come from the same functions.  The decode KV planners
+(:func:`plan_kv_decode`) schedule cache blocks from occupancy AND the
+causal/window mask.
 
 The schedules keep the JAX package's layouts — front-packing, the
 repeat-last tails, int32 — so that they compare with it bit for bit.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,12 +58,13 @@ def slice_activity_lhs(a: torch.Tensor, slice_k: int) -> torch.Tensor:
 
 
 def slice_activity_rhs(b: torch.Tensor, slice_k: int) -> torch.Tensor:
-    """(K, N) values or mask → (S, N) bool: slice s is active for a column
-    iff the column has a non-zero in rows [s*slice_k, (s+1)*slice_k)."""
-    k, n = b.shape
+    """(..., K, N) values or mask → (..., S, N) bool: slice s is active
+    for a column iff the column has a non-zero in rows
+    [s*slice_k, (s+1)*slice_k)."""
+    *lead, k, n = b.shape
     s = _cdiv(k, slice_k)
     mask = _pad(b != 0, (0, 0, 0, s * slice_k - k))
-    return mask.reshape(s, slice_k, n).any(1)
+    return mask.reshape(*lead, s, slice_k, n).any(-2)
 
 
 # ---------------------------------------------------------------------------
@@ -67,19 +72,20 @@ def slice_activity_rhs(b: torch.Tensor, slice_k: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def block_reduce_lhs(row_act: torch.Tensor, block_m: int) -> torch.Tensor:
-    """(M, S) per-row activity → (Mt, S) per-block-row activity."""
-    m, s = row_act.shape
+    """(..., M, S) per-row activity → (..., Mt, S) per-block-row activity."""
+    *lead, m, s = row_act.shape
     mt = _cdiv(m, block_m)
     padded = _pad(row_act, (0, 0, 0, mt * block_m - m))
-    return padded.reshape(mt, block_m, s).any(1)
+    return padded.reshape(*lead, mt, block_m, s).any(-2)
 
 
 def block_reduce_rhs(col_act: torch.Tensor, block_n: int) -> torch.Tensor:
-    """(S, N) per-column activity → (S, Nt) per-block-col activity."""
-    s, n = col_act.shape
+    """(..., S, N) per-column activity → (..., S, Nt) per-block-col
+    activity."""
+    *lead, s, n = col_act.shape
     nt = _cdiv(n, block_n)
     padded = _pad(col_act, (0, nt * block_n - n))
-    return padded.reshape(s, nt, block_n).any(2)
+    return padded.reshape(*lead, s, nt, block_n).any(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -123,16 +129,19 @@ def front_pack(act: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _and(col: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
-    """(Mt, X) A-side and (X, Nt) B-side activity → (Mt, Nt, X) AND,
-    contiguous, so the schedules built from it are too (the kernels take
-    contiguous schedules)."""
-    return (col[:, None, :] & row.T[None, :, :]).contiguous()
+    """(..., Mt, X) A-side and (..., X, Nt) B-side activity → (..., Mt,
+    Nt, X) AND, contiguous, so the schedules built from it are too (the
+    kernels take contiguous schedules)."""
+    return (col[..., :, None, :]
+            & row.transpose(-1, -2)[..., None, :, :]).contiguous()
 
 
 def plan_from_activity(col: torch.Tensor, row: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(Mt, S) A-side and (S, Nt) B-side block activity → the K1 schedule
-    (ks (Mt, Nt, S), counts (Mt, Nt))."""
+    """(..., Mt, S) A-side and (..., S, Nt) B-side block activity → the
+    K1/K3 schedule (ks (..., Mt, Nt, S), counts (..., Mt, Nt)).  A problem
+    with fewer occupied rows has more empty block-rows; the repeat-last
+    tails keep the grid rectangular."""
     return front_pack(_and(col, row))
 
 
@@ -147,32 +156,32 @@ def counts_from_activity(col: torch.Tensor, row: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def element_activity_lhs(a: torch.Tensor, block_m: int) -> torch.Tensor:
-    """(M, K) values or mask → (Mt, K) bool: k is active for block-row i
-    iff some row of the block has a non-zero at column k."""
-    m, k = a.shape
+    """(..., M, K) values or mask → (..., Mt, K) bool: k is active for
+    block-row i iff some row of the block has a non-zero at column k."""
+    *lead, m, k = a.shape
     mt = _cdiv(m, block_m)
     mask = _pad(a != 0, (0, 0, 0, mt * block_m - m))
-    return mask.reshape(mt, block_m, k).any(1)
+    return mask.reshape(*lead, mt, block_m, k).any(-2)
 
 
 def element_activity_rhs(b: torch.Tensor, block_n: int) -> torch.Tensor:
-    """(K, N) values or mask → (K, Nt) bool: k is active for block-col j
-    iff some column of the block has a non-zero at row k."""
-    k, n = b.shape
+    """(..., K, N) values or mask → (..., K, Nt) bool: k is active for
+    block-col j iff some column of the block has a non-zero at row k."""
+    *lead, k, n = b.shape
     nt = _cdiv(n, block_n)
     mask = _pad(b != 0, (0, nt * block_n - n))
-    return mask.reshape(k, nt, block_n).any(2)
+    return mask.reshape(*lead, k, nt, block_n).any(-1)
 
 
 class KPlan(NamedTuple):
     """A per-output-block packed active-k schedule (``plan_kcondensed``).
 
-    gk     : (Mt, Nt, S, slice_k) int32 — lane l of condensed step t
+    gk     : (..., Mt, Nt, S, slice_k) int32 — lane l of condensed step t
              gathers contraction index ``gk[..., t, l]``: first the
              block's active k's in ascending order, then the inactive
              ones (zero outer products), which may lie in [K, S*slice_k).
-    counts : (Mt, Nt) int32 — executed steps, ``ceil(nnz / slice_k)``.
-    nnz    : (Mt, Nt) int32 — element-AND active k's per block.
+    counts : (..., Mt, Nt) int32 — executed steps, ``ceil(nnz/slice_k)``.
+    nnz    : (..., Mt, Nt) int32 — element-AND active k's per block.
     """
     gk: torch.Tensor
     counts: torch.Tensor
@@ -192,8 +201,8 @@ def _kpack(act: torch.Tensor, slice_k: int) -> KPlan:
 
 def plan_kcondensed(col: torch.Tensor, row: torch.Tensor,
                     slice_k: int = SLICE_K) -> KPlan:
-    """(Mt, K) A-side and (K, Nt) B-side element activity → the K2
-    schedule: the bitmap AND stable-front-packed per output block."""
+    """(..., Mt, K) A-side and (..., K, Nt) B-side element activity → the
+    K2/K4 schedule: the bitmap AND stable-front-packed per output block."""
     return _kpack(_and(col, row), slice_k)
 
 
@@ -205,17 +214,83 @@ def kcondensed_counts(col: torch.Tensor, row: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# decode-path KV-cache planning
+# ---------------------------------------------------------------------------
+
+def kv_slot_visibility(kpos: torch.Tensor, qpos,
+                       window: Optional[int]) -> torch.Tensor:
+    """Which cache slots the query at ``qpos`` may attend to: written
+    (kpos >= 0), causal (kpos <= qpos) and, with a sliding window,
+    kpos > qpos - window — the mask of ``attention._attend_block``."""
+    valid = (kpos >= 0) & (kpos <= qpos)
+    if window is not None:
+        valid &= kpos > (qpos - window)
+    return valid
+
+
+def slot_block_reduce(mask: torch.Tensor, block_t: int) -> torch.Tensor:
+    """(..., T) per-slot mask → (..., NB) per-block any-reduction."""
+    *lead, t = mask.shape
+    nb = _cdiv(t, block_t)
+    return _pad(mask, (0, nb * block_t - t)).reshape(
+        *lead, nb, block_t).any(-1)
+
+
+def kv_decode_slots(occ_slots: torch.Tensor, kpos: torch.Tensor, qpos,
+                    window: Optional[int]) -> torch.Tensor:
+    """Slot-level decode schedule: occupancy AND the causal/window mask.
+    Occupancy equals ``kpos >= 0``, so this is also the dense path's
+    softmax mask, bit for bit."""
+    return occ_slots & kv_slot_visibility(kpos, qpos, window)
+
+
+class KVDecodePlan(NamedTuple):
+    """One decode step's cache schedule (:func:`plan_kv_decode`).
+
+    slots  : (T,) bool scheduled slots (:func:`kv_decode_slots`).
+    blocks : (NB,) bool, the same at cache-block granularity.
+    idx    : (NB,) int32 front-packed scheduled block indices, repeat-last
+             tail.
+    count  : () int32 number of scheduled blocks.
+    """
+    slots: torch.Tensor
+    blocks: torch.Tensor
+    idx: torch.Tensor
+    count: torch.Tensor
+
+
+def plan_kv_decode(occ_slots: torch.Tensor, kpos: torch.Tensor, qpos,
+                   window: Optional[int], block_t: int) -> KVDecodePlan:
+    """Front-packed cache-block schedule for one decode step: a block is
+    scheduled iff it holds an occupied slot the query may see."""
+    slots = kv_decode_slots(occ_slots, kpos, qpos, window)
+    blocks = slot_block_reduce(slots, block_t)
+    idx, count = front_pack(blocks)
+    return KVDecodePlan(slots=slots, blocks=blocks, idx=idx, count=count)
+
+
+# ---------------------------------------------------------------------------
 # step-count accounting and geometry
 # ---------------------------------------------------------------------------
 
 def counts_to_steps(counts: torch.Tensor, n_slices: int
                     ) -> stats.StepCounts:
-    """(Mt, Nt) schedule counts → StepCounts; dense work is Mt·Nt·S."""
-    mt, nt = counts.shape
+    """(Mt, Nt) schedule counts → StepCounts; dense work is Mt·Nt·S.
+    Grouped (E, Mt, Nt) counts sum into one entry of E·Mt·Nt·S."""
     return stats.StepCounts(
-        dense=torch.tensor(mt * nt * n_slices),
+        dense=torch.tensor(counts.numel() * n_slices),
         sparse=counts.sum(),
         tiles_skipped=(counts == 0).sum())
+
+
+# The grouped (E, ...) forms of K3/K4 are the same functions over a leading
+# problem axis.  The JAX package's names for them, kept so the parity tests
+# call each function by the name it has there:
+plan_grouped_activity = plan_from_activity
+grouped_counts_from_activity = counts_from_activity
+plan_grouped_kcondensed = plan_kcondensed
+grouped_kcondensed_counts = kcondensed_counts
+grouped_counts_to_steps = counts_to_steps
 
 
 def effective_slice_k(k: int, slice_k: int = SLICE_K) -> int:
@@ -228,8 +303,11 @@ def clamp_geometry(m: int, n: int, k: int, block_m: int, block_n: int,
                    slice_k: int) -> Tuple[int, int, int]:
     """Shrink blocks to small problems, never below :data:`MIN_BLOCK`.
 
-    One rule on every device, so CPU and card schedules are the same
-    (at full width every ``n`` is at least 128 and no clamp applies).
+    One rule on every device, so CPU and card schedules are the same.
+    At full width the projections' ``n`` is at least 128 and no clamp
+    applies, but the attention decode sites clamp: ``attn.score``'s
+    block_n and ``attn.value``'s block_m both shrink to G, the query
+    heads per KV head (12 for nemotron-4-340b).
     """
     block_m = min(block_m, max(MIN_BLOCK, m))
     block_n = min(block_n, max(MIN_BLOCK, n))

@@ -1,10 +1,13 @@
 """Declarative per-call-site dispatch resolution.
 
-:class:`OpSite` names one sparse call site — its op kind, its tape name
-and the logical axes of its weight.  Layers build sites once through the
-memoized :func:`make`; :func:`resolve` turns a site and a ``ModelConfig``
-into the dispatch knobs.  Only the config tier is ported: the knobs are
-the config's ``sparse_*`` constants (no tuning cache, no cost model).
+:class:`OpSite` names one sparse call site — its op kind, its tape name,
+the logical axes of its weight and an optional output dtype pin.  Layers
+build sites once through the memoized :func:`make`; :func:`resolve` turns
+a site and a ``ModelConfig`` into the dispatch knobs.  Only the config
+tier is ported: the knobs are the config's ``sparse_*`` constants (no
+tuning cache, no cost model), with the decode attention's twist: the
+``attn.score`` site tiles its rows (cache slots) and the ``attn.value``
+site slices its contraction (cache slots again) at ``sparse_block_t``.
 
 A kernel failure is not caught here: on the card it has to surface.
 """
@@ -14,39 +17,52 @@ import dataclasses
 import functools
 from typing import Optional, Tuple
 
+import torch
+
 from repro_torch.sparse import dispatch as dsp
 
-OPS = ("matmul",)
+OPS = ("matmul", "grouped", "attn.score", "attn.value")
 
 
 @dataclasses.dataclass(frozen=True)
 class OpSite:
     """One declarative sparse call site (hashable).
 
-    op   : op kind — one of :data:`OPS`.
-    name : stats-tape entry name (``mlp.up``, ``attn.q``, …).
-    axes : logical names of the weight's axes (``("embed", "mlp")``, …).
+    op        : op kind — one of :data:`OPS`.
+    name      : stats-tape entry name (``mlp.up``, ``attn.score``, …).
+    axes      : logical names of the weight's axes (``("embed", "mlp")``, …).
+    out_dtype : output/accumulation dtype name ("" → the dispatch default);
+                the decode attention sites pin "float32", as dense
+                attention accumulates.
     """
     op: str
     name: str
     axes: Tuple[str, ...] = ()
+    out_dtype: str = ""
 
 
 @functools.lru_cache(maxsize=None)
-def make(op: str, name: str, *, axes: Tuple[str, ...] = ()) -> OpSite:
+def make(op: str, name: str, *, axes: Tuple[str, ...] = (),
+         out_dtype: str = "") -> OpSite:
     """Memoized :class:`OpSite` constructor."""
     if op not in OPS:
         raise ValueError(f"OpSite op must be one of {OPS}, got {op!r}")
-    return OpSite(op=op, name=name, axes=tuple(axes))
+    return OpSite(op=op, name=name, axes=tuple(axes), out_dtype=out_dtype)
 
 
 def resolve(st: OpSite, cfg) -> dict:
     """Site + config → dispatch knobs (the config constants)."""
-    del st  # every ported site reads the same constants
-    return dict(mode=cfg.sparse_mode, block_m=cfg.sparse_block_m,
-                block_n=cfg.sparse_block_n, slice_k=cfg.sparse_slice_k,
-                use_kernel=cfg.sparse_use_kernel,
-                condense="k" if cfg.sparse_kcondense else None)
+    kw = dict(mode=cfg.sparse_mode, block_m=cfg.sparse_block_m,
+              block_n=cfg.sparse_block_n, slice_k=cfg.sparse_slice_k,
+              use_kernel=cfg.sparse_use_kernel,
+              condense="k" if cfg.sparse_kcondense else None)
+    if st.op == "attn.score":      # cache slots are the rows
+        kw["block_m"] = cfg.sparse_block_t
+    elif st.op == "attn.value":    # cache slots are the contraction
+        kw["slice_k"] = cfg.sparse_block_t
+    if st.out_dtype:
+        kw["out_dtype"] = getattr(torch, st.out_dtype)
+    return kw
 
 
 def _site_of(w, site: Optional[OpSite]) -> OpSite:
@@ -63,6 +79,18 @@ def matmul(x, w, site: Optional[OpSite], cfg, *,
     st = _site_of(w, site)
     return dsp.matmul(x, w, name=st.name, collect_stats=collect_stats,
                       **resolve(st, cfg))
+
+
+def grouped_matmul(x, w, site: Optional[OpSite], cfg, *,
+                   collect_stats: bool = False,
+                   resolved: Optional[dict] = None):
+    """Site-resolved :func:`repro_torch.sparse.dispatch.grouped_matmul`
+    (the KV decode path resolves first, to build its operands at the
+    served tile, and injects the knobs as ``resolved``)."""
+    st = _site_of(w, site)
+    kw = resolved if resolved is not None else resolve(st, cfg)
+    return dsp.grouped_matmul(x, w, name=st.name,
+                              collect_stats=collect_stats, **kw)
 
 
 def project(x, w, site: Optional[OpSite], cfg, *, n_contract: int = 1,

@@ -1,8 +1,9 @@
 """Per-layer StepCounts collection.
 
-While a tape is active the dispatch records one entry per routed matmul:
-the *counted* schedule (StepCounts: dense vs sparse steps) and the
-*executed* step count — what the chosen compute path ran.  The dense
+While a tape is active the dispatch records one entry per routed matmul
+(a grouped matmul's problems sum into one entry): the *counted* schedule
+(StepCounts: dense vs sparse steps) and the *executed* step count — what
+the chosen compute path ran.  The dense
 matmul computes every step, so ``executed == dense``; the kernels walk the
 condensed schedule, so ``executed == sparse``.  With no tape installed,
 recording is a no-op.  The port runs eagerly, so every decode step's

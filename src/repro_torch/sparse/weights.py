@@ -19,11 +19,13 @@ from repro_torch.sparse import plan as pln
 class PlannedWeight:
     """A (masked) weight matrix plus its precomputed activity.
 
-    w            : (K, N) weights, pruning mask already applied.
-    slice_act    : (S, N) bool per-column k-slice activity.
+    w            : (K, N) weights, pruning mask already applied, or
+                   (E, K, N) stacked per-problem weights.
+    slice_act    : (S, N) bool per-column k-slice activity (or (E, S, N)).
     slice_k      : granularity of ``slice_act``.
     elem_act     : optional (K, Nt) bool per-block-col element
-                   k-activity (the ``condense="k"`` planning input).
+                   k-activity, or (E, K, Nt) (the ``condense="k"``
+                   planning input).
     elem_block_n : block_n granularity of ``elem_act`` (0 = not cached).
     site         : optional :class:`~repro_torch.sparse.site.OpSite`.
     """
@@ -35,13 +37,13 @@ class PlannedWeight:
     site: Optional[object] = None
 
     def col_slice_activity(self, slice_k: int) -> torch.Tensor:
-        """(S', N) activity at ``slice_k`` (cached when it matches)."""
+        """(..., S', N) activity at ``slice_k`` (cached when it matches)."""
         if slice_k == self.slice_k:
             return self.slice_act
         return pln.slice_activity_rhs(self.w, slice_k)
 
     def col_element_activity(self, block_n: int) -> torch.Tensor:
-        """(K, Nt) element k-activity at ``block_n`` (cached when it
+        """(..., K, Nt) element k-activity at ``block_n`` (cached when it
         matches, else re-reduced from the stored masked values)."""
         if self.elem_act is not None and block_n == self.elem_block_n:
             return self.elem_act
@@ -51,38 +53,21 @@ class PlannedWeight:
 def plan_weight(w: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 slice_k: int = pln.SLICE_K,
                 block_n: Optional[int] = None) -> PlannedWeight:
-    """Build the static weight-side plan of a 2-D weight (once per layer).
+    """Build the static weight-side plan of a (K, N) or stacked (E, K, N)
+    weight (once per layer).
 
     ``mask`` is the pruning mask, applied to the stored values; ``block_n``
     also memoizes the element-granular k-activity at that block width.
     """
-    if w.ndim != 2:
-        raise ValueError(f"plan_weight expects 2-D, got {tuple(w.shape)}")
+    if w.ndim not in (2, 3):
+        raise ValueError(f"plan_weight expects 2-D or 3-D, got "
+                         f"{tuple(w.shape)}")
     if mask is not None:
         w = w * mask.to(w.dtype)
     return PlannedWeight(
         w=w, slice_act=pln.slice_activity_rhs(w, slice_k), slice_k=slice_k,
         elem_act=pln.element_activity_rhs(w, block_n) if block_n else None,
         elem_block_n=block_n or 0)
-
-
-def _stacked(fn, w: torch.Tensor) -> torch.Tensor:
-    """Apply a (K, N) → (X, Y) reduction over any leading stack axes."""
-    lead = w.shape[:-2]
-    flat = w.reshape(-1, *w.shape[-2:])
-    out = torch.stack([fn(wi) for wi in flat])
-    return out.reshape(*lead, *out.shape[1:])
-
-
-def stacked_slice_activity(w: torch.Tensor, slice_k: int = pln.SLICE_K
-                           ) -> torch.Tensor:
-    """(..., K, N) weights → (..., S, N) bool slice activity."""
-    return _stacked(lambda wi: pln.slice_activity_rhs(wi, slice_k), w)
-
-
-def stacked_element_activity(w: torch.Tensor, block_n: int) -> torch.Tensor:
-    """(..., K, N) weights → (..., K, Nt) bool element k-activity."""
-    return _stacked(lambda wi: pln.element_activity_rhs(wi, block_n), w)
 
 
 def plan_layer_weights(params, keys=("w_up", "w_down"),
@@ -92,13 +77,13 @@ def plan_layer_weights(params, keys=("w_up", "w_down"),
     granularity the dispatch clamps to, keyed like the weights, plus
     ``"<key>@elem"`` element activities when ``block_n`` is given."""
     plans = {
-        k: stacked_slice_activity(
+        k: pln.slice_activity_rhs(
             params[k], pln.effective_slice_k(params[k].shape[-2], slice_k))
         for k in keys if k in params}
     if block_n:
         for k in keys:
             if k in params:
-                plans[f"{k}@elem"] = stacked_element_activity(
+                plans[f"{k}@elem"] = pln.element_activity_rhs(
                     params[k], block_n)
     return plans
 

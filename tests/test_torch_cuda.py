@@ -1,5 +1,5 @@
-"""K1/K2 on the card against their plain versions (needs an NVIDIA GPU
-with nvcc; skipped elsewhere).  Run there with
+"""K1-K4 and the sparse-KV decode on the card against their plain
+versions (needs an NVIDIA GPU with nvcc; skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -8,10 +8,17 @@ float32 output (the same float32 products summed in another order), 1e-2
 for bf16 (one bf16 rounding of sums that may differ in their last float32
 bits).
 """
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import smoke_config
+from repro_torch.configs.base import RunConfig
 from repro_torch.kernels import bitmap_spgemm as bsk
+from repro_torch.kernels import grouped_spgemm as gsk
+from repro_torch.models import transformer as tfm
+from repro_torch.serving import serve_loop
 from repro_torch.sparse import plan as pln
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +82,108 @@ def test_kernels_match_plain(cuda, shape, dtype, out_dtype):
         scale = p.float().abs().max().item()
         err = (y.float() - p.float()).abs().max().item()
         assert err <= rtol * scale, (err, scale)
+
+
+GROUPED = [  # (E, C, K, N, block_m, block_n, slice_k)
+    (16, 4096, 192, 12, 32, 12, 128),   # attn.score of nemotron's decode
+    (16, 12, 4096, 192, 12, 128, 32),   # attn.value
+    (5, 37, 200, 50, 16, 16, 32),       # ragged, partial slices
+]
+OCC = (1.0, 0.6, 0.0, 0.07, 0.9)        # occupied share of each problem
+
+
+def _grouped_case(dev, e, c, k, n, bm, bn, sk, dtype):
+    """Problems whose rows (or, for the value shape, contraction) are
+    occupied to different depths; problem 2 is empty (counts == 0)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(e, c, k, device=dev, generator=g)
+    b = torch.randn(e, k, n, device=dev, generator=g)
+    b[torch.rand(e, k, n, device=dev, generator=g) < 0.3] = 0
+    for i in range(e):
+        frac = OCC[i % len(OCC)]
+        if c >= k:
+            a[i, int(c * frac):] = 0
+        else:
+            a[i, :, int(k * frac):] = 0
+            b[i, int(k * frac):] = 0
+    a, b = a.to(dtype), b.to(dtype)
+    bm, bn, sk = pln.clamp_geometry(c, n, k, bm, bn, sk)
+    ks, counts = pln.plan_grouped_activity(
+        pln.block_reduce_lhs(pln.slice_activity_lhs(a, sk), bm),
+        pln.block_reduce_rhs(pln.slice_activity_rhs(b, sk), bn))
+    kp = pln.plan_grouped_kcondensed(pln.element_activity_lhs(a, bm),
+                                     pln.element_activity_rhs(b, bn), sk)
+    return a, b, ks, counts, kp, dict(block_m=bm, block_n=bn, slice_k=sk)
+
+
+@pytest.mark.parametrize("shape", GROUPED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_grouped_kernels_match_plain(cuda, shape, dtype, out_dtype):
+    a, b, ks, counts, kp, geom = _grouped_case(cuda, *shape, dtype)
+    assert (counts[2] == 0).all() and (kp.counts[2] == 0).all()
+    n3 = gsk.grouped_spgemm_planned.launches
+    n4 = gsk.grouped_spgemm_kfused_planned.launches
+    pairs = [
+        (gsk.grouped_spgemm_planned(a, b, ks, counts, out_dtype=out_dtype,
+                                    **geom),
+         gsk.grouped_spgemm_planned_plain(a, b, ks, counts,
+                                          out_dtype=out_dtype, **geom)),
+        (gsk.grouped_spgemm_kfused_planned(a, b, kp.gk, kp.counts,
+                                           out_dtype=out_dtype, **geom),
+         gsk.grouped_spgemm_kfused_planned_plain(
+             a, b, kp.gk, kp.counts, out_dtype=out_dtype, **geom)),
+    ]
+    torch.cuda.synchronize()
+    assert gsk.grouped_spgemm_planned.launches == n3 + 1
+    assert gsk.grouped_spgemm_kfused_planned.launches == n4 + 1
+    want = out_dtype or dtype
+    rtol = 1e-5 if want == torch.float32 else 1e-2
+    for y, p in pairs:
+        assert y.dtype == p.dtype == want
+        assert not y[2].any()                 # the empty problem
+        scale = p.float().abs().max().item()
+        err = (y.float() - p.float()).abs().max().item()
+        assert err <= rtol * scale, (err, scale)
+
+
+def test_grouped_kernels_empty_grids(cuda):
+    """No problems, and problems with no rows: clean launches, right
+    shapes."""
+    for e, c in ((0, 8), (3, 0)):
+        a = torch.zeros(e, c, 16, device=cuda)
+        b = torch.zeros(e, 16, 8, device=cuda)
+        mt = pln._cdiv(c, 8)
+        ks = torch.zeros(e, mt, 1, 2, dtype=torch.int32, device=cuda)
+        cn = torch.zeros(e, mt, 1, dtype=torch.int32, device=cuda)
+        y = gsk.grouped_spgemm_planned(a, b, ks, cn, block_m=8, block_n=8,
+                                       slice_k=8)
+        torch.cuda.synchronize()
+        assert tuple(y.shape) == (e, c, 8)
+
+
+def test_sparse_kv_generate_matches_cpu(cuda):
+    """The smoke model's sparse-KV decode on the card (K1 + K3, K2 + K4)
+    emits the CPU plain path's tokens."""
+    cfg = smoke_config("nemotron-4-340b")
+    cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", dtype=torch.float32)
+    gpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", dtype=torch.float32).to(cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9),
+                           generator=torch.Generator().manual_seed(1))
+    rc = RunConfig(act_dtype="float32")
+    for kc in (False, True):
+        c = dataclasses.replace(cfg, sparse_mode="dual", sparse_kv=True,
+                                sparse_use_kernel=True, sparse_kcondense=kc,
+                                sparse_block_t=8)
+        n = (gsk.grouped_spgemm_kfused_planned if kc
+             else gsk.grouped_spgemm_planned)
+        before = n.launches
+        want = serve_loop.generate(cpu, {"tokens": tokens}, c,
+                                   max_new_tokens=6, capacity=48, rc=rc,
+                                   device="cpu")
+        got = serve_loop.generate(gpu, {"tokens": tokens}, c,
+                                  max_new_tokens=6, capacity=48, rc=rc)
+        assert n.launches == before + 2 * 2 * 5
+        assert torch.equal(want, got.cpu())
