@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with a card and ``nvcc``.
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. device — the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build — K1-K4 compiled from ``src/repro_torch/kernels/csrc`` (sm_90a),
-   registers and spills of each library;
+2. build — K1-K7 compiled from ``src/repro_torch/kernels/csrc`` (sm_90a),
+   one ``nvcc`` per source, all at once; registers and spills of each;
 3. kernels — K1 and K2 against their plain PyTorch versions, in bf16 and
    float32, at every projection shape of the served model (decode M=2,
    prefill M=64) and at ragged shapes with ``counts == 0`` blocks and
@@ -16,19 +16,22 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    bound, the plain version and ``torch.matmul`` (a yardstick only);
 4. grouped kernels — K3 and K4 against their plain versions at the two
    decode attention products of a 4096-slot cache holding 257 and 271
-   tokens (score: bf16 operands, float32 out; value: float32; each also
-   in the other type), and at a ragged shape with an empty problem and
-   partial slices; timings beside the bound, the plain version and
-   ``torch.bmm`` over the whole capacity (what dense attention pays);
-5. reference — the smoke model on the card against the CPU plain path,
-   the sparse-KV modes included;
-6. serving — full-width ``nemotron-4-340b`` cut to 2 layers (random bf16
+   tokens, and at a ragged shape with an empty problem; timings beside the
+   bound, the plain version and ``torch.bmm`` over the whole capacity;
+5. conv kernels — K5, K6 and K7 bit-equal to their plain versions in bf16
+   and float32 at whisper-base's stem shapes (4 segments, conv1 k=1x3 s=1
+   over 80 mel bins, conv2 s=2 over 512 channels), the vision patch shape
+   (560 x 560 x 3, k = s = 14) and ragged shapes; bf16 device times at the
+   stem shapes beside the byte bound, the plain version and ``F.unfold``;
+6. reference — the smoke models (nemotron, whisper) on the card against
+   the CPU plain path, the sparse-KV modes included;
+7. serving — full-width ``nemotron-4-340b`` cut to 2 layers (random bf16
    weights from a seed) through ``generate``: dense, dual (K1) and
    dual+kcondense (K2), 2 prompts of 32 tokens, 8 new tokens each; each
    kernel must launch exactly 13 dispatches x 8 forwards = 104 times in
    its run, prefill logits must match dense, and greedy tokens may part
    from dense only where dense's top-2 logits are within the tolerance;
-7. serving, sparse KV — the same model, 2 prompts of 256 tokens in a
+8. serving, sparse KV — the same model, 2 prompts of 256 tokens in a
    4096-slot context, 16 new tokens: dual with plain caches (the
    baseline), dual+kv (K1 + K3) and dual+kc+kv (K2 + K4).  K3 (K4) must
    launch 2 sites x 2 layers x 15 decodes = 60 times and K1 (K2) 13 x 16 =
@@ -36,7 +39,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    cache; decode logits, fed the baseline's tokens, stay within the
    tolerance of the baseline's; the tape's attention entries execute what
    they count, less than dense; then one decode attention call is split
-   into planning, operand copies, kernels and the rest.
+   into planning, operand copies, kernels and the rest;
+9. serving, whisper — full-width, full-depth ``whisper-base`` (random bf16
+   weights) through ``generate``: 4 segments of 3000 mel frames, the
+   4-token start-of-transcript prompt, 32 new tokens, in dense, dual and
+   dual+kc; launches exactly K5 2, K6 1, K7 1 and K1 (K2) 1618; the stem
+   convs execute what they count; prefill logits and tokens against dense
+   as in 7; then the stem convs of one prefill are split into K5, K6/K7,
+   the lowering glue, planning, K1/K2 and the rest, beside ``F.conv2d``.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -46,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -88,6 +99,31 @@ KV_MODES = {
 KV_CALLS = N_LAYERS * (KV_NEW_TOKENS - 1)
 # cache slots written at the first and the last decode step
 KV_WRITTEN = (KV_PROMPT_LEN + 1, KV_PROMPT_LEN + KV_NEW_TOKENS - 1)
+
+# the whisper traffic: 4 segments of 30 s audio (3000 mel frames x 80
+# bins each), whisper's start-of-transcript prefix as the prompt, 32 greedy
+# tokens; whisper-base at full width and depth
+WHISPER = "whisper-base"
+W_SEGMENTS, W_NEW = 4, 32
+# <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>
+W_PROMPT = (50258, 50259, 50359, 50363)
+# the vision patch conv's shape (k = s = 14 over a 560 x 560 x 3 image):
+# K7's other caller, checked here, served by a later slice
+PATCH = (1, 560, 560, 3, 14, 14, 14)
+# ragged conv shapes (N, H, W, C, kh, kw, stride): 3x3 at strides 1 and
+# 2, windows that cross or end on a word boundary, W multiple of 32
+CONV_RAGGED = [(1, 7, 9, 3, 3, 3, 1), (2, 9, 10, 2, 3, 3, 2),
+               (1, 1, 66, 2, 1, 34, 1), (1, 1, 65, 2, 1, 2, 1),
+               (1, 1, 100, 2, 1, 33, 2), (1, 2, 96, 3, 2, 1, 1)]
+
+
+def whisper_k1_launches(cfg) -> int:
+    """K1 (K2) launches per whisper generate: at prefill the two stem
+    convs, 6 per encoder layer, 10 per decoder layer (self q/k/v/o, cross
+    q/k/v/o, mlp up/down) and the head; at each decode 8 per decoder layer
+    (the cross K/V are cached) and the head."""
+    prefill = 2 + 6 * cfg.n_encoder_layers + 10 * cfg.n_layers + 1
+    return prefill + (W_NEW - 1) * (8 * cfg.n_layers + 1)
 
 
 def log(msg: str) -> None:
@@ -141,6 +177,26 @@ def cuda_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of the kernels ``fn`` launches, from a
+    ``torch.profiler`` (CUPTI) trace of ``reps`` calls: the card's own
+    time, without the host's time in the wrapper, which CUDA events around
+    a call of a microsecond-scale kernel mostly measure.  None when the
+    trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def plan_k1(a, b):
@@ -918,6 +974,407 @@ def phase_attention_split(torch, cfg):
     return split
 
 
+# ---------------------------------------------------------------------------
+# the conv kernels against their plain versions, and the whisper path
+# ---------------------------------------------------------------------------
+
+def raw_bits(t):
+    """Bit patterns, so that equality is bit-equality (-0.0 != 0.0)."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def stem_inputs(torch, cfg, g, dtype):
+    """The two stem convs' inputs at the whisper traffic's shapes, NHWC:
+    conv1 reads the time-padded mel frames (ReLU-clipped normal, as the
+    JAX package's ``frontend_inputs``), conv2 the time-padded GeLU of a
+    normal (the GeLU output of conv1: dense)."""
+    import torch.nn.functional as F
+    t = 2 * cfg.encoder_len
+    mel = torch.randn(W_SEGMENTS, t, cfg.n_mels, device="cuda",
+                      generator=g).clamp(min=0)
+    h = F.gelu(torch.randn(W_SEGMENTS, t, cfg.d_model, device="cuda",
+                           generator=g), approximate="tanh")
+    return (F.pad(mel[:, None], (0, 0, 1, 1)).to(dtype),
+            F.pad(h[:, None], (0, 0, 1, 1)).to(dtype))
+
+
+def conv_check(torch, x, kh, kw, stride, what):
+    """K5 on the NHWC input's (N, C, H, W) view, then K6 (stride 1) or K7
+    on K5's outputs, each held bit-equal against its plain version on the
+    same inputs.  Returns the timing closures and the bound's bytes."""
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import sparse_im2col as k67
+    xv = x.permute(0, 3, 1, 2)
+    bits, cond = k5.bitmap_encode(xv)
+    pb, pc = k5.bitmap_encode_plain(xv)
+    torch.cuda.synchronize()
+    if not (torch.equal(bits, pb) and torch.equal(raw_bits(cond),
+                                                  raw_bits(pc))):
+        raise AssertionError(f"K5 != plain at {what}")
+    if stride == 1:
+        kern = functools.partial(k67.sparse_im2col, cond, bits, kh=kh, kw=kw)
+        plain = functools.partial(k67.sparse_im2col_plain, cond, bits,
+                                  kh=kh, kw=kw)
+    else:
+        kern = functools.partial(k67.sparse_im2col_strided, cond, bits,
+                                 kh=kh, kw=kw, stride=stride)
+        plain = functools.partial(k67.sparse_im2col_strided_plain, cond,
+                                  bits, kh=kh, kw=kw, stride=stride)
+    ob, ov = kern()
+    qb, qv = plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(ob, qb) and torch.equal(raw_bits(ov), raw_bits(qv))):
+        raise AssertionError(f"{'K6' if stride == 1 else 'K7'} != plain at "
+                             f"{what}")
+    e = x.element_size()
+    # K5 tests every element: x read whole, bits and cond written whole;
+    # K6/K7 read only the condensed rows' non-zeros, and the bitmaps, and
+    # write their whole outputs (the zero tails included)
+    k5_bytes = x.numel() * e * 2 + bits.numel() * 4
+    k67_bytes = (int(torch.count_nonzero(cond)) * e + bits.numel() * 4
+                 + ob.numel() * 4 + ov.numel() * e)
+    xn = xv.contiguous()
+    return dict(
+        k5=lambda: k5.bitmap_encode(xv),
+        k5_plain=lambda: k5.bitmap_encode_plain(xv),
+        k67=kern, k67_plain=plain,
+        unfold=lambda: torch.nn.functional.unfold(xn, (kh, kw),
+                                                  stride=stride),
+        k5_bytes=k5_bytes, k67_bytes=k67_bytes,
+        zero_share=1.0 - int(torch.count_nonzero(ov)) / ov.numel())
+
+
+def phase_conv_kernels(torch):
+    """K5, K6 and K7 bit-equal to their plain versions in bf16 and float32
+    at the whisper stem's shapes, the vision patch shape and ragged ones;
+    bf16 timings at the stem's shapes beside the byte bound, the plain
+    version and ``F.unfold`` (a dense im2col without bitmaps, a yardstick
+    only).  Returns {kernel: totals over one generate's launches}."""
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    totals = {kn: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0)
+              for kn in ("K5", "K6", "K7")}
+    for dtype in ("bfloat16", "float32"):
+        x1, x2 = stem_inputs(torch, cfg, g, getattr(torch, dtype))
+        for name, x, stride in (("conv.stem1", x1, 1), ("conv.stem2", x2, 2)):
+            n, h, w, c = x.shape
+            what = (f"{name} N={n} H={h} W={w} C={c} 1x3 s={stride} "
+                    f"{dtype}")
+            res = conv_check(torch, x, 1, 3, stride, what)
+            if dtype != "bfloat16":
+                log(f"conv kernels: {what}: K5 and "
+                    f"{'K6' if stride == 1 else 'K7'} bit-equal to plain")
+                continue
+            kn = "K6" if stride == 1 else "K7"
+            t = {k: cuda_ms(torch, res[k], reps)
+                 for k, reps in (("k5", 20), ("k5_plain", 3), ("k67", 20),
+                                 ("k67_plain", 3), ("unfold", 20))}
+            # the kernels' and F.unfold's own device time; CUDA events
+            # around one call also hold the wrapper's host time
+            dev = {k: device_ms(torch, res[k]) for k in ("k5", "k67",
+                                                          "unfold")}
+            if None in dev.values():
+                log("conv kernels: the profiler traced no device time; "
+                    "the kernel times below are CUDA-event times")
+                dev = {k: t[k] for k in dev}
+            b5 = res["k5_bytes"] / HBM_BYTES_PER_S * 1e3
+            b67 = res["k67_bytes"] / HBM_BYTES_PER_S * 1e3
+            for k, ms, pms, nb in (("K5", dev["k5"], t["k5_plain"],
+                                    res["k5_bytes"]),
+                                   (kn, dev["k67"], t["k67_plain"],
+                                    res["k67_bytes"])):
+                totals[k]["ms"] += ms
+                totals[k]["plain_ms"] += pms
+                totals[k]["nbytes"] += nb
+            totals[kn]["library_ms"] += dev["unfold"]
+            log(f"conv kernels: {what}: bit-equal to plain; device time "
+                f"(events around one call, wrapper included): K5 "
+                f"{dev['k5']:.4f} ({t['k5']:.4f}) ms, bound {b5:.4f}, plain "
+                f"{t['k5_plain']:.3f}; {kn} {dev['k67']:.4f} "
+                f"({t['k67']:.4f}) ms, bound {b67:.4f}, plain "
+                f"{t['k67_plain']:.3f}, F.unfold {dev['unfold']:.4f} "
+                f"({t['unfold']:.4f}); {res['zero_share']:.4f} of the "
+                "lowered elements are zero")
+        del x1, x2
+        torch.cuda.empty_cache()
+        for shape in [PATCH] + CONV_RAGGED:
+            n, h, w, c, kh, kw, s = shape
+            x = torch.randn(n, h, w, c, device="cuda", generator=g)
+            x[torch.rand(x.shape, device="cuda", generator=g) < 0.5] = 0
+            x[0, 0, :, 0] = 0                          # an all-zero row
+            x[..., 1::7, :] = -0.0
+            x[-1, -1, :, -1] = 1.0                     # all non-zero
+            if w >= 32:
+                x[:, :, 31::32, ::2] = 1.5             # bit 31 set
+            conv_check(torch, x.to(getattr(torch, dtype)), kh, kw, s,
+                       f"{shape} {dtype}")
+        log(f"conv kernels: {dtype}: the patch shape {PATCH} and "
+            f"{len(CONV_RAGGED)} ragged shapes bit-equal to plain")
+    return totals
+
+
+def phase_reference_whisper(torch):
+    """whisper-base-smoke in float32: the card (K5-K7 in the stem, K1/K2
+    everywhere, cuDNN in dense mode with TF32 off) against the CPU plain
+    path, same weights, mel frames and prompts (1e-4 on the logits,
+    greedy tokens equal)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    cfg = smoke_config(WHISPER)
+    cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", dtype=torch.float32)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 4), generator=g),
+             "mel": torch.randn(2, 2 * cfg.encoder_len, cfg.n_mels,
+                                generator=g).clamp(min=0)}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    rc = RunConfig(act_dtype="float32")
+    for mode, knobs in MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        want = cpu(batch, c, rc=rc).logits
+        got = gpu(gbatch, c, rc=rc).logits.cpu()
+        err = (got - want).abs().max().item()
+        if not err <= 1e-4 * want.abs().max().item():
+            raise AssertionError(f"whisper smoke {mode}: card vs CPU logits "
+                                 f"{err}")
+        tc = serve_loop.generate(cpu, batch, c, max_new_tokens=6, rc=rc,
+                                 device="cpu")
+        tg = serve_loop.generate(gpu, gbatch, c, max_new_tokens=6, rc=rc)
+        if not torch.equal(tc, tg.cpu()):
+            raise AssertionError(f"whisper smoke {mode}: tokens differ")
+        log(f"reference: whisper smoke {mode} on the card == CPU plain path "
+            f"(logits max err {err:.2e}, 6 greedy tokens equal)")
+
+
+def whisper_batch(torch, cfg):
+    """The whisper traffic: W_SEGMENTS segments of 2 x encoder_len mel
+    frames (ReLU-clipped normal, as the JAX package's ``frontend_inputs``)
+    and whisper's 4-token start-of-transcript prompt for each."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    mel = torch.randn(W_SEGMENTS, 2 * cfg.encoder_len, cfg.n_mels,
+                      device="cuda", generator=g).clamp(min=0)
+    tokens = torch.tensor([W_PROMPT] * W_SEGMENTS, device="cuda")
+    return {"tokens": tokens, "mel": mel}
+
+
+def phase_serving_whisper(torch, cfg):
+    """Full-width, full-depth whisper-base (random bf16 weights from a
+    seed) through ``generate`` in dense, dual and dual+kc: exact launch
+    counts, stem convs executing what they count, prefill logits and
+    tokens against dense."""
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import grouped_spgemm as gsk
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparse_im2col as k67
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.sparse import tape
+    t0 = time.perf_counter()
+    model = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serving whisper: {cfg.name} at full width and depth "
+        f"({cfg.n_encoder_layers} + {cfg.n_layers} layers), "
+        f"{n_params / 1e6:.1f} M bf16 parameters, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = whisper_batch(torch, cfg)
+    counters = {"K1": bsk.bitmap_spgemm_planned,
+                "K2": bsk.bitmap_spgemm_kfused_planned,
+                "K3": gsk.grouped_spgemm_planned,
+                "K4": gsk.grouped_spgemm_kfused_planned,
+                "K5": k5.bitmap_encode, "K6": k67.sparse_im2col,
+                "K7": k67.sparse_im2col_strided}
+    n1 = whisper_k1_launches(cfg)
+    conv = {"K5": 2, "K6": 1, "K7": 1}
+    expect = {"dense": {}, "dual": {"K1": n1, **conv},
+              "dual+kc": {"K2": n1, **conv}}
+    launches, tokens, walls = {}, {}, {}
+    for mode, knobs in MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            out = serve_loop.generate(model, batch, c, max_new_tokens=W_NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {kn: fn.launches for kn, fn in counters.items()}
+        want = {kn: expect[mode].get(kn, 0) for kn in counters}
+        if got != want:
+            raise AssertionError(f"whisper {mode}: launches {got}, "
+                                 f"expected {want}")
+        if tuple(out.shape) != (W_SEGMENTS, W_NEW):
+            raise AssertionError(f"whisper {mode}: tokens of shape "
+                                 f"{out.shape}")
+        launches[mode], tokens[mode], walls[mode] = got, out.cpu(), dt * 1e3
+        sites = site_steps(tape, entries)
+        for stem in ("conv.stem1", "conv.stem2"):
+            d, counted, executed = sites[stem]
+            if mode != "dense" and counted != executed:
+                raise AssertionError(f"whisper {mode}: {stem} executed "
+                                     f"{executed} != counted {counted}")
+        log(f"serving whisper: {mode}: {W_SEGMENTS * W_NEW / dt:.2f} "
+            f"tokens/s ({dt:.2f} s for generate, {W_SEGMENTS} segments, "
+            f"stats tape on), launches "
+            f"{ {k: v for k, v in got.items() if v} }, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            "dense/counted/executed steps " + ", ".join(
+                f"{k} {v[0]}/{v[1]}/{v[2]}" for k, v in sites.items()))
+
+    # prefill logits of each path (one prefill timed), dense's per-step
+    # logits and decode time
+    logits, times = {}, {}
+    for mode, knobs in MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        caches = tfm.init_caches(c, W_SEGMENTS, len(W_PROMPT) + W_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, lg = serve_loop.make_prefill_step(c)(model, batch, caches)
+        torch.cuda.synchronize()
+        times[mode] = [(time.perf_counter() - t0) * 1e3]
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"whisper {mode}: non-finite prefill logits")
+        logits[mode] = lg.float()
+        decode = serve_loop.make_decode_step(c)
+        steps, toks = [lg[:, -1].float()], [state.last_token[:, 0]]
+        for _ in range(W_NEW - 1):
+            t0 = time.perf_counter()
+            state, lg1 = decode(model, state)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+            steps.append(lg1.float())
+            toks.append(state.last_token[:, 0])
+        if not torch.equal(torch.stack(toks, 1).int().cpu(), tokens[mode]):
+            raise AssertionError(f"whisper {mode}: stepwise != generate")
+        if mode == "dense":
+            dense_steps = steps
+    scale = logits["dense"].abs().max().item()
+    tol = SERVE_RTOL * scale
+    for mode in MODES:
+        t = times[mode]
+        line = (f"serving whisper: {mode}: one prefill {t[0]:.1f} ms, "
+                f"decode steps median {statistics.median(t[1:]):.1f} ms")
+        if mode != "dense":
+            err = (logits[mode] - logits["dense"]).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"whisper {mode}: prefill logits differ "
+                                     f"from dense by {err:.4f} > {tol:.4f}")
+            agree = parting_report(torch, f"whisper {mode}", tokens[mode],
+                                   tokens["dense"], dense_steps, tol)
+            line += (f"; prefill logits max |diff| {err:.4f} <= {tol:.4f} "
+                     f"({SERVE_RTOL} x max|dense| {scale:.3f}); "
+                     + "; ".join(agree))
+        log(line)
+    lb = kops.sparse_im2col(
+        torch.nn.functional.pad(batch["mel"][:, None], (0, 0, 1, 1)).to(
+            torch.bfloat16), 1, 3, 1)
+    zero = 1.0 - int(lb.counts.sum()) / lb.values.numel()
+    log(f"serving whisper: conv1's lowered input ({W_SEGMENTS} x "
+        f"{lb.values.shape[1]} x {lb.values.shape[2]}): {zero:.4f} of its "
+        "elements are zero")
+    return model, launches, walls, times
+
+
+def phase_conv_split(torch, cfg, model):
+    """One prefill's stem convs at the served shapes, timed whole and in
+    parts: K5, K6/K7, the lowering glue (row-packed → flat bitmap, the
+    popcount decode to positional values, the transposed repack and slice
+    activity, the flattened contiguous rows), the dispatch's planning,
+    K1/K2 and the rest; beside the dense ``F.conv2d`` (cuDNN).  Medians of
+    20 rounds in turns.  Returns ms per part."""
+    import torch.nn.functional as F
+    from repro_torch.core import im2col as i2c
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparse_im2col as k67
+    from repro_torch.models import frontend as fem
+    from repro_torch.sparse import activation as act
+    from repro_torch.sparse import conv as scv
+    from repro_torch.sparse import dispatch as dsp
+    from repro_torch.sparse import plan as pln
+    from repro_torch.sparse import site
+    batch = whisper_batch(torch, cfg)
+    fp = model.frontend
+    x1 = F.pad(batch["mel"][:, None].to(torch.bfloat16), (0, 0, 1, 1))
+    y1, _ = scv.conv2d(x1, fp.conv1, 1)
+    x2 = F.pad(act.gelu(y1 + fp.b1), (0, 0, 1, 1))
+    split = {}
+    for mode in ("dual", "dual+kc"):
+        c = dataclasses.replace(cfg, **MODES[mode])
+        condense = "k" if c.sparse_kcondense else None
+        kern = (bsk.bitmap_spgemm_kfused_planned if condense
+                else bsk.bitmap_spgemm_planned)
+        for key, x, stride in (("conv1", x1, 1), ("conv2", x2, 2)):
+            st = fem.conv_site(key)
+            kw_ = site.resolve(st, c)
+            w4 = getattr(fp, key)
+            kh, kwid, _, f = w4.shape
+            w2 = w4.reshape(-1, f)
+            ow = i2c.out_size(x.shape[2], kwid, stride)
+            xv = x.permute(0, 3, 1, 2)
+            bits, cond = k5.bitmap_encode(xv)
+
+            def im2col():
+                if stride == 1:
+                    return k67.sparse_im2col(cond, bits, kh=kh, kw=kwid)
+                return k67.sparse_im2col_strided(cond, bits, kh=kh, kw=kwid,
+                                                 stride=stride)
+            ob, ov = im2col()
+
+            def glue():
+                lb = kops.rowpacked_to_flat(ob, ov, ow, ov.shape[-1])
+                a = scv.lowered_to_activation(lb, kw_["slice_k"])
+                a = a.flatten_leading()
+                return a, a.values.contiguous()
+            a2, av = glue()
+            m, k = av.shape
+            bm_, bn_, sk_ = pln.clamp_geometry(m, f, k, kw_["block_m"],
+                                               kw_["block_n"],
+                                               kw_["slice_k"])
+            geom = dict(block_m=bm_, block_n=bn_, slice_k=sk_)
+
+            def planning():
+                return dsp.schedule(a2, w2, mode="dual", condense=condense,
+                                    **geom)
+            sched, counts = planning()
+            ks = sched.gk if condense else sched
+            parts = {
+                "total": lambda: site.conv2d(x, w4, stride, site=st, cfg=c),
+                "K5": lambda: k5.bitmap_encode(xv), "im2col": im2col,
+                "glue": glue, "planning": planning,
+                "gemm": lambda: kern(av, w2, ks, counts, **geom),
+                "dense": lambda: scv.conv2d(x, w4, stride)}
+            times = {name: [] for name in parts}
+            for _ in range(20):
+                for name, fn in parts.items():
+                    times[name].append(cuda_ms(torch, fn, 1))
+            t = {name: statistics.median(v) for name, v in times.items()}
+            t["rest"] = t["total"] - sum(t[p] for p in (
+                "K5", "im2col", "glue", "planning", "gemm"))
+            split[(mode, key)] = t
+            kn = ("K2" if condense else "K1")
+            ki = "K6" if stride == 1 else "K7"
+            log(f"conv split: {mode} {fem.conv_site(key).name} ({m} x {k} "
+                f"@ {k} x {f}, {int(counts.sum())} of "
+                f"{counts.numel() * (ks.shape[-2] if condense else ks.shape[-1])}"
+                f" steps): {t['total']:.3f} ms = K5 {t['K5']:.3f} + {ki} "
+                f"{t['im2col']:.3f} + lowering glue {t['glue']:.3f} + "
+                f"planning {t['planning']:.3f} + {kn} {t['gemm']:.3f} + the "
+                f"rest {t['rest']:.3f}; dense F.conv2d {t['dense']:.3f} ms "
+                "(medians of 20 rounds in turns)")
+    return split
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -939,13 +1396,20 @@ def main() -> int:
     g_err, g_totals = phase_grouped(torch, cfg)
     err.update(g_err)
     totals.update(g_totals)
+    c_totals = phase_conv_kernels(torch)
+    totals.update(c_totals)
     phase_reference(torch)
+    phase_reference_whisper(torch)
     model = make_model(torch, cfg)
     launches, walls = phase_serving(torch, cfg, model)
     kv_launches, kv_walls, _ = phase_serving_kv(torch, cfg, model)
     del model
     torch.cuda.empty_cache()
     phase_attention_split(torch, cfg)
+    wcfg = get_config(WHISPER)
+    wmodel, w_launches, w_walls, w_times = phase_serving_whisper(torch, wcfg)
+    phase_conv_split(torch, wcfg, wmodel)
+    del wmodel
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -960,6 +1424,13 @@ def main() -> int:
             f"{kn} launches take {t['ms']:.2f} ms and their planning "
             f"{t['plan_ms']:.1f} ms (torch.bmm over every slot "
             f"{t['library_ms']:.2f} ms)")
+    conv_ms = sum(totals[kn]["ms"] for kn in ("K5", "K6", "K7"))
+    for mode in MODES:
+        log(f"time: whisper {mode} generate {w_walls[mode]:.0f} ms (prefill "
+            f"{w_times[mode][0]:.1f} ms, decode median "
+            f"{statistics.median(w_times[mode][1:]):.1f} ms)"
+            + (f"; its K5-K7 launches take {conv_ms:.3f} ms timed alone"
+               if mode != "dense" else ""))
 
     meta = {
         "K1": ("bitmap_spgemm_planned",
@@ -978,26 +1449,45 @@ def main() -> int:
                "src/repro_torch/kernels/csrc/grouped_spgemm_kfused.cu",
                "src/repro/kernels/grouped_spgemm.py:209",
                kv_launches["dual+kc+kv"]["K4"]),
+        "K5": ("bitmap_encode",
+               "src/repro_torch/kernels/csrc/bitmap_encode.cu",
+               "src/repro/kernels/bitmap_encode.py:54",
+               w_launches["dual"]["K5"]),
+        "K6": ("sparse_im2col",
+               "src/repro_torch/kernels/csrc/sparse_im2col.cu",
+               "src/repro/kernels/sparse_im2col.py:218",
+               w_launches["dual"]["K6"]),
+        "K7": ("sparse_im2col_strided",
+               "src/repro_torch/kernels/csrc/sparse_im2col_strided.cu",
+               "src/repro/kernels/sparse_im2col.py:172",
+               w_launches["dual"]["K7"]),
     }
     rows = []
     for kn, (name, source, replaces, n_launch) in meta.items():
         t = totals[kn]
         t_bytes = t["nbytes"] / HBM_BYTES_PER_S
-        t_ops = t["op_s"]
+        t_ops = t.get("op_s", 0.0)      # K5-K7 do no arithmetic
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch,
-            "max_abs_err": err[kn], "ms": t["ms"],
+            # K5-K7 are held bit-equal (a mismatch raised above)
+            "max_abs_err": err.get(kn, 0.0), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": t["library_ms"]})
+            # no PyTorch call encodes a bitmap (K5); F.unfold lowers
+            # densely, the same values without the bitmap (K6/K7)
+            "library_ms": None if kn == "K5" else t["library_ms"]})
     log(f"kernels line: ms, plain_ms, bound_ms and library_ms are summed "
         f"over one generate's launches at the served types: K1/K2 bf16 over "
         f"{13 * NEW_TOKENS} dispatches (1 prefill of {PROMPTS * PROMPT_LEN} "
         f"rows, {NEW_TOKENS - 1} decodes of {PROMPTS}), library_ms "
         f"torch.matmul; K3/K4 over {KV_CALLS} score (bf16 in) and "
         f"{KV_CALLS} value (float32) products of the sparse-KV generate, "
-        f"library_ms torch.bmm over all {CAPACITY} slots; total "
+        f"library_ms torch.bmm over all {CAPACITY} slots; K5-K7 bf16 over "
+        f"one whisper generate's stem ({W_SEGMENTS} segments: K5 on both "
+        f"stem convs, K6 on conv1, K7 on conv2), ms and library_ms "
+        f"(F.unfold) the profiler's device time, bound_ms from the bytes "
+        f"each must move; total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

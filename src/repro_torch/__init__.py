@@ -5,8 +5,10 @@ reference.  It imports ``torch`` and numpy only, never ``jax`` and never
 ``repro``.  Each module mirrors the JAX module of the same path; where
 PyTorch idiom differs, the counterpart is:
 
-* ``models.transformer.forward`` → ``Transformer.forward``;
-  ``_apply_layer`` → ``DecoderLayer.forward``;
+* ``models.transformer.forward`` → ``Transformer.forward`` (its
+  encoder half → ``Transformer.encode``); ``_apply_layer`` →
+  ``DecoderLayer.forward``;
+* ``models.frontend`` params → ``AudioFrontend``;
   ``attention.attention_forward`` → ``Attention.forward``;
   ``mlp.init_mlp``/``mlp_forward`` → ``MLP`` and ``MLP.forward``;
 * ``lax.scan`` over layers or decode steps → a Python loop;

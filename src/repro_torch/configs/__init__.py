@@ -26,7 +26,7 @@ def smoke_config(name: str) -> ModelConfig:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import nemotron_4_340b  # noqa: F401
+    from repro_torch.configs import nemotron_4_340b, whisper_base  # noqa: F401
 
 
 __all__ = ["ModelConfig", "RunConfig", "get_config", "register",

@@ -1,9 +1,10 @@
 """Config dataclasses: model architecture and run knobs.
 
-A copy of the JAX package's ``configs/base.py`` cut to the decoder-only
-dense family this package serves.  Field names, defaults and the
-dense-mode checks are the same, so one configuration means the same model
-in both packages.
+A copy of the JAX package's ``configs/base.py`` cut to the families this
+package serves: the decoder-only dense family and the audio
+encoder-decoder with its conv stem.  Field names, defaults and the
+frontend and dense-mode checks are the same, so one configuration means
+the same model in both packages.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import warnings
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported)
+    family: str                    # dense | audio (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,14 +26,24 @@ class ModelConfig:
 
     # attention
     rope_style: str = "half"       # half | 2d (chatglm) | none
+    abs_positions: bool = False    # sinusoidal absolute positions (whisper)
     rope_theta: float = 10000.0
     sliding_window: int = 0        # 0 = full attention
     # mlp
-    mlp_type: str = "swiglu"       # relu2 | relu ported; swiglu | gelu not
+    mlp_type: str = "swiglu"       # relu2 | relu | gelu ported; swiglu not
+    # enc-dec / audio frontend: with frontend_conv the model consumes raw
+    # mel frames through the two-conv stem (repro_torch.models.frontend),
+    # routed through repro_torch.sparse.conv
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_len: int = 0           # encoder positions (mel frames / 2)
+    frontend: str = "none"         # none | audio (vision is not ported)
+    frontend_conv: bool = False
+    n_mels: int = 0                # audio: mel bins into the conv stem
     # dual-side sparsity dispatch: dense keeps plain torch.matmul;
     # weight/dual route every projection through repro_torch.sparse.
     sparse_mode: str = "dense"     # dense | weight | dual
-    sparse_use_kernel: bool = False  # run the K1/K2 Hopper kernels
+    sparse_use_kernel: bool = False  # run the Hopper kernels (K1/K2, K5-K7)
     # element-granular K-condensation (K2 instead of K1 under use_kernel)
     sparse_kcondense: bool = False
     sparse_block_m: int = 128
@@ -47,8 +58,20 @@ class ModelConfig:
     # norms
     norm_kind: str = "rms"         # rms | layer
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False   # only untied heads are ported
 
     def __post_init__(self):
+        # conv-frontend geometry must be consistent at config time, not
+        # fail as a shape error deep in the encoder or cross-attention
+        if self.frontend_conv:
+            if self.frontend == "audio" and self.n_mels <= 0:
+                raise ValueError(
+                    f"ModelConfig(name={self.name!r}): frontend_conv audio "
+                    "requires n_mels > 0")
+            if self.frontend == "none":
+                raise ValueError(
+                    f"ModelConfig(name={self.name!r}): frontend_conv "
+                    "requires frontend='audio'|'vision'")
         # sparse_use_kernel/sparse_kcondense only act on a condensed
         # schedule, which dense mode never builds: say so at the config
         # instead of silently running dense.

@@ -58,3 +58,22 @@ def unpack_bits(words: torch.Tensor, axis: int = -1) -> torch.Tensor:
 def popcount(words: torch.Tensor) -> torch.Tensor:
     """Per-word population count (the paper's POPC), int32."""
     return _bits(words).sum(-1).to(torch.int32)
+
+
+def condense(x: torch.Tensor, mask: torch.Tensor, axis: int = -1
+             ) -> torch.Tensor:
+    """Front-pack the masked elements of ``x`` along ``axis``, zero tail.
+
+    Per 1-D fiber: ``fiber[mask]`` zero-padded to full length — the JAX
+    package's ``bitmap._condense``.  Each masked element is scattered to
+    its rank among the fiber's masked elements; the unmasked ones all land
+    in one spare slot past the end, which is dropped.
+    """
+    x = torch.movedim(x, axis, -1)
+    mask = torch.movedim(mask, axis, -1).to(torch.bool)
+    n = x.shape[-1]
+    rank = torch.cumsum(mask, -1) - 1
+    idx = torch.where(mask, rank, n)
+    out = torch.zeros(*x.shape[:-1], n + 1, dtype=x.dtype, device=x.device)
+    out.scatter_(-1, idx, torch.where(mask, x, torch.zeros_like(x)))
+    return torch.movedim(out[..., :n].contiguous(), -1, axis)

@@ -1,1 +1,2 @@
-"""K1/K2 wrappers, their plain versions and the CUDA build."""
+"""The kernels K1-K7: their wrappers, plain versions and CUDA build, and
+the conv lowering chain (``ops``)."""

@@ -21,17 +21,29 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# source → exported C function; every function takes the same arguments
-KERNELS = {
-    "bitmap_spgemm.cu": "repro_bitmap_spgemm",
-    "bitmap_spgemm_kfused.cu": "repro_bitmap_spgemm_kfused",
-    "grouped_spgemm.cu": "repro_grouped_spgemm",
-    "grouped_spgemm_kfused.cu": "repro_grouped_spgemm_kfused",
-}
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # (dtype_code, out_f32, a, b, sched, counts, out, e, m, n, k, mt, nt, s,
 #  block_m, block_n, slice_k, stream)
-_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-             + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_SPGEMM_ARGS = [_I, _I] + [_P] * 5 + [_I] * 10 + [_P]
+# (elem_bytes, x, bits, cond, n, c, h, w, x's four strides, stream)
+_ENCODE_ARGS = [_I] + [_P] * 3 + [_I] * 4 + [_LL] * 4 + [_P]
+# (elem_bytes, cond, bits, out_bits, out_vals, n, c, h, w, kh, kw,
+#  stride, stream)
+_IM2COL_ARGS = [_I] + [_P] * 4 + [_I] * 7 + [_P]
+
+# source → (exported C function, its argument types); every pointer and
+# the stream is a c_void_p, so ctypes never cuts one to 32 bits
+KERNELS = {
+    "bitmap_spgemm.cu": ("repro_bitmap_spgemm", _SPGEMM_ARGS),
+    "bitmap_spgemm_kfused.cu": ("repro_bitmap_spgemm_kfused", _SPGEMM_ARGS),
+    "grouped_spgemm.cu": ("repro_grouped_spgemm", _SPGEMM_ARGS),
+    "grouped_spgemm_kfused.cu": ("repro_grouped_spgemm_kfused",
+                                 _SPGEMM_ARGS),
+    "bitmap_encode.cu": ("repro_bitmap_encode", _ENCODE_ARGS),
+    "sparse_im2col.cu": ("repro_sparse_im2col", _IM2COL_ARGS),
+    "sparse_im2col_strided.cu": ("repro_sparse_im2col_strided",
+                                 _IM2COL_ARGS),
+}
 
 _FUNCS: Dict[str, object] = {}
 _LIBS = []            # keeps the loaded libraries alive
@@ -97,8 +109,9 @@ def function(src: str):
     if src not in _FUNCS:
         for name, path in build().items():
             lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, KERNELS[name])
-            fn.argtypes = _ARGTYPES
+            symbol, argtypes = KERNELS[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _LIBS.append(lib)
             _FUNCS[name] = fn

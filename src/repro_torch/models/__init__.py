@@ -1,1 +1,2 @@
-"""The decoder-only dense model: norms, cache, attention, MLP, transformer."""
+"""The models: norms, caches, attention, MLP, the audio frontend and the
+transformer (decoder-only dense, and the audio encoder-decoder)."""

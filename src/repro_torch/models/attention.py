@@ -1,8 +1,9 @@
-"""Attention: GQA with RoPE over a plain or sparse KV cache.
+"""Attention: GQA with RoPE over a plain or sparse KV cache, and the
+encoder-decoder's non-causal self-attention and cross-attention.
 
 Grouped-query attention never materialises repeated KV heads (an explicit
 group dim), and the softmax runs in float32.  ``Attention.forward`` is the
-JAX package's ``attention_forward`` for causal self-attention; its
+JAX package's ``attention_forward`` (no qkv bias, no int8 cache); its
 KV-chunked long-context path (``chunk``) is not ported — this
 :func:`attend` is the single-block path, the same function up to rounding.
 Decode over a :class:`~repro_torch.sparse.kvcache.SparseKVCache` in a
@@ -22,6 +23,8 @@ from repro_torch.sparse import plan as pln
 from repro_torch.sparse import site
 
 NEG_INF = -1e30
+# the query position of a non-causal query: past every key
+NOT_CAUSAL = 2 ** 30
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +185,8 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, name: str,
 
 
 class Attention(nn.Module):
-    """Self-attention weights in the JAX layouts: wq (d, h, hd),
-    wk/wv (d, kv, hd), wo (h, hd, d)."""
+    """Attention weights in the JAX layouts: wq (d, h, hd), wk/wv (d, kv,
+    hd), wo (h, hd, d)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
@@ -205,39 +208,68 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor,
                 cache: Optional[kvc.KVCache] = None,
-                plans: Optional[Dict] = None
+                plans: Optional[Dict] = None,
+                kv_source: Optional[torch.Tensor] = None,
+                is_cross: bool = False,
+                causal: bool = True,
+                update_cache: bool = True
                 ) -> Tuple[torch.Tensor, Optional[kvc.KVCache]]:
-        """Projections + causal attend (+ cache write) + output.
+        """Projections + attend (+ cache write) + output: the JAX
+        package's ``attention_forward``.
 
-        x: (B, S, D); positions: (S,) absolute positions of x.  Returns
-        (y (B, S, D), the updated cache or None).
+        Self-attention takes K/V from x, with RoPE (``causal=False`` is
+        the encoder's: every query sees every key).  Cross-attention
+        (``is_cross``, never causal, no RoPE) takes K/V from the memory
+        ``kv_source``, written to the cross cache when ``update_cache``
+        (prefill); at decode (``kv_source=None``, ``update_cache=False``)
+        it projects no K/V and reads the cache.  x: (B, S, D); positions:
+        (S,) absolute positions of x.  Returns (y (B, S, D), the updated
+        cache or None).
         """
+        if is_cross:
+            causal = False
+            if kv_source is None and cache is None:
+                raise ValueError("cross-attention needs the memory or a "
+                                 "filled cross cache")
         plans = plans or {}
         q = _proj(x, self.wq.to(x.dtype), cfg, "attn.q",
                   plan_act=plans.get("wq"))
-        k = _proj(x, self.wk.to(x.dtype), cfg, "attn.k",
-                  plan_act=plans.get("wk"))
-        v = _proj(x, self.wv.to(x.dtype), cfg, "attn.v",
-                  plan_act=plans.get("wv"))
-        q = apply_rope(q, positions, cfg.rope_style, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_style, cfg.rope_theta)
-        window = cfg.sliding_window or None
-        if isinstance(cache, skvc.SparseKVCache):
-            cache = skvc.update(cache, k, v)
-        elif cache is not None:
-            cache = kvc.update(cache, k, v)
-        if (isinstance(cache, skvc.SparseKVCache)
-                and cfg.sparse_mode != "dense" and q.shape[1] == 1):
-            # bitmap-scheduled decode: both attention products go through
-            # the grouped dispatch
-            out = attend_sparse(q, cache, cfg, qpos=positions,
-                                kpos=kvc.key_positions(cache), window=window)
-        elif cache is not None:
-            kd, vd, kpos = kvc.read(cache, dtype=x.dtype)
-            out = attend(q, kd, vd, qpos=positions, kpos=kpos, window=window)
-        else:
+        k = v = None
+        if kv_source is not None or cache is None or update_cache:
+            src = x if kv_source is None else kv_source
+            k = _proj(src, self.wk.to(x.dtype), cfg, "attn.k",
+                      plan_act=plans.get("wk"))
+            v = _proj(src, self.wv.to(x.dtype), cfg, "attn.v",
+                      plan_act=plans.get("wv"))
+        if not is_cross:
+            q = apply_rope(q, positions, cfg.rope_style, cfg.rope_theta)
+            if k is not None:
+                k = apply_rope(k, positions, cfg.rope_style, cfg.rope_theta)
+        window = (cfg.sliding_window or None) if causal else None
+        if cache is not None:
+            if update_cache and isinstance(cache, skvc.SparseKVCache):
+                cache = skvc.update(cache, k, v)
+            elif update_cache:
+                cache = kvc.update(cache, k, v)
+            qpos = (positions if causal
+                    else torch.full_like(positions, NOT_CAUSAL))
+            kpos = kvc.key_positions(cache)
+            if (isinstance(cache, skvc.SparseKVCache) and causal
+                    and cfg.sparse_mode != "dense" and q.shape[1] == 1):
+                # bitmap-scheduled decode: both attention products go
+                # through the grouped dispatch
+                out = attend_sparse(q, cache, cfg, qpos=qpos, kpos=kpos,
+                                    window=window)
+            else:
+                kd, vd, _ = kvc.read(cache, dtype=x.dtype)
+                out = attend(q, kd, vd, qpos=qpos, kpos=kpos, window=window)
+        elif causal:
             out = attend(q, k, v, qpos=positions, kpos=positions,
                          window=window)
+        else:
+            qpos = torch.full((x.shape[1],), NOT_CAUSAL, device=x.device)
+            kpos = torch.arange(k.shape[1], device=x.device)
+            out = attend(q, k, v, qpos=qpos, kpos=kpos)
         y = _proj(out, self.wo.to(x.dtype), cfg, "attn.out", n_contract=2,
                   plan_act=plans.get("wo"))
         return y, cache

@@ -1,6 +1,9 @@
 """KV caches for serving (plain bf16; no int8 quantisation).
 
-One :class:`KVCache` per layer, ``(B, T, KV, hd)`` buffers.  Ring
+One :class:`KVCache` per layer, ``(B, T, KV, hd)`` buffers; a decoder
+layer of an encoder-decoder holds an :class:`EncDecCache`, its
+self-attention cache beside a cross cache of ``encoder_len`` slots that
+the prefill fills from the memory and decode only reads.  Ring
 semantics as in the JAX package: the token at absolute position p lives
 in slot ``p mod window``.  Unlike the JAX package, :func:`update` writes
 into the buffers in place (a full-width cache is large) and returns a
@@ -9,7 +12,7 @@ cache with the advanced cursor.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -24,6 +27,12 @@ class KVCache:
     @property
     def capacity(self) -> int:
         return self.k.shape[-3]
+
+
+class EncDecCache(NamedTuple):
+    """The caches of one encoder-decoder decoder layer."""
+    kv: KVCache         # self-attention
+    cross_kv: KVCache   # cross-attention over the encoder memory
 
 
 def init_cache(batch: int, capacity: int, n_kv: int, hd: int, *,

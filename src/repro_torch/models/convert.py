@@ -1,8 +1,9 @@
 """Load the JAX package's ``init_model`` parameters into the port.
 
-The JAX pytree is layer-stacked: ``params["layers"]["pos0"][...]`` has a
-leading ``n_periods`` axis (the period is 1 for the dense family), which
-is unstacked here into the port's per-layer modules.  Layouts are the
+The JAX pytree is layer-stacked: ``params["layers"]["pos0"][...]`` (and
+an encoder-decoder's ``params["enc_layers"]["pos0"][...]``) has a leading
+layer axis (the period is 1 for the ported families), which is unstacked
+here into the port's per-layer modules.  Layouts are the
 same on both sides, so each leaf is a plain copy.
 """
 from __future__ import annotations
@@ -28,17 +29,31 @@ def from_jax_params(tree, cfg: ModelConfig, device=None,
             raise ValueError(f"shape {arr.shape} != {tuple(param.shape)}")
         param.copy_(torch.from_numpy(arr.copy()))
 
+    def put_layers(layers, stack) -> None:
+        for i, layer in enumerate(layers):
+            norms = ("norm1", "norm2") + (("norm_cross",) if layer.cross
+                                          else ())
+            for norm in norms:
+                for key, p in getattr(layer, norm).items():
+                    put(p, stack[norm][key][i])
+            for blk in ("attn", "cross_attn") if layer.cross else ("attn",):
+                for key in ("wq", "wk", "wv", "wo"):
+                    put(getattr(getattr(layer, blk), key),
+                        stack[blk][key][i])
+            for key in ("w_up", "w_down"):
+                put(getattr(layer.mlp, key), stack["mlp"][key][i])
+
     with torch.no_grad():
         put(model.embed, tree["embed"])
         put(model.final_norm["scale"], tree["final_norm"]["scale"])
+        if "bias" in model.final_norm:
+            put(model.final_norm["bias"], tree["final_norm"]["bias"])
         put(model.lm_head, tree["lm_head"])
-        stack = tree["layers"]["pos0"]
-        for i, layer in enumerate(model.layers):
-            for norm in ("norm1", "norm2"):
-                for key, p in getattr(layer, norm).items():
-                    put(p, stack[norm][key][i])
-            for key in ("wq", "wk", "wv", "wo"):
-                put(getattr(layer.attn, key), stack["attn"][key][i])
-            for key in ("w_up", "w_down"):
-                put(getattr(layer.mlp, key), stack["mlp"][key][i])
+        put_layers(model.layers, tree["layers"]["pos0"])
+        if cfg.is_encoder_decoder:
+            put_layers(model.enc_layers, tree["enc_layers"]["pos0"])
+            for key, p in model.enc_final_norm.items():
+                put(p, tree["enc_final_norm"][key])
+            for key in ("conv1", "b1", "conv2", "b2"):
+                put(getattr(model.frontend, key), tree["frontend"][key])
     return model

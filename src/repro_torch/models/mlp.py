@@ -1,10 +1,12 @@
-"""MLP blocks: squared-ReLU / ReLU (+ the dual-sparse path).
+"""MLP blocks: squared-ReLU / ReLU / GeLU (+ the dual-sparse path).
 
 Squared-ReLU (nemotron) produces genuine activation zeros, which is where
-dual-side SpGEMM applies at inference.  With ``cfg.sparse_mode != "dense"``
-both projections route through :mod:`repro_torch.sparse`: the activation
-is a :class:`~repro_torch.sparse.activation.SparseActivation` whose bitmap
-is made once, at activation time, and read by the down-projection's
+dual-side SpGEMM applies at inference; GeLU (whisper, the tanh form of
+``jax.nn.gelu``) is dense, and its down projection plans from the values.
+With ``cfg.sparse_mode != "dense"`` both projections route through
+:mod:`repro_torch.sparse`: a ReLU-family activation is a
+:class:`~repro_torch.sparse.activation.SparseActivation` whose bitmap is
+made once, at activation time, and read by the down-projection's
 planner.  ``MLP.forward`` is the JAX package's ``mlp_forward``.
 """
 from __future__ import annotations
@@ -20,10 +22,12 @@ from repro_torch.sparse import plan as pln
 from repro_torch.sparse import site
 from repro_torch.sparse.weights import planned_or_array
 
-_KINDS = ("relu", "relu2")
+_KINDS = ("relu", "relu2", "gelu")
 
 
 def _activate(h: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "gelu":
+        return act.gelu(h)
     r = torch.clamp(h, min=0)
     return r * r if kind == "relu2" else r
 

@@ -1,9 +1,12 @@
-"""Norms: the JAX package's ``models/nn.py`` without the sharding helpers.
+"""Norms and positions: the JAX package's ``models/nn.py`` without
+the sharding helpers.
 
 Norm parameters are ``nn.ParameterDict``s with a ``scale`` (and, for
 layer norm, a ``bias``), mirroring the JAX parameter dicts.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -44,3 +47,21 @@ def apply_norm(params: nn.ParameterDict, x: torch.Tensor, eps: float
     if "bias" in params:
         return layer_norm(x, params["scale"], params["bias"], eps)
     return rms_norm(x, params["scale"], eps)
+
+
+def sinusoidal_positions(positions: torch.Tensor, dim: int,
+                         dtype=torch.float32) -> torch.Tensor:
+    """(S,) positions → (S, dim) sinusoidal embeddings: the JAX package's
+    float32 formula (sin on even, cos on odd features), evaluated at the
+    given positions instead of gathered from a 65536-row table, then cast
+    to ``dtype``."""
+    pos = positions.to(torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros(positions.shape[0], dim, dtype=torch.float32,
+                     device=positions.device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
+

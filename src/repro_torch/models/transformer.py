@@ -1,10 +1,15 @@
-"""The decoder-only dense transformer.
+"""The transformer: decoder-only dense, and the audio encoder-decoder.
 
 The JAX package stacks each period position's parameters over periods
 and scans over them; here the layers are an ``nn.ModuleList`` walked by a
-Python loop, with one KV cache per layer.  ``Transformer.forward`` is the
-JAX package's ``forward`` and ``DecoderLayer.forward`` its
-``_apply_layer``.
+Python loop, with one cache entry per decoder layer.
+``Transformer.forward`` is the JAX package's ``forward`` and
+``DecoderLayer.forward`` its ``_apply_layer``.
+
+The encoder-decoder (whisper) runs the conv frontend over ``batch["mel"]``
+and the encoder stack (non-causal, no cache) at prefill only; its decoder
+layers add cross-attention over the encoder's memory, whose K/V the
+prefill writes into each layer's cross cache and decode reads.
 """
 from __future__ import annotations
 
@@ -16,9 +21,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import device as devmod
 from repro_torch.models import cache as kvc
+from repro_torch.models import frontend as fem
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
-from repro_torch.models.nn import apply_norm, init_norm
+from repro_torch.models.nn import apply_norm, init_norm, sinusoidal_positions
 from repro_torch.sparse import kvcache as skvc
 from repro_torch.sparse import plan as pln
 from repro_torch.sparse import site
@@ -27,71 +33,132 @@ from repro_torch.sparse import weights as spw
 
 class ModelOutputs(NamedTuple):
     logits: torch.Tensor
-    caches: Optional[List[kvc.KVCache]]
+    caches: Optional[List[Any]]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.period != 1:
+    dense = cfg.family == "dense" and not cfg.is_encoder_decoder
+    audio = (cfg.family == "audio" and cfg.is_encoder_decoder
+             and cfg.frontend == "audio" and cfg.frontend_conv)
+    if cfg.period != 1 or not (dense or audio) or cfg.tie_embeddings:
         raise ValueError(f"{cfg.name}: only the decoder-only dense family "
-                         "is ported")
+                         "and the audio encoder-decoder with its conv stem "
+                         "(untied heads) are ported")
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+    """norm1 + attn, [norm_cross + cross_attn,] norm2 + mlp.  Encoder
+    layers are the same module without ``cross``, run non-causal."""
+
+    def __init__(self, cfg: ModelConfig, *, cross: bool = False,
+                 device=None, dtype=None):
         super().__init__()
-        self.norm1 = init_norm(cfg.d_model, cfg.norm_kind, device=device,
-                               dtype=dtype)
+        d, kind = cfg.d_model, cfg.norm_kind
+        self.norm1 = init_norm(d, kind, device=device, dtype=dtype)
         self.attn = Attention(cfg, device=device, dtype=dtype)
-        self.norm2 = init_norm(cfg.d_model, cfg.norm_kind, device=device,
-                               dtype=dtype)
+        self.cross = cross
+        if cross:
+            self.norm_cross = init_norm(d, kind, device=device, dtype=dtype)
+            self.cross_attn = Attention(cfg, device=device, dtype=dtype)
+        self.norm2 = init_norm(d, kind, device=device, dtype=dtype)
         self.mlp = MLP(cfg, device=device, dtype=dtype)
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attn.reset_parameters(generator)
+        if self.cross:
+            self.cross_attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor,
-                cache: Optional[kvc.KVCache] = None,
-                plans: Optional[Dict] = None):
+                positions: torch.Tensor, cache=None,
+                plans: Optional[Dict] = None,
+                memory: Optional[torch.Tensor] = None,
+                causal: bool = True):
+        """``cache``: a KVCache (decoder-only), an EncDecCache (a cross
+        layer) or None; ``memory``: the encoder output at prefill, None
+        at decode.  Returns (x, the updated cache)."""
         plans = plans or {}
+        kv, cross_kv = (cache if isinstance(cache, kvc.EncDecCache)
+                        else (cache, None))
         h = apply_norm(self.norm1, x, cfg.norm_eps)
-        y, cache = self.attn(h, cfg, positions=positions, cache=cache,
-                             plans=plans.get("attn"))
+        y, kv = self.attn(h, cfg, positions=positions, cache=kv,
+                          plans=plans.get("attn"), causal=causal)
         x = x + y
+        if self.cross:
+            h = apply_norm(self.norm_cross, x, cfg.norm_eps)
+            y, cross_kv = self.cross_attn(
+                h, cfg, positions=positions, cache=cross_kv,
+                plans=plans.get("cross_attn"), kv_source=memory,
+                is_cross=True, update_cache=memory is not None)
+            x = x + y
         h = apply_norm(self.norm2, x, cfg.norm_eps)
-        return x + self.mlp(h, cfg, plans=plans.get("mlp")), cache
+        x = x + self.mlp(h, cfg, plans=plans.get("mlp"))
+        if isinstance(cache, kvc.EncDecCache):
+            return x, kvc.EncDecCache(kv=kv, cross_kv=cross_kv)
+        return x, kv
 
 
 class Transformer(nn.Module):
-    """embed (vocab, d), the layers, final_norm, lm_head (d, vocab)."""
+    """embed (vocab, d), the decoder layers, final_norm, lm_head (d,
+    vocab); an encoder-decoder adds ``frontend``, ``enc_layers`` and
+    ``enc_final_norm``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
         _check_family(cfg)
+        kw = dict(device=device, dtype=dtype)
         self.embed = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.d_model, device=device,
-                        dtype=dtype), requires_grad=False)
+            torch.empty(cfg.vocab_size, cfg.d_model, **kw),
+            requires_grad=False)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device=device, dtype=dtype)
+            DecoderLayer(cfg, cross=cfg.is_encoder_decoder, **kw)
             for _ in range(cfg.n_layers))
-        self.final_norm = init_norm(cfg.d_model, cfg.norm_kind,
-                                    device=device, dtype=dtype)
+        self.final_norm = init_norm(cfg.d_model, cfg.norm_kind, **kw)
         self.lm_head = nn.Parameter(
-            torch.empty(cfg.d_model, cfg.vocab_size, device=device,
-                        dtype=dtype), requires_grad=False)
+            torch.empty(cfg.d_model, cfg.vocab_size, **kw),
+            requires_grad=False)
+        if cfg.is_encoder_decoder:
+            self.frontend = fem.AudioFrontend(cfg, **kw)
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, **kw) for _ in range(cfg.n_encoder_layers))
+            self.enc_final_norm = init_norm(cfg.d_model, cfg.norm_kind, **kw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded normal weights (the JAX package's stddevs), unit norms."""
         self.embed.normal_(0.0, 0.02, generator=generator)
         self.lm_head.normal_(0.0, 0.02, generator=generator)
         for layer in self.layers:
-            layer.attn.reset_parameters(generator)
-            layer.mlp.reset_parameters(generator)
+            layer.reset_parameters(generator)
+        if hasattr(self, "enc_layers"):
+            self.frontend.reset_parameters(generator)
+            for layer in self.enc_layers:
+                layer.reset_parameters(generator)
+
+    def encode(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               dtype, weight_plans: Optional[Dict] = None) -> torch.Tensor:
+        """The encoder memory: conv frontend over ``batch["mel"]``,
+        sinusoidal positions, the non-causal encoder stack, its norm."""
+        wp = weight_plans or {}
+        memory = fem.frontend_forward(self.frontend, batch, cfg, dtype,
+                                      plans=wp.get("frontend"))
+        m = memory.shape[1]
+        pos = torch.arange(m, device=memory.device)
+        x = memory + sinusoidal_positions(pos, cfg.d_model,
+                                          memory.dtype)[None]
+        plans = wp.get("enc_layers") or [None] * len(self.enc_layers)
+        for layer, lp in zip(self.enc_layers, plans):
+            x, _ = layer(x, cfg, positions=pos, plans=lp, causal=False)
+        return apply_norm(self.enc_final_norm, x, cfg.norm_eps)
 
     def forward(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-                caches: Optional[List[kvc.KVCache]] = None,
+                caches: Optional[List[Any]] = None,
                 positions: Optional[torch.Tensor] = None,
                 rc: Optional[RunConfig] = None,
                 weight_plans: Optional[Dict] = None) -> ModelOutputs:
-        """batch: {"tokens": (B, S)}; decode passes S == 1, the caches and
-        the position of the new token.  ``weight_plans`` are cached weight
+        """batch: {"tokens": (B, S)}, plus "mel" (B, T, n_mels) for an
+        encoder-decoder at prefill; decode passes S == 1, the caches and
+        the position of the new token (and no mel: the memory's K/V are
+        in the cross caches).  ``weight_plans`` are cached weight
         activities from :func:`plan_weight_activities` (optional: without
         them the sparse modes plan the weights per call)."""
         tokens = batch["tokens"]
@@ -101,13 +168,23 @@ class Transformer(nn.Module):
         x = self.embed[tokens].to(act_dtype)
         if positions is None:
             positions = torch.arange(s, device=tokens.device)
+        memory = None
+        if cfg.is_encoder_decoder:
+            if "mel" in batch:
+                memory = self.encode(batch, cfg, act_dtype, weight_plans)
+            elif caches is None:
+                raise ValueError(f"{cfg.name}: forward needs batch['mel'] "
+                                 "or filled cross caches")
+        if cfg.abs_positions:
+            x = x + sinusoidal_positions(positions, cfg.d_model,
+                                         x.dtype)[None]
         layer_plans = (weight_plans["layers"] if weight_plans
                        else [None] * len(self.layers))
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             x, c = layer(x, cfg, positions=positions,
                          cache=caches[i] if caches is not None else None,
-                         plans=layer_plans[i])
+                         plans=layer_plans[i], memory=memory)
             if new_caches is not None:
                 new_caches.append(c)
         x = apply_norm(self.final_norm, x, cfg.norm_eps)
@@ -140,8 +217,10 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
                            ) -> Optional[Dict]:
     """Weight-side slice activities for every dispatch-routed projection
     (built once at load; None in dense mode): ``{"layers": [{"attn":
-    {wq, wk, wv, wo}, "mlp": {w_up, w_down[, @elem]}}, ...], "lm_head":
-    ...}``, the attention weights flattened to their 2-D dispatch shapes.
+    {wq, wk, wv, wo}, ["cross_attn": {...},] "mlp": {w_up, w_down[,
+    @elem]}}, ...], "lm_head": ...}``, the attention weights flattened to
+    their 2-D dispatch shapes; an encoder-decoder adds ``"enc_layers"``
+    and the stem convs' ``"frontend"``.
     """
     if cfg.sparse_mode == "dense":
         return None
@@ -151,43 +230,64 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
         return pln.slice_activity_rhs(
             w, pln.effective_slice_k(w.shape[-2], sk))
 
-    layers: List[Dict[str, Any]] = []
-    for layer in model.layers:
-        a = layer.attn
-        layers.append({
-            "attn": {
-                "wq": plan_of(a.wq.reshape(a.wq.shape[0], -1)),
+    def attn_plans(a: Attention) -> Dict[str, torch.Tensor]:
+        return {"wq": plan_of(a.wq.reshape(a.wq.shape[0], -1)),
                 "wk": plan_of(a.wk.reshape(a.wk.shape[0], -1)),
                 "wv": plan_of(a.wv.reshape(a.wv.shape[0], -1)),
-                "wo": plan_of(a.wo.reshape(-1, a.wo.shape[-1])),
-            },
+                "wo": plan_of(a.wo.reshape(-1, a.wo.shape[-1]))}
+
+    def layer_plans(layer: DecoderLayer) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "attn": attn_plans(layer.attn),
             "mlp": spw.plan_layer_weights(
                 {"w_up": layer.mlp.w_up, "w_down": layer.mlp.w_down},
                 slice_k=sk,
                 block_n=cfg.sparse_block_n if cfg.sparse_kcondense else None),
-        })
-    return {"layers": layers, "lm_head": plan_of(model.lm_head)}
+        }
+        if layer.cross:
+            out["cross_attn"] = attn_plans(layer.cross_attn)
+        return out
+
+    plans: Dict[str, Any] = {
+        "layers": [layer_plans(layer) for layer in model.layers],
+        "lm_head": plan_of(model.lm_head)}
+    if cfg.is_encoder_decoder:
+        plans["enc_layers"] = [layer_plans(layer)
+                               for layer in model.enc_layers]
+        plans["frontend"] = fem.plan_frontend_activities(model.frontend, cfg)
+    return plans
 
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
-                dtype=torch.bfloat16, device=None) -> List[kvc.KVCache]:
-    """One KV cache per layer, bf16 whatever the activation dtype, as in
-    the JAX package.
+                dtype=torch.bfloat16, device=None) -> List[Any]:
+    """One cache per decoder layer, bf16 whatever the activation dtype, as
+    in the JAX package.
 
     ``cfg.sparse_kv`` in a non-dense sparse mode allocates
     :class:`~repro_torch.sparse.kvcache.SparseKVCache` s of the full
     ``capacity`` with no ring (``window=capacity``): a sliding window is
     applied as the attention mask instead, and the blocks it hides are
     what the decode schedule skips.  Plain caches of a sliding-window
-    model keep ``window`` ring slots.
+    model keep ``window`` ring slots.  An encoder-decoder's layers hold
+    :class:`~repro_torch.models.cache.EncDecCache` s, each with a cross
+    cache of ``encoder_len`` slots.
     """
     dev = devmod.resolve(device)
-    if cfg.sparse_kv and cfg.sparse_mode != "dense":
-        return [skvc.init_sparse_cache(batch, capacity, cfg.n_kv_heads,
-                                       cfg.hd, dtype=dtype, window=capacity,
-                                       block_t=cfg.sparse_block_t, device=dev)
-                for _ in range(cfg.n_layers)]
-    ring = min(cfg.sliding_window or capacity, capacity)
-    return [kvc.init_cache(batch, ring, cfg.n_kv_heads, cfg.hd, dtype=dtype,
-                           window=ring, device=dev)
+
+    def self_cache():
+        if cfg.sparse_kv and cfg.sparse_mode != "dense":
+            return skvc.init_sparse_cache(
+                batch, capacity, cfg.n_kv_heads, cfg.hd, dtype=dtype,
+                window=capacity, block_t=cfg.sparse_block_t, device=dev)
+        ring = min(cfg.sliding_window or capacity, capacity)
+        return kvc.init_cache(batch, ring, cfg.n_kv_heads, cfg.hd,
+                              dtype=dtype, window=ring, device=dev)
+
+    if not cfg.is_encoder_decoder:
+        return [self_cache() for _ in range(cfg.n_layers)]
+    return [kvc.EncDecCache(
+                kv=self_cache(),
+                cross_kv=kvc.init_cache(batch, cfg.encoder_len,
+                                        cfg.n_kv_heads, cfg.hd, dtype=dtype,
+                                        device=dev))
             for _ in range(cfg.n_layers)]

@@ -2,6 +2,9 @@
 
 The JAX package scans its decode steps with ``lax.scan``; here they are a
 Python loop, so every step runs eagerly (and a stats tape sees them all).
+An encoder-decoder's ``batch["mel"]`` goes to the prefill only: the
+encoder runs once, and decode reads the memory's K/V from the cross
+caches.
 """
 from __future__ import annotations
 
@@ -11,19 +14,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import device as devmod
-from repro_torch.models import cache as kvc
 from repro_torch.models import transformer as tfm
 
 
 class DecodeState(NamedTuple):
-    caches: List[kvc.KVCache]
+    caches: List               # per decoder layer: KVCache or EncDecCache
     last_token: torch.Tensor   # (B, 1) int64
     pos: int                   # next position to write
 
 
 def make_prefill_step(cfg: ModelConfig, rc: Optional[RunConfig] = None):
     def prefill(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
-                caches: List[kvc.KVCache]):
+                caches: List):
         tokens = batch["tokens"]
         s = tokens.shape[1]
         out = model(batch, cfg, caches=caches,
@@ -56,12 +58,17 @@ def generate(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
     """Greedy generation: prefill, then ``max_new_tokens - 1`` decode steps.
 
     Returns exactly ``max_new_tokens`` int32 tokens per row (the
-    prefill's argmax is the first).  ``device=None`` means the card; the
-    model must live on ``device``.
+    prefill's argmax is the first).  ``batch``: {"tokens": (B, S)}, plus
+    "mel" (B, T, n_mels) for an encoder-decoder, which only the prefill
+    sees.  ``device=None`` means the card; the model must live on
+    ``device``.
     """
     dev = devmod.resolve(device)
     devmod.check_on(model.embed, dev, "the model")
     tokens = batch["tokens"].to(dev)
+    first = {"tokens": tokens}
+    if "mel" in batch:
+        first["mel"] = batch["mel"].to(dev)
     b, s = tokens.shape
     if max_new_tokens <= 0:
         return torch.zeros((b, 0), dtype=torch.int32, device=dev)
@@ -69,7 +76,7 @@ def generate(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
                              device=dev)
     prefill = make_prefill_step(cfg, rc)
     decode = make_decode_step(cfg, rc)
-    state, _ = prefill(model, {"tokens": tokens}, caches)
+    state, _ = prefill(model, first, caches)
     out = [state.last_token[:, 0]]
     for _ in range(max_new_tokens - 1):
         state, _ = decode(model, state)

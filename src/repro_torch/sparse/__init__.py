@@ -1,1 +1,2 @@
-"""The sparse dispatch layer: planner, activations, weights, tape, dispatch, sites."""
+"""The sparse dispatch layer: planner, activations, weights, tape,
+dispatch, conv, sites."""

@@ -76,11 +76,22 @@ def relu2(x: torch.Tensor, slice_k: int = pln.SLICE_K) -> SparseActivation:
     return sparsify(r * r, mask=x > 0, slice_k=slice_k)
 
 
-def activate(h: torch.Tensor, kind: str,
-             slice_k: int = pln.SLICE_K) -> SparseActivation:
-    """The sparse-path MLP activation for the ported MLP kinds."""
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form (``F.gelu`` defaults to
+    erf)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def activate(h: torch.Tensor, kind: str, slice_k: int = pln.SLICE_K):
+    """The sparse-path MLP activation for the ported MLP kinds: relu and
+    relu2 make genuine zeros and return a :class:`SparseActivation`; gelu
+    is dense almost surely and returns a plain tensor, which the
+    dispatch plans from its values."""
     if kind == "relu":
         return relu(h, slice_k)
     if kind == "relu2":
         return relu2(h, slice_k)
-    raise ValueError(f"mlp_type {kind!r} is not ported (relu, relu2 are)")
+    if kind == "gelu":
+        return gelu(h)
+    raise ValueError(f"mlp_type {kind!r} is not ported (relu, relu2, gelu "
+                     "are)")

@@ -8,6 +8,8 @@ tier is ported: the knobs are the config's ``sparse_*`` constants (no
 tuning cache, no cost model), with the decode attention's twist: the
 ``attn.score`` site tiles its rows (cache slots) and the ``attn.value``
 site slices its contraction (cache slots again) at ``sparse_block_t``.
+``conv`` sites (the audio stem) resolve like ``matmul`` ones and run
+:func:`repro_torch.sparse.conv.conv2d`.
 
 A kernel failure is not caught here: on the card it has to surface.
 """
@@ -19,9 +21,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.sparse import conv as scv
 from repro_torch.sparse import dispatch as dsp
 
-OPS = ("matmul", "grouped", "attn.score", "attn.value")
+OPS = ("matmul", "grouped", "conv", "attn.score", "attn.value")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +32,7 @@ class OpSite:
     """One declarative sparse call site (hashable).
 
     op        : op kind — one of :data:`OPS`.
-    name      : stats-tape entry name (``mlp.up``, ``attn.score``, …).
+    name      : stats-tape entry name (``mlp.up``, ``conv.stem1``, …).
     axes      : logical names of the weight's axes (``("embed", "mlp")``, …).
     out_dtype : output/accumulation dtype name ("" → the dispatch default);
                 the decode attention sites pin "float32", as dense
@@ -91,6 +94,16 @@ def grouped_matmul(x, w, site: Optional[OpSite], cfg, *,
     kw = resolved if resolved is not None else resolve(st, cfg)
     return dsp.grouped_matmul(x, w, name=st.name,
                               collect_stats=collect_stats, **kw)
+
+
+def conv2d(x, w, stride: int = 1, *, site: Optional[OpSite] = None,
+           cfg=None, collect_stats: bool = False):
+    """Site-resolved :func:`repro_torch.sparse.conv.conv2d` (w a
+    (KH, KW, C, F) tensor or a :class:`~repro_torch.sparse.conv.
+    PlannedConv`)."""
+    st = _site_of(w, site)
+    return scv.conv2d(x, w, stride, name=st.name,
+                      collect_stats=collect_stats, **resolve(st, cfg))
 
 
 def project(x, w, site: Optional[OpSite], cfg, *, n_contract: int = 1,

@@ -1,12 +1,13 @@
-"""K1-K4 and the sparse-KV decode on the card against their plain
-versions (needs an NVIDIA GPU with nvcc; skipped elsewhere).  Run there with
+"""K1-K7, the sparse-KV decode and the whisper path on the card against
+their plain versions (needs an NVIDIA GPU with nvcc; skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed.  Tolerance, relative to the largest plain output: 1e-5 for a
 float32 output (the same float32 products summed in another order), 1e-2
 for bf16 (one bf16 rounding of sums that may differ in their last float32
-bits).
+bits).  The conv kernels K5-K7 only move data: their outputs equal the
+plain versions' bit for bit.
 """
 import dataclasses
 
@@ -16,7 +17,9 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.kernels import bitmap_spgemm as bsk
+from repro_torch.kernels import bitmap_encode as k5
 from repro_torch.kernels import grouped_spgemm as gsk
+from repro_torch.kernels import sparse_im2col as k67
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import serve_loop
 from repro_torch.sparse import plan as pln
@@ -186,4 +189,89 @@ def test_sparse_kv_generate_matches_cpu(cuda):
         got = serve_loop.generate(gpu, {"tokens": tokens}, c,
                                   max_new_tokens=6, capacity=48, rc=rc)
         assert n.launches == before + 2 * 2 * 5
+        assert torch.equal(want, got.cpu())
+
+
+CONV = [  # (N, H, W, C, kh, kw, stride)
+    (4, 1, 3002, 80, 1, 3, 1),    # whisper-base conv1
+    (2, 1, 3002, 64, 1, 3, 2),    # conv2's geometry, fewer channels
+    (1, 7, 9, 3, 3, 3, 1),
+    (2, 9, 10, 2, 3, 3, 2),
+    (1, 56, 56, 3, 14, 14, 14),   # patch conv, k = s
+    (1, 1, 66, 2, 1, 34, 1),      # dx >= 32: the window crosses words
+    (1, 1, 65, 2, 1, 2, 1),       # OW = 64 ends on a word boundary
+    (1, 1, 100, 2, 1, 33, 2),
+    (1, 2, 96, 3, 2, 1, 1),
+]
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """Bit patterns, so that equality is bit-equality (-0.0 != 0.0)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("shape", CONV)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_match_plain(cuda, shape, dtype):
+    """K5 on an NHWC view, then K6 (stride 1) or K7 on its outputs, each
+    bit-equal to its plain version on the same inputs; inputs with
+    all-zero and all-non-zero rows, -0.0 and bit 31 of words set."""
+    n, h, w, c, kh, kw, s = shape
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(n, h, w, c, generator=g)
+    x[torch.rand(x.shape, generator=g) < 0.5] = 0
+    x[0, 0, :, 0] = 0
+    x[..., 1::7, :] = -0.0
+    x[-1, -1, :, -1] = 1.0
+    if w >= 32:
+        x[:, :, 31::32, ::2] = 1.5
+    x = x.to(dtype).to(cuda)
+    xv = x.permute(0, 3, 1, 2)
+    before = (k5.bitmap_encode.launches, k67.sparse_im2col.launches,
+              k67.sparse_im2col_strided.launches)
+    bits, cond = k5.bitmap_encode(xv)
+    pb, pc = k5.bitmap_encode_plain(xv)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, pb) and torch.equal(_raw(cond), _raw(pc))
+    if s == 1:
+        got = k67.sparse_im2col(cond, bits, kh=kh, kw=kw)
+        want = k67.sparse_im2col_plain(cond, bits, kh=kh, kw=kw)
+    else:
+        got = k67.sparse_im2col_strided(cond, bits, kh=kh, kw=kw, stride=s)
+        want = k67.sparse_im2col_strided_plain(cond, bits, kh=kh, kw=kw,
+                                               stride=s)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(_raw(got[1]), _raw(want[1]))
+    after = (k5.bitmap_encode.launches, k67.sparse_im2col.launches,
+             k67.sparse_im2col_strided.launches)
+    assert after == (before[0] + 1, before[1] + (s == 1),
+                     before[2] + (s != 1))
+
+
+def test_whisper_generate_matches_cpu(cuda):
+    """whisper-base-smoke's dual and dual+kcondense generate on the card
+    (K5-K7 in the stem, K1/K2 everywhere) emit the CPU plain path's
+    tokens, with every conv kernel launched once per stem conv."""
+    cfg = smoke_config("whisper-base")
+    cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", dtype=torch.float32)
+    gpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", dtype=torch.float32).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 4), generator=g),
+             "mel": torch.randn(2, 2 * cfg.encoder_len, cfg.n_mels,
+                                generator=g).clamp(min=0)}
+    rc = RunConfig(act_dtype="float32")
+    for kc in (False, True):
+        c = dataclasses.replace(cfg, sparse_mode="dual",
+                                sparse_use_kernel=True, sparse_kcondense=kc)
+        before = (k5.bitmap_encode.launches, k67.sparse_im2col.launches,
+                  k67.sparse_im2col_strided.launches)
+        want = serve_loop.generate(cpu, batch, c, max_new_tokens=5, rc=rc,
+                                   device="cpu")
+        got = serve_loop.generate(gpu, batch, c, max_new_tokens=5, rc=rc)
+        assert (k5.bitmap_encode.launches, k67.sparse_im2col.launches,
+                k67.sparse_im2col_strided.launches) == (
+                    before[0] + 2, before[1] + 1, before[2] + 1)
         assert torch.equal(want, got.cpu())
