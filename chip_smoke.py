@@ -9,11 +9,17 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 1. device — the card's name and power limit, as ``nvidia-smi`` gives them;
 2. build — K1-K7 compiled from ``src/repro_torch/kernels/csrc`` (sm_90a),
    one ``nvcc`` per source, all at once; registers and spills of each;
+   the registers, shared memory and spills of every tensor-core K1/K2
+   kernel, and (where ``cuobjdump`` is present) the HMMA/HGMMA, LDGSTS
+   and LDSM instructions of the K1/K2 libraries: none of the first fails;
 3. kernels — K1 and K2 against their plain PyTorch versions, in bf16 and
    float32, at every projection shape of the served model (decode M=2,
-   prefill M=64) and at ragged shapes with ``counts == 0`` blocks and
-   partial last slices; bf16 timings at the served shapes beside the
-   bound, the plain version and ``torch.matmul`` (a yardstick only);
+   prefill M=64), at ragged shapes with ``counts == 0`` blocks and
+   partial last slices, at split-heavy shapes (few tiles, K = 16384) and
+   at whisper-base's encoder shapes (bf16, 6000 rows and the stems);
+   bf16 timings (CUDA events and the profiler's device time) at the
+   served and whisper shapes beside the bound, the plain version and
+   ``torch.matmul`` (a yardstick only);
 4. grouped kernels — K3 and K4 against their plain versions at the two
    decode attention products of a 4096-slot cache holding 257 and 271
    tokens, and at a ragged shape with an empty problem; timings beside the
@@ -144,6 +150,38 @@ def phase_device(torch):
     return smi
 
 
+def mma_kernel_lines(text):
+    """(kernel, registers, shared memory, stack, spill stores) of every
+    tensor-core K1/K2 instantiation in an ``-Xptxas -v`` log."""
+    rows = []
+    for block in text.split("Compiling entry function")[1:]:
+        name = block.split("'")[1]
+        if "spgemm_mma_kernel" not in name:
+            continue
+        num = (lambda pat: int(re.search(pat, block).group(1))
+               if re.search(pat, block) else 0)
+        tpl = re.search(r"ILi(\d+)ELb([01])E", name)
+        rows.append((f"spgemm_mma_kernel<{tpl.group(1)} rows, "
+                     f"{'K2' if tpl.group(2) == '1' else 'K1'}>",
+                     num(r"Used (\d+) registers"), num(r"(\d+) bytes smem"),
+                     num(r"(\d+) bytes stack frame"),
+                     num(r"(\d+) bytes spill stores")))
+    return rows
+
+
+def sass_counts(lib):
+    """Tensor-core and asynchronous-copy instructions in a library's SASS
+    (``cuobjdump -sass``), or None without cuobjdump."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HMMA", "HGMMA", "LDGSTS", "LDSM")}
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -158,6 +196,25 @@ def phase_build():
         log(f"build: {src}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"{max(spills, default=0)} bytes of spill stores at most")
+    # the bf16 K1/K2: tensor-core kernels, fed by cp.async
+    for src in ("bitmap_spgemm.cu", "bitmap_spgemm_kfused.cu"):
+        text = libs[src].with_name(libs[src].stem[3:] + ".log").read_text()
+        rows = mma_kernel_lines(text)
+        if not rows:
+            raise AssertionError(f"{src}: no tensor-core kernel in the build")
+        for name, regs, smem, stack, spill in rows:
+            log(f"build: {src} {name}: {regs} registers, {smem} bytes "
+                f"static shared memory (the ring is dynamic), {stack} bytes "
+                f"stack, {spill} bytes spilled")
+        counts = sass_counts(libs[src])
+        if counts is None:
+            log(f"build: {src}: no cuobjdump, SASS not counted")
+            continue
+        log(f"build: {src} SASS: " + ", ".join(
+            f"{op} {n}" for op, n in counts.items()))
+        if counts["HMMA"] + counts["HGMMA"] == 0:
+            raise AssertionError(f"{src}: no HMMA/HGMMA instruction in the "
+                                 "bf16 kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -183,41 +240,71 @@ def device_ms(torch, fn, reps=20):
     """Device time per call of the kernels ``fn`` launches, from a
     ``torch.profiler`` (CUPTI) trace of ``reps`` calls: the card's own
     time, without the host's time in the wrapper, which CUDA events around
-    a call of a microsecond-scale kernel mostly measure.  None when the
-    trace holds no device event."""
+    a call of a microsecond-scale kernel mostly measure.  None when two
+    traces hold no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def served_geometry(a, b):
+    """The clamped (block_m, block_n, slice_k) of ``a @ b`` at the
+    config's 128/128/128 knobs, as the dispatch resolves them."""
+    from repro_torch.sparse import plan as pln
+    bm, bn, sk = pln.clamp_geometry(a.shape[0], b.shape[1], a.shape[1],
+                                    128, 128, 128)
+    return dict(block_m=bm, block_n=bn, slice_k=sk)
+
+
+def plan_slices(a, b, geom):
+    """K1's schedule (ks, counts) of ``a @ b`` as the dispatch builds it
+    per call, from ``a != 0`` and ``w != 0``."""
+    from repro_torch.sparse import plan as pln
+    sk = geom["slice_k"]
+    col = pln.block_reduce_lhs(pln.slice_activity_lhs(a, sk), geom["block_m"])
+    row = pln.block_reduce_rhs(pln.slice_activity_rhs(b, sk), geom["block_n"])
+    return pln.plan_from_activity(col, row)
+
+
+def plan_gathers(a, b, geom):
+    """K2's element-condensed schedule (a KPlan), built the same way."""
+    from repro_torch.sparse import plan as pln
+    return pln.plan_kcondensed(
+        pln.element_activity_lhs(a, geom["block_m"]),
+        pln.element_activity_rhs(b, geom["block_n"]), geom["slice_k"])
 
 
 def plan_k1(a, b):
-    """K1's schedule of ``a @ b`` as the dispatch builds it per call, from
-    ``a != 0`` and ``w != 0`` at the config's 128/128/128 knobs."""
-    from repro_torch.sparse import plan as pln
-    bm, bn, sk = pln.clamp_geometry(a.shape[0], b.shape[1], a.shape[1],
-                                    128, 128, 128)
-    col = pln.block_reduce_lhs(pln.slice_activity_lhs(a, sk), bm)
-    row = pln.block_reduce_rhs(pln.slice_activity_rhs(b, sk), bn)
-    return (dict(block_m=bm, block_n=bn, slice_k=sk),
-            *pln.plan_from_activity(col, row))
+    geom = served_geometry(a, b)
+    return (geom, *plan_slices(a, b, geom))
 
 
 def plan_k2(a, b):
-    """K2's element-condensed schedule, built the same way."""
-    from repro_torch.sparse import plan as pln
-    bm, bn, sk = pln.clamp_geometry(a.shape[0], b.shape[1], a.shape[1],
-                                    128, 128, 128)
-    return pln.plan_kcondensed(pln.element_activity_lhs(a, bm),
-                               pln.element_activity_rhs(b, bn), sk)
+    return plan_gathers(a, b, served_geometry(a, b))
+
+
+def splits_of(a, b, geom):
+    """The shares the bf16 wrapper cuts each tile's schedule into for
+    ``a (M, K) @ b (K, N)`` at ``geom`` on this card."""
+    import torch
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    (m, k), n = a.shape, b.shape[1]
+    bm, bn, sk = geom["block_m"], geom["block_n"], geom["slice_k"]
+    blocks = bsk.mma_blocks(1, -(-m // bm), -(-n // bn), bm, bn)
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    return bsk.split_count(blocks, -(-k // sk), sms, m=m, k=k)
 
 
 def schedules(a, b):
@@ -275,6 +362,25 @@ def check_pair(torch, name, y, p, dtype, what):
     return err
 
 
+# whisper-base's encoder products at 4 segments (6000 rows; the stem's
+# first conv lowers 12000 positions): (site, M, K, N); the deeper ones are
+# above the card's ridge, so their flops bound them
+WHISPER_SHAPES = [("enc.attn", 6000, 512, 512),
+                  ("enc.mlp.up", 6000, 512, 2048),
+                  ("enc.mlp.down", 6000, 2048, 512),
+                  ("stem1", 12000, 240, 512), ("stem2", 6000, 1536, 512)]
+# shapes whose few tiles split their schedules over many CUDA blocks:
+# (M, K, N, block_m, block_n, slice_k); N <= block_n with K = 16384,
+# slice_k 40 and 96, block_m 37, N = 300 (a counts == 0 column tile
+# beside split ones)
+SPLIT_SHAPES = [(2, 16384, 96, 8, 128, 128), (2, 16384, 300, 8, 128, 40),
+                (37, 16384, 300, 37, 128, 96), (64, 16384, 256, 64, 128, 128)]
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 def main_path_shapes(cfg):
     """(K, N, dispatches per forward) of every projection of the path."""
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -287,6 +393,7 @@ def main_path_shapes(cfg):
 
 def phase_kernels(torch, cfg):
     from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.sparse import plan as pln
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     kernels = {
@@ -296,7 +403,8 @@ def phase_kernels(torch, cfg):
     }
     err = {"K1": 0.0, "K2": 0.0}
     totals = {kn: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, plan_ms=0.0,
-                       nbytes=0.0, op_s=0.0) for kn in kernels}
+                       nbytes=0.0, op_s=0.0, device_ms=0.0,
+                       library_device_ms=0.0) for kn in kernels}
     planners = {"K1": plan_k1, "K2": plan_k2}
     # forwards per generate: one prefill of PROMPTS*PROMPT_LEN rows, then
     # NEW_TOKENS - 1 decode steps of PROMPTS rows
@@ -338,8 +446,10 @@ def phase_kernels(torch, cfg):
                         continue
                     mult = per_fwd * fwds
                     ms = cuda_ms(torch, kfn, 10)
+                    dms = device_ms(torch, kfn, 10)
                     pms = cuda_ms(torch, pfn, 2)
                     lms = cuda_ms(torch, lambda: torch.matmul(a, b), 10)
+                    ldms = device_ms(torch, lambda: torch.matmul(a, b), 10)
                     plan_ms = cuda_ms(torch, lambda: planners[kn](a, b), 3)
                     # one problem: a leading axis of 1 on every operand
                     kp1 = type(kp)(*(t[None] for t in kp))
@@ -355,11 +465,17 @@ def phase_kernels(torch, cfg):
                     t["plan_ms"] += mult * plan_ms
                     t["nbytes"] += mult * nb
                     t["op_s"] += mult * fl / PEAK_FLOPS[dtype]
+                    for key, x in (("device_ms", dms),
+                                   ("library_device_ms", ldms)):
+                        t[key] = None if x is None or t[key] is None \
+                            else t[key] + mult * x
                     bound = max(nb / HBM_BYTES_PER_S,
                                 fl / PEAK_FLOPS[dtype]) * 1e3
-                    line.append(f"{ms:.3f} ms (bound {bound:.3f}, plain "
-                                f"{pms:.1f}, torch.matmul {lms:.3f}, "
-                                f"planning {plan_ms:.3f})")
+                    line.append(f"{ms:.3f} ms, device {fmt_ms(dms)} (bound "
+                                f"{bound:.3f}, plain {pms:.1f}, torch.matmul "
+                                f"{lms:.3f}, device {fmt_ms(ldms)}, planning "
+                                f"{plan_ms:.3f}, splits "
+                                f"{splits_of(a, b, geom)})")
                 log("kernels: " + "; ".join(line))
                 del a, b
         del b16
@@ -392,6 +508,58 @@ def phase_kernels(torch, cfg):
         log(f"kernels: ragged M={m} K={k} N={n} geometry "
             f"{tuple(geom.values())}: K1 and K2 agree with their plain "
             "versions (bf16/float32 in, default/float32/bf16 out)")
+
+    # split-heavy shapes: few tiles, deep schedules cut over many blocks
+    for m, k, n, bm, bn, sk in SPLIT_SHAPES:
+        a32 = torch.randn(m, k, device=dev, generator=g).clamp(min=0).square()
+        b32 = torch.randn(k, n, device=dev, generator=g)
+        if n > bn:
+            b32[:, :bn] = 0                             # a dead block column
+        b32[torch.rand(k, n, device=dev, generator=g) < 0.5] = 0
+        geom = dict(zip(("block_m", "block_n", "slice_k"),
+                        pln.clamp_geometry(m, n, k, bm, bn, sk)))
+        for dtype in ("bfloat16", "float32"):
+            tdt = getattr(torch, dtype)
+            a, b = a32.to(tdt), b32.to(tdt)
+            ks, counts = plan_slices(a, b, geom)
+            kp = plan_gathers(a, b, geom)
+            if n > bn and not ((counts == 0).any() and (kp.counts == 0).any()):
+                raise AssertionError("split case lost its empty blocks")
+            for kn in kernels:
+                y, p, _, _ = run_pair(kn, a, b, geom, ks, counts, kp)
+                err[kn] = max(err[kn], check_pair(
+                    torch, kn, y, p, dtype, f"split {m}x{k}x{n}"))
+        log(f"kernels: split M={m} K={k} N={n} geometry "
+            f"{tuple(geom.values())}, splits {splits_of(a32, b32, geom)} in "
+            "bf16: K1 and K2 agree with their plain versions (bf16 and "
+            "float32)")
+
+    # whisper-base's encoder products in bf16
+    for site, m, k, n in WHISPER_SHAPES:
+        a = torch.randn(m, k, device=dev, generator=g, dtype=torch.bfloat16)
+        b = torch.randn(k, n, device=dev, generator=g, dtype=torch.bfloat16)
+        geom, ks, counts, kp = schedules(a, b)
+        line = [f"whisper {site} M={m} K={k} N={n} bf16 blocks="
+                f"{tuple(counts.shape)} splits {splits_of(a, b, geom)}"]
+        for kn in kernels:
+            y, p, kfn, _ = run_pair(kn, a, b, geom, ks, counts, kp)
+            e = check_pair(torch, kn, y, p, "bfloat16", line[0])
+            err[kn] = max(err[kn], e)
+            kp1 = type(kp)(*(t[None] for t in kp))
+            nb, fl = needed_work(
+                torch, a[None], b[None], a.dtype, geom,
+                kp1 if kn == "K2" else ks[None],
+                kp1.counts if kn == "K2" else counts[None], kn == "K2")
+            t_bytes, t_ops = nb / HBM_BYTES_PER_S, fl / PEAK_FLOPS["bfloat16"]
+            line.append(f"{kn} err {e:.2e} {cuda_ms(torch, kfn, 10):.4f} ms, "
+                        f"device {fmt_ms(device_ms(torch, kfn, 10))} (bound "
+                        f"{max(t_bytes, t_ops) * 1e3:.4f} by "
+                        f"{'bytes' if t_bytes >= t_ops else 'flops'})")
+        mm = lambda: torch.matmul(a, b)                    # noqa: E731
+        line.append(f"torch.matmul {cuda_ms(torch, mm, 10):.4f} ms, device "
+                    f"{fmt_ms(device_ms(torch, mm, 10))}")
+        log("kernels: " + "; ".join(line))
+        del a, b
     return err, totals
 
 
@@ -1413,10 +1581,12 @@ def main() -> int:
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
-            f"its shapes, its {kn} launches take {t['ms']:.0f} ms and its "
-            f"per-call planning {t['plan_ms']:.0f} ms (dense generate "
-            f"{walls['dense']:.0f} ms, its projections "
-            f"{t['library_ms']:.0f} ms as torch.matmul)")
+            f"its shapes, its {kn} launches take {t['ms']:.1f} ms (device "
+            f"{fmt_ms(t['device_ms'])}) and its per-call planning "
+            f"{t['plan_ms']:.0f} ms (dense generate {walls['dense']:.0f} ms, "
+            f"its projections {t['library_ms']:.1f} ms as torch.matmul, "
+            f"device {fmt_ms(t['library_device_ms'])}; bound "
+            f"{t['nbytes'] / HBM_BYTES_PER_S * 1e3:.1f} ms by bytes)")
     for mode, kn in (("dual+kv", "K3"), ("dual+kc+kv", "K4")):
         t = totals[kn]
         log(f"time: {mode} generate {kv_walls[mode]:.0f} ms against "
@@ -1480,9 +1650,10 @@ def main() -> int:
     log(f"kernels line: ms, plain_ms, bound_ms and library_ms are summed "
         f"over one generate's launches at the served types: K1/K2 bf16 over "
         f"{13 * NEW_TOKENS} dispatches (1 prefill of {PROMPTS * PROMPT_LEN} "
-        f"rows, {NEW_TOKENS - 1} decodes of {PROMPTS}), library_ms "
-        f"torch.matmul; K3/K4 over {KV_CALLS} score (bf16 in) and "
-        f"{KV_CALLS} value (float32) products of the sparse-KV generate, "
+        f"rows, {NEW_TOKENS - 1} decodes of {PROMPTS}), ms and library_ms "
+        f"(torch.matmul) CUDA events around one call; K3/K4 over "
+        f"{KV_CALLS} score (bf16 in) and {KV_CALLS} value (float32) "
+        f"products of the sparse-KV generate, "
         f"library_ms torch.bmm over all {CAPACITY} slots; K5-K7 bf16 over "
         f"one whisper generate's stem ({W_SEGMENTS} segments: K5 on both "
         f"stem convs, K6 on conv1, K7 on conv2), ms and library_ms "

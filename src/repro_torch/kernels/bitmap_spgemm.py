@@ -12,24 +12,31 @@ plain versions.
   ``slice_k`` contraction positions ``gk[i, j, t, :]``;
   ``counts == ceil(nnz_AND / slice_k)``.
 
-On the H100 both are bound by the bytes of B's scheduled slices (at the
-main path's 2 and 64 rows a bf16 product does 2·M flops per weight byte,
-far under the card's ~295 flop/byte ridge).  The CUDA kernel
-(``csrc/spgemm_tile.cuh``) answers with one block per output tile that
-walks ``t < counts[i, j]`` only — skipped slices are bytes never read —
-wide loads of each scheduled B row, a chunk of loads in flight while the
-previous chunk multiplies, and masked edges instead of padded copies.
+On the H100 both are bound by the bytes of B's scheduled slices at the
+main path's 2 and 64 rows (a bf16 product does 2·M flops per weight byte,
+far under the card's ~295 flop/byte ridge) and by their flops at
+whisper's 6000-row encoder.  bfloat16 operands run on the tensor-core
+kernel ``csrc/spgemm_mma.cuh``: mma.sync fed from a ring of cp.async
+stages, and — where the output tiles fill fewer than two waves of SMs —
+each tile's schedule split over several CUDA blocks (:func:`split_count`,
+:func:`split_ranges`), whose float32 partials a second launch sums in
+split order.  float32 operands run on the SIMT kernel
+``csrc/spgemm_tile.cuh`` (exact against a float32 walk), unsplit.  Both
+walk ``t < counts[i, j]`` only — skipped slices are bytes never read —
+and mask the edges instead of padding.
 
 The wrapper takes ``device=None``, meaning the card.  For CPU tensors
 (``device="cpu"``) it runs the plain version; for CUDA tensors it launches
 the kernel or raises — there is no fallback.  ``launches`` on each wrapper
-counts kernel launches.  The checks, the launch and the plain walks take
+counts its calls on the card, one each (a split call's second launch, the
+sum of the partials, is not counted apart).  The checks, the launch and the plain walks take
 a leading problem axis, so the grouped K3/K4
 (:mod:`repro_torch.kernels.grouped_spgemm`) share them.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +46,21 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+# the C entries that take a split count and its workspace (K1/K2)
+_SPLIT_SOURCES = ("bitmap_spgemm.cu", "bitmap_spgemm_kfused.cu")
+
+# the tensor-core kernel's CUDA block (csrc/spgemm_mma.cuh): the smallest
+# of MMA_ROWS rows that holds block_m (128 at a time beyond) by MMA_COLS
+# columns
+MMA_ROWS = (16, 32, 64, 128)
+MMA_COLS = 128
+# split tiles' schedules when their CUDA blocks fill fewer than
+# SPLIT_BELOW_WAVES waves of SMs, into enough shares for SPLIT_WAVES waves
+# (more blocks than can be resident, so none waits on a short last wave),
+# each share walking at least MIN_SPLIT_STEPS steps
+SPLIT_BELOW_WAVES = 2
+SPLIT_WAVES = 8
+MIN_SPLIT_STEPS = 8
 
 
 def _pad_last2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -78,10 +100,54 @@ def check_problem(a, b, sched, counts, block_m, block_n, slice_k, kfused):
     return e, m, n, k, mt, nt, s
 
 
+def mma_blocks(e: int, mt: int, nt: int, block_m: int, block_n: int) -> int:
+    """CUDA blocks of the tensor-core kernel for an (E, Mt, Nt) tile grid,
+    one split each."""
+    rows = next((r for r in MMA_ROWS if r >= block_m), MMA_ROWS[-1])
+    return e * mt * -(-block_m // rows) * nt * -(-block_n // MMA_COLS)
+
+
+def split_count(blocks: int, s: int, sms: int, *, m: int, k: int) -> int:
+    """Shares each tile's S-step schedule is cut into.
+
+    1 once ``blocks`` CUDA blocks fill :data:`SPLIT_BELOW_WAVES` waves of
+    ``sms`` SMs.  Otherwise enough shares for :data:`SPLIT_WAVES` waves,
+    but each walking at least :data:`MIN_SPLIT_STEPS` steps, and with the
+    float32 partials of an (M, ·) output (8 bytes an element: stored, then
+    read back) no larger than a quarter of the bf16 rows of depth K
+    (2 bytes an element) they split: so 6000-row products never split.
+    """
+    if blocks <= 0 or blocks >= SPLIT_BELOW_WAVES * sms:
+        return 1
+    want = -(-SPLIT_WAVES * sms // blocks)
+    by_bytes = (2 * k) // (4 * 8 * m) if m > 0 else want
+    return max(1, min(want, s // MIN_SPLIT_STEPS, by_bytes))
+
+
+def split_ranges(counts: torch.Tensor, s: int, splits: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split ``q``'s steps ``[t0[q], t1[q])`` of every tile, as the
+    tensor-core kernel walks them: contiguous shares of
+    ``per = ceil(min(counts, S) / splits)`` steps, the last ones short or
+    empty.  Returns int64 (splits, *counts.shape) tensors."""
+    steps = counts.to(torch.int64).clamp(0, s)
+    per = (steps + splits - 1) // splits
+    q = torch.arange(splits, device=counts.device).view(
+        (splits,) + (1,) * counts.ndim)
+    t0 = torch.minimum(q * per, steps)
+    return t0, torch.minimum(t0 + per, steps)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
            out_dtype, geom) -> torch.Tensor:
     """Check what the kernel in ``csrc/<src>`` takes, allocate the
-    (E, M, N) output and launch on the current stream."""
+    (E, M, N) output and launch on the current stream; K1/K2 also take
+    the split count and its float32 workspace."""
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16 operands of one "
                         f"dtype, got {a.dtype} @ {b.dtype}")
@@ -98,11 +164,22 @@ def launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
     e, m, n, k, mt, nt, s = geom
     out = torch.empty((e, m, n), dtype=out_dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
+    ptrs = [a.data_ptr(), b.data_ptr(), sched.data_ptr(), counts.data_ptr(),
+            out.data_ptr()]
+    blocks = [block_m, block_n, slice_k]
+    if src in _SPLIT_SOURCES:
+        splits = 1
+        if a.dtype == torch.bfloat16:
+            splits = split_count(mma_blocks(e, mt, nt, block_m, block_n), s,
+                                 _sm_count(a.device.index or 0), m=m, k=k)
+        # freed on return: later work on this stream runs after the kernel
+        ws = (torch.empty((splits, e, m, n), dtype=torch.float32,
+                          device=a.device) if splits > 1 else None)
+        ptrs.append(None if ws is None else ws.data_ptr())
+        blocks.append(splits)
     rc = build.function(src)(
-        _DTYPE_CODE[a.dtype], int(out_dtype == torch.float32),
-        a.data_ptr(), b.data_ptr(), sched.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), e, m, n, k, mt, nt, s, block_m, block_n, slice_k,
-        stream)
+        _DTYPE_CODE[a.dtype], int(out_dtype == torch.float32), *ptrs,
+        e, m, n, k, mt, nt, s, *blocks, stream)
     if rc != 0:
         raise RuntimeError(f"{src}: kernel launch failed with CUDA error "
                            f"{rc}")

@@ -25,6 +25,10 @@ _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # (dtype_code, out_f32, a, b, sched, counts, out, e, m, n, k, mt, nt, s,
 #  block_m, block_n, slice_k, stream)
 _SPGEMM_ARGS = [_I, _I] + [_P] * 5 + [_I] * 10 + [_P]
+# K1/K2: the same, with the split workspace after out and the split count
+# after slice_k: (dtype_code, out_f32, a, b, sched, counts, out, ws, e, m,
+#  n, k, mt, nt, s, block_m, block_n, slice_k, splits, stream)
+_SPLIT_ARGS = [_I, _I] + [_P] * 6 + [_I] * 11 + [_P]
 # (elem_bytes, x, bits, cond, n, c, h, w, x's four strides, stream)
 _ENCODE_ARGS = [_I] + [_P] * 3 + [_I] * 4 + [_LL] * 4 + [_P]
 # (elem_bytes, cond, bits, out_bits, out_vals, n, c, h, w, kh, kw,
@@ -34,8 +38,8 @@ _IM2COL_ARGS = [_I] + [_P] * 4 + [_I] * 7 + [_P]
 # source → (exported C function, its argument types); every pointer and
 # the stream is a c_void_p, so ctypes never cuts one to 32 bits
 KERNELS = {
-    "bitmap_spgemm.cu": ("repro_bitmap_spgemm", _SPGEMM_ARGS),
-    "bitmap_spgemm_kfused.cu": ("repro_bitmap_spgemm_kfused", _SPGEMM_ARGS),
+    "bitmap_spgemm.cu": ("repro_bitmap_spgemm", _SPLIT_ARGS),
+    "bitmap_spgemm_kfused.cu": ("repro_bitmap_spgemm_kfused", _SPLIT_ARGS),
     "grouped_spgemm.cu": ("repro_grouped_spgemm", _SPGEMM_ARGS),
     "grouped_spgemm_kfused.cu": ("repro_grouped_spgemm_kfused",
                                  _SPGEMM_ARGS),

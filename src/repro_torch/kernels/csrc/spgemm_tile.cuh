@@ -1,5 +1,6 @@
-// Shared tile kernel of the dual-side sparse GEMMs K1/K2 and of their
-// grouped forms K3/K4.
+// SIMT tile kernel of the dual-side sparse GEMMs: K1/K2 with float32
+// operands (bfloat16 K1/K2 run on the tensor cores, spgemm_mma.cuh) and the
+// grouped K3/K4 in both types.
 //
 // C[e] = A[e] @ B[e] for E stacked problems (E = 1 for K1/K2), A (E, M, K)
 // and B (E, K, N) row-major, float32 or bfloat16, with each output tiled
@@ -21,25 +22,24 @@
 // operand is padded.  Every block stores its whole tile, so blocks whose
 // count is 0 write zeros.
 //
-// Design (a first kernel that is right, not yet fast): one CUDA block of
-// 256 threads owns an output tile; a tile wider than 128 columns, or taller
-// than 128 rows, is split over several blocks, each walking the tile's
-// schedule.  The contraction is staged through shared memory 32 positions
-// at a time as float; the next chunk's global loads are issued into
-// registers before the current chunk is multiplied, so they overlap.  Each
-// warp owns TM rows and each lane 4 columns; products accumulate in float32
-// registers (SIMT FMA, exact products of bf16 inputs) and are cast once on
-// store.  B rows are read with 16-byte vector loads where alignment allows.
+// Design: one CUDA block of 256 threads owns an output tile; a tile wider
+// than 128 columns, or taller than 128 rows, is split over several blocks,
+// each walking the tile's whole schedule.  The contraction is staged
+// through shared memory 32 positions at a time as float; the next chunk's
+// global loads are started into registers before the current chunk is
+// multiplied, so they overlap.  Each warp owns TM rows and each lane 4
+// columns; products accumulate in float32 registers (SIMT FMA) and are
+// cast once on store.  B rows are read with 16-byte vector loads where
+// alignment allows.
 //
-// What bounds it on the H100: at the main path's shapes (M = 2 rows per
-// decode step, M = 64 per prefill) a bf16 product does 2*M flops per
-// weight byte, far under the ~295 flop/byte at which the tensor cores
-// rather than the 3.35 TB/s of device memory become the limit.  So the
-// bytes of B's scheduled slices bound it: the schedule's skips are bytes
-// never read, each scheduled B row is read once per tile with wide loads,
-// and A (a few rows) is re-read from L2.  SIMT float math caps prefill
-// near 67 TFLOP/s; wgmma, TMA and splitting narrow N over more blocks are
-// later work.
+// Why float32 K1/K2 stay here: float32 FMA of float32 inputs matches the
+// plain float32 walk to 1e-5 of its largest output (only the order of the
+// sums differs), which TF32 tensor cores, keeping about three decimal
+// digits of each input, would not.  The card's references (the smoke
+// models on the card against the CPU, tests/test_torch_cuda.py) rely on
+// that.  Bounds: float32 math peaks near 67 TFLOP/s; at 2 or 64 rows the
+// bytes of B's scheduled slices bound it, but one block per tile walking
+// its whole schedule leaves SMs idle when tiles are few.
 //
 // At the attention decode sites (K3/K4 with E = batch x KV heads) the
 // score product K[e] (T, hd) @ q[e] (hd, G) reads only the cache-key rows

@@ -87,6 +87,60 @@ def test_kernels_match_plain(cuda, shape, dtype, out_dtype):
         assert err <= rtol * scale, (err, scale)
 
 
+# split-heavy K1/K2 shapes: so few tiles that each tile's schedule is cut
+# over many CUDA blocks (N <= block_n with K = 16384; slice_k 40 and 96;
+# block_m 37; N = 300, whose first column tile has counts == 0 beside
+# split ones)
+SPLIT_SHAPES = [  # (M, K, N, block_m, block_n, slice_k)
+    (2, 16384, 96, 8, 128, 128),
+    (2, 16384, 300, 8, 128, 40),
+    (37, 16384, 300, 37, 128, 96),
+    (64, 16384, 256, 64, 128, 128),
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_split_kernels_match_plain(cuda, shape, dtype, out_dtype):
+    m, k, n, bm, bn, sk = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn(m, k, device=cuda, generator=g).clamp(min=0).square()
+    b = torch.randn(k, n, device=cuda, generator=g)
+    if n > bn:
+        b[:, :bn] = 0                                 # counts == 0 tiles
+    b[torch.rand(k, n, device=cuda, generator=g) < 0.5] = 0
+    a, b = a.to(dtype), b.to(dtype)
+    bm, bn, sk = pln.clamp_geometry(m, n, k, bm, bn, sk)
+    ks, counts = pln.plan_from_activity(
+        pln.block_reduce_lhs(pln.slice_activity_lhs(a, sk), bm),
+        pln.block_reduce_rhs(pln.slice_activity_rhs(b, sk), bn))
+    kp = pln.plan_kcondensed(pln.element_activity_lhs(a, bm),
+                             pln.element_activity_rhs(b, bn), sk)
+    assert (n <= bn) or ((counts == 0).any() and (kp.counts == 0).any())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    blocks = bsk.mma_blocks(1, *counts.shape, bm, bn)
+    assert bsk.split_count(blocks, ks.shape[-1], sms, m=m, k=k) > 1
+    geom = dict(block_m=bm, block_n=bn, slice_k=sk, out_dtype=out_dtype)
+    pairs = [
+        (bsk.bitmap_spgemm_planned(a, b, ks, counts, **geom),
+         bsk.bitmap_spgemm_planned_plain(a, b, ks, counts, **geom)),
+        (bsk.bitmap_spgemm_kfused_planned(a, b, kp.gk, kp.counts, **geom),
+         bsk.bitmap_spgemm_kfused_planned_plain(a, b, kp.gk, kp.counts,
+                                                **geom)),
+    ]
+    torch.cuda.synchronize()
+    want = out_dtype or dtype
+    rtol = 1e-5 if want == torch.float32 else 1e-2
+    for y, p in pairs:
+        assert y.dtype == p.dtype == want
+        scale = p.float().abs().max().item()
+        err = (y.float() - p.float()).abs().max().item()
+        assert err <= rtol * scale, (err, scale)
+        if n > bn:                                    # the dead tile
+            assert not y[:, :bn].any()
+
+
 GROUPED = [  # (E, C, K, N, block_m, block_n, slice_k)
     (16, 4096, 192, 12, 32, 12, 128),   # attn.score of nemotron's decode
     (16, 12, 4096, 192, 12, 128, 32),   # attn.value
