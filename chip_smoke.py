@@ -9,9 +9,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 1. device — the card's name and power limit, as ``nvidia-smi`` gives them;
 2. build — K1-K7 compiled from ``src/repro_torch/kernels/csrc`` (sm_90a),
    one ``nvcc`` per source, all at once; registers and spills of each;
-   the registers, shared memory and spills of every tensor-core K1/K2
-   kernel, and (where ``cuobjdump`` is present) the HMMA/HGMMA, LDGSTS
-   and LDSM instructions of the K1/K2 libraries: none of the first fails;
+   the registers, shared memory and spills of every tensor-core K1-K4
+   kernel and of K3/K4's narrow-N and mixed kernels, and (where
+   ``cuobjdump`` is present) the HMMA/HGMMA, LDGSTS and LDSM instructions
+   of the K1-K4 libraries, per kernel: none of the tensor cores fails;
 3. kernels — K1 and K2 against their plain PyTorch versions, in bf16 and
    float32, at every projection shape of the served model (decode M=2,
    prefill M=64), at ragged shapes with ``counts == 0`` blocks and
@@ -22,8 +23,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    ``torch.matmul`` (a yardstick only);
 4. grouped kernels — K3 and K4 against their plain versions at the two
    decode attention products of a 4096-slot cache holding 257 and 271
-   tokens, and at a ragged shape with an empty problem; timings beside the
-   bound, the plain version and ``torch.bmm`` over the whole capacity;
+   tokens (bf16, float32, and the served value's float32 p against bf16
+   V), and at a ragged shape with an empty problem on every route's
+   types; each shape's route, splits, CUDA events and device time (the
+   host's share between them) beside the bound, the bytes of B read, the
+   plain version and ``torch.bmm`` over the whole capacity; the wrapper's
+   host time at the served shapes, by part;
 5. conv kernels — K5, K6 and K7 bit-equal to their plain versions in bf16
    and float32 at whisper-base's stem shapes (4 segments, conv1 k=1x3 s=1
    over 80 mel bins, conv2 s=2 over 512 channels), the vision patch shape
@@ -60,6 +65,7 @@ outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import array
 import copy
 import dataclasses
 import functools
@@ -150,19 +156,27 @@ def phase_device(torch):
     return smi
 
 
-def mma_kernel_lines(text):
+# the kernels of the redesigned K1-K4 whose resources phase_build reports:
+# the tensor-core kernel (K1-K4 bf16), K3/K4's narrow-N and mixed kernels
+REPORTED_KERNELS = ("spgemm_mma_kernel", "narrow_kernel", "mixed_kernel")
+
+
+def kernel_lines(text, gathers):
     """(kernel, registers, shared memory, stack, spill stores) of every
-    tensor-core K1/K2 instantiation in an ``-Xptxas -v`` log."""
+    instantiation of :data:`REPORTED_KERNELS` in an ``-Xptxas -v`` log;
+    ``gathers`` names the gathering variant (K2 or K4)."""
     rows = []
     for block in text.split("Compiling entry function")[1:]:
         name = block.split("'")[1]
-        if "spgemm_mma_kernel" not in name:
+        base = next((b for b in REPORTED_KERNELS if b in name), None)
+        if base is None:
             continue
         num = (lambda pat: int(re.search(pat, block).group(1))
                if re.search(pat, block) else 0)
-        tpl = re.search(r"ILi(\d+)ELb([01])E", name)
-        rows.append((f"spgemm_mma_kernel<{tpl.group(1)} rows, "
-                     f"{'K2' if tpl.group(2) == '1' else 'K1'}>",
+        rows_tpl = re.search(r"ILi(\d+)E", name)
+        fused = re.search(r"Lb([01])E", name).group(1) == "1"
+        rows.append((f"{base}<{rows_tpl.group(1) + ' rows, ' if rows_tpl else ''}"
+                     f"{gathers if fused else 'slices'}>",
                      num(r"Used (\d+) registers"), num(r"(\d+) bytes smem"),
                      num(r"(\d+) bytes stack frame"),
                      num(r"(\d+) bytes spill stores")))
@@ -178,8 +192,17 @@ def sass_counts(lib):
         return None
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HMMA", "HGMMA", "LDGSTS", "LDSM")}
+    ops = ("HMMA", "HGMMA", "LDGSTS", "LDSM")
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+    # and per kernel of REPORTED_KERNELS, from its "Function :" section
+    for part in sass.split("Function : ")[1:]:
+        base = next((b for b in REPORTED_KERNELS
+                     if b in part.split("\n", 1)[0]), None)
+        if base is not None:
+            per = counts.setdefault(base, dict.fromkeys(ops, 0))
+            for op in ops:
+                per[op] += len(re.findall(rf"\b{op}\b", part))
+    return counts
 
 
 def phase_build():
@@ -196,25 +219,38 @@ def phase_build():
         log(f"build: {src}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"{max(spills, default=0)} bytes of spill stores at most")
-    # the bf16 K1/K2: tensor-core kernels, fed by cp.async
-    for src in ("bitmap_spgemm.cu", "bitmap_spgemm_kfused.cu"):
+    # the bf16 K1-K4: tensor-core kernels (K1/K2's fed by cp.async, K3/K4's
+    # narrow-N one by registers), and K3/K4's float32 x bf16 kernel
+    for src, gathers in (("bitmap_spgemm.cu", "K2"),
+                         ("bitmap_spgemm_kfused.cu", "K2"),
+                         ("grouped_spgemm.cu", "K4"),
+                         ("grouped_spgemm_kfused.cu", "K4")):
         text = libs[src].with_name(libs[src].stem[3:] + ".log").read_text()
-        rows = mma_kernel_lines(text)
-        if not rows:
+        rows = kernel_lines(text, gathers)
+        if not any(r[0].startswith("spgemm_mma_kernel") for r in rows):
             raise AssertionError(f"{src}: no tensor-core kernel in the build")
+        if src.startswith("grouped") and not {
+                "narrow_kernel", "mixed_kernel"} <= {
+                r[0].split("<")[0] for r in rows}:
+            raise AssertionError(f"{src}: no narrow-N or mixed kernel")
         for name, regs, smem, stack, spill in rows:
             log(f"build: {src} {name}: {regs} registers, {smem} bytes "
-                f"static shared memory (the ring is dynamic), {stack} bytes "
-                f"stack, {spill} bytes spilled")
+                f"static shared memory (rings and staged B are dynamic), "
+                f"{stack} bytes stack, {spill} bytes spilled")
         counts = sass_counts(libs[src])
         if counts is None:
             log(f"build: {src}: no cuobjdump, SASS not counted")
             continue
         log(f"build: {src} SASS: " + ", ".join(
-            f"{op} {n}" for op, n in counts.items()))
+            f"{op} {n}" if isinstance(n, int) else
+            f"{op} (" + ", ".join(f"{o} {c}" for o, c in n.items()) + ")"
+            for op, n in counts.items()))
         if counts["HMMA"] + counts["HGMMA"] == 0:
             raise AssertionError(f"{src}: no HMMA/HGMMA instruction in the "
                                  "bf16 kernels")
+        if src.startswith("grouped") and not counts.get(
+                "narrow_kernel", {}).get("HMMA"):
+            raise AssertionError(f"{src}: the narrow-N kernel has no HMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +349,8 @@ def schedules(a, b):
 
 
 def needed_work(torch, a, b, out_dtype, geom, sched, counts, kfused):
-    """(bytes, flops) that this data needs for a (E, M, K) @ b (E, K, N)
+    """(bytes, flops, bytes of b) that this data needs for a (E, M, K) @
+    b (E, K, N)
     on the schedule ``sched`` (ks, or a KPlan when ``kfused``) / counts
     (E, Mt, Nt): each A row block reads the contraction positions some of
     its blocks schedule, each B column block likewise, the schedule is
@@ -344,11 +381,11 @@ def needed_work(torch, a, b, out_dtype, geom, sched, counts, kfused):
     depth = (act * width).sum(-1)                      # (E, Mt, Nt)
     a_depth = (act.any(2) * width).sum(-1)             # (E, Mt)
     b_depth = (act.any(1) * width).sum(-1)             # (E, Nt)
-    nbytes = (float((a_depth * rows).sum()) * a.element_size()
-              + float((b_depth * cols).sum()) * b.element_size()
+    b_bytes = float((b_depth * cols).sum()) * b.element_size()
+    nbytes = (float((a_depth * rows).sum()) * a.element_size() + b_bytes
               + sched_bytes + e * m * n * out_dtype.itemsize)
     flops = 2.0 * float((depth * rows[:, None] * cols[None, :]).sum())
-    return nbytes, flops
+    return nbytes, flops, b_bytes
 
 
 def check_pair(torch, name, y, p, dtype, what):
@@ -453,7 +490,7 @@ def phase_kernels(torch, cfg):
                     plan_ms = cuda_ms(torch, lambda: planners[kn](a, b), 3)
                     # one problem: a leading axis of 1 on every operand
                     kp1 = type(kp)(*(t[None] for t in kp))
-                    nb, fl = needed_work(
+                    nb, fl, _ = needed_work(
                         torch, a[None], b[None], a.dtype, geom,
                         kp1 if kn == "K2" else ks[None],
                         kp1.counts if kn == "K2" else counts[None],
@@ -546,7 +583,7 @@ def phase_kernels(torch, cfg):
             e = check_pair(torch, kn, y, p, "bfloat16", line[0])
             err[kn] = max(err[kn], e)
             kp1 = type(kp)(*(t[None] for t in kp))
-            nb, fl = needed_work(
+            nb, fl, _ = needed_work(
                 torch, a[None], b[None], a.dtype, geom,
                 kp1 if kn == "K2" else ks[None],
                 kp1.counts if kn == "K2" else counts[None], kn == "K2")
@@ -615,21 +652,95 @@ def operand_arrays(x, w):
             w.w if isinstance(w, PlannedWeight) else w)
 
 
-def as_dtype(x, w, dtype):
-    """(x, w) of :func:`attention_products` with values cast to
-    ``dtype`` (the metadata stays)."""
+def as_dtype(x, w, a_dtype, b_dtype):
+    """(x, w) of :func:`attention_products` with x's values cast to
+    ``a_dtype`` and w's to ``b_dtype`` (the metadata stays)."""
     from repro_torch.sparse.weights import PlannedWeight
-    x = dataclasses.replace(x, values=x.values.to(dtype))
+    x = dataclasses.replace(x, values=x.values.to(a_dtype))
     if isinstance(w, PlannedWeight):
-        return x, dataclasses.replace(w, w=w.w.to(dtype))
-    return x, w.to(dtype)
+        return x, dataclasses.replace(w, w=w.w.to(b_dtype))
+    return x, w.to(b_dtype)
+
+
+# the grouped products' operand types (A, B); "mixed" is the served
+# value's: float32 probabilities against V as the cache stores it
+GROUPED_TYPES = {"bfloat16": ("bfloat16", "bfloat16"),
+                 "float32": ("float32", "float32"),
+                 "mixed": ("float32", "bfloat16")}
+
+
+def wrapper_parts(torch, kern, src, a, b, sched, counts, geom, reps=300):
+    """Host microseconds per call of a K3/K4 wrapper and of its parts,
+    from ``perf_counter`` around ``reps`` calls (the stream drained before
+    and after): the whole wrapper, the device checks, the shape checks,
+    the route and splits, the output's allocation, the current stream,
+    the kernel's launch words and ctypes call (the launch included), and
+    ``torch.cuda.current_stream``, which the wrapper no longer calls."""
+    from repro_torch.core import device as devmod
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import build
+    kfused = sched.ndim == 5
+    f32 = torch.float32
+    bm, bn = geom["block_m"], geom["block_n"]
+    g = bsk.check_problem(a, b, sched, counts, kfused=kfused, **geom)
+    e, m, n, k, mt, nt, s = g
+    kind = bsk.route(src, a.dtype, b.dtype, n, k)
+    sms = bsk._sm_count(a.device.index or 0)
+    splits = bsk.route_splits(kind, g, bm, bn, sms)
+    if splits != 1:
+        raise AssertionError(f"{src}: served shape split {splits} ways")
+    index = a.get_device()
+    out = a.new_empty((e, m, n), dtype=f32)
+    fn = build.function(src)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+
+    def ctypes_launch():
+        words = array.array("q", (
+            bsk.ROUTES[kind], 1, a.data_ptr(), b.data_ptr(),
+            sched.data_ptr(), counts.data_ptr(), out.data_ptr(), 0, e, m, n,
+            k, mt, nt, s, bm, bn, geom["slice_k"], 1, stream))
+        return fn(words.buffer_info()[0])
+
+    parts = {
+        "wrapper": lambda: kern(a, b, sched, counts, out_dtype=f32, **geom),
+        "device checks": lambda: devmod.check_all_on(
+            devmod.resolve(a.device), a=a, b=b, schedule=sched,
+            counts=counts),
+        "shape checks": lambda: bsk.check_problem(a, b, sched, counts,
+                                                  kfused=kfused, **geom),
+        "route and splits": lambda: bsk.route_splits(
+            bsk.route(src, a.dtype, b.dtype, n, k), g, bm, bn,
+            bsk._sm_count(index)),
+        "allocation": lambda: a.new_empty((e, m, n), dtype=f32),
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "launch words and ctypes call": ctypes_launch,
+        # what the stream and the call cost before they were trimmed
+        "torch.cuda.current_stream": lambda: torch.cuda.current_stream(
+            a.device).cuda_stream,
+    }
+    us = {}
+    for name, f in parts.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        us[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return us
 
 
 def phase_grouped(torch, cfg):
-    """K3/K4 against their plain versions at the decode attention shapes
-    and a ragged shape; timings at the served types (score bf16 in,
-    value float32 in, float32 out), summed over one generate's
-    KV_CALLS launches per site."""
+    """K3/K4 against their plain versions at the decode attention shapes,
+    in bf16, float32 and (the value) float32 p against bf16 V, and at a
+    ragged shape on every route's types; each shape's route and splits,
+    CUDA events and device time per call, their difference (the host's
+    share), the bytes of B (V, for the value) the data needs; totals at
+    the served types (score bf16 in, value float32 p against bf16 V,
+    float32 out), summed over one generate's KV_CALLS launches per site;
+    then the wrapper's host time at the served shapes, split into its
+    parts."""
+    from repro_torch.kernels import bitmap_spgemm as bsk
     from repro_torch.kernels import grouped_spgemm as gsk
     from repro_torch.sparse import dispatch as dsp
     from repro_torch.sparse import plan as pln
@@ -638,22 +749,27 @@ def phase_grouped(torch, cfg):
     kv_cfg = dataclasses.replace(cfg, **KV_MODES["dual+kv"])
     kernels = {
         "K3": (gsk.grouped_spgemm_planned,
-               gsk.grouped_spgemm_planned_plain, None),
+               gsk.grouped_spgemm_planned_plain, None, "grouped_spgemm.cu"),
         "K4": (gsk.grouped_spgemm_kfused_planned,
-               gsk.grouped_spgemm_kfused_planned_plain, "k"),
+               gsk.grouped_spgemm_kfused_planned_plain, "k",
+               "grouped_spgemm_kfused.cu"),
     }
-    served = {"attn.score": "bfloat16", "attn.value": "float32"}
+    served = {"attn.score": "bfloat16", "attn.value": "mixed"}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = {kn: 0.0 for kn in kernels}
-    totals = {kn: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, plan_ms=0.0,
-                       nbytes=0.0, op_s=0.0) for kn in kernels}
+    totals = {kn: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                       library_device_ms=0.0, plan_ms=0.0, nbytes=0.0,
+                       op_s=0.0) for kn in kernels}
+    last_served = {}
 
     def pair(kn, x, w, geom, out_dtype):
-        """(kernel out, plain out, kernel fn, plain fn, sched, counts)."""
-        kern, plain, condense = kernels[kn]
+        """(kernel out, plain out, kernel fn, plain fn, a, b, sched,
+        counts)."""
+        kern, plain, condense, _ = kernels[kn]
         sched, counts = dsp.schedule(x, w, mode="dual", condense=condense,
                                      **geom)
         a, b = operand_arrays(x, w)
-        a, b = a.contiguous(), b.to(a.dtype).contiguous()
+        a, b = a.contiguous(), b.contiguous()
         ks = sched.gk if condense else sched
         y = kern(a, b, ks, counts, out_dtype=out_dtype, **geom)
         p = plain(a, b, ks, counts, out_dtype=out_dtype, **geom)
@@ -663,53 +779,92 @@ def phase_grouped(torch, cfg):
                 lambda: plain(a, b, ks, counts, out_dtype=out_dtype, **geom),
                 a, b, sched, counts)
 
+    def add(t, key, x, mult):
+        t[key] = None if x is None or t[key] is None else t[key] + mult * x
+
     for written in KV_WRITTEN:
         ops = attention_products(torch, kv_cfg, written, g)
         for op, (x32, w32) in ops.items():
             a32, b32 = operand_arrays(x32, w32)
-            c, k, n = a32.shape[1], a32.shape[2], b32.shape[2]
+            e_, c, k, n = a32.shape[0], a32.shape[1], a32.shape[2], \
+                b32.shape[2]
             geom = site_geometry(kv_cfg, op, c, n, k)
-            for dtype in ("bfloat16", "float32"):
-                x, w = as_dtype(x32, w32, getattr(torch, dtype))
-                line = [f"{op} E={a32.shape[0]} M={c} K={k} N={n} "
+            bm, bn, sk = geom["block_m"], geom["block_n"], geom["slice_k"]
+            dims = (e_, c, n, k, pln._cdiv(c, bm), pln._cdiv(n, bn),
+                    pln._cdiv(k, sk))
+            types = ("bfloat16", "float32") + (
+                ("mixed",) if op == "attn.value" else ())
+            for dtype in types:
+                at, bt = (getattr(torch, t) for t in GROUPED_TYPES[dtype])
+                x, w = as_dtype(x32, w32, at, bt)
+                line = [f"{op} E={e_} M={c} K={k} N={n} "
                         f"{dtype} in, float32 out, {written} slots written, "
                         f"blocks {tuple(geom.values())}"]
-                for kn in kernels:
+                peak = PEAK_FLOPS["bfloat16" if dtype == "bfloat16"
+                                  else "float32"]
+                b_lib = None if dtype != "mixed" else b32.contiguous()
+                for kn, (_, _, condense, src) in kernels.items():
                     y, p, kfn, pfn, a, b, sched, counts = pair(
                         kn, x, w, geom, torch.float32)
                     e = check_pair(torch, kn, y, p, "float32", line[0])
                     err[kn] = max(err[kn], e)
+                    kind = bsk.route(src, a.dtype, b.dtype, n, k)
+                    splits = bsk.route_splits(kind, dims, bm, bn, sms)
                     s = counts.numel() * (
-                        sched.gk.shape[-2] if kernels[kn][2] else
-                        sched.shape[-1])
-                    line.append(f"{kn} steps {int(counts.sum())} of {s}, err "
-                                f"{e:.2e}")
+                        sched.gk.shape[-2] if condense else sched.shape[-1])
+                    line.append(f"{kn} route {kind}, splits {splits}, steps "
+                                f"{int(counts.sum())} of {s}, err {e:.2e}")
                     ms = cuda_ms(torch, kfn, 20)
+                    dms = device_ms(torch, kfn, 20)
                     pms = cuda_ms(torch, pfn, 3)
-                    lms = cuda_ms(torch, lambda: torch.bmm(a, b), 20)
+                    # one PyTorch call over every slot; for the mixed pair
+                    # on a float32 copy of V made beforehand (bmm takes one
+                    # type), which the kernel does not need
+                    lib = (lambda: torch.bmm(a, b)) if b_lib is None else \
+                        (lambda: torch.bmm(a, b_lib))
+                    lms = cuda_ms(torch, lib, 20)
+                    ldms = device_ms(torch, lib, 20)
                     plan_ms = cuda_ms(torch, lambda: dsp.schedule(
-                        x, w, mode="dual", condense=kernels[kn][2], **geom),
-                        5)
-                    nb, fl = needed_work(torch, a, b, torch.float32, geom,
-                                         sched, counts, kernels[kn][2])
-                    bound = max(nb / HBM_BYTES_PER_S,
-                                fl / PEAK_FLOPS[dtype]) * 1e3
-                    line.append(f"{ms:.4f} ms (bound {bound:.4f}, plain "
-                                f"{pms:.2f}, torch.bmm over all {CAPACITY} "
-                                f"slots {lms:.4f}, planning {plan_ms:.3f})")
+                        x, w, mode="dual", condense=condense, **geom), 5)
+                    nb, fl, b_bytes = needed_work(
+                        torch, a, b, torch.float32, geom, sched, counts,
+                        condense)
+                    bound = max(nb / HBM_BYTES_PER_S, fl / peak) * 1e3
+                    host = "not measured" if dms is None else \
+                        f"{ms - dms:.4f}"
+                    line.append(f"{ms:.4f} ms events, device {fmt_ms(dms)}, "
+                                f"host {host} (bound {bound:.4f}, B read "
+                                f"{b_bytes / 1e6:.3f} MB, plain {pms:.2f}, "
+                                f"torch.bmm over all {CAPACITY} slots "
+                                f"{lms:.4f}, device {fmt_ms(ldms)}, planning "
+                                f"{plan_ms:.3f})")
                     if dtype == served[op]:
                         t = totals[kn]
                         mult = KV_CALLS / len(KV_WRITTEN)
                         t["ms"] += mult * ms
+                        add(t, "device_ms", dms, mult)
                         t["plain_ms"] += mult * pms
                         t["library_ms"] += mult * lms
+                        add(t, "library_device_ms", ldms, mult)
                         t["plan_ms"] += mult * plan_ms
                         t["nbytes"] += mult * nb
                         # each product's operations at its own type's peak
-                        t["op_s"] += mult * fl / PEAK_FLOPS[dtype]
+                        t["op_s"] += mult * fl / peak
+                        last_served[(kn, op)] = (
+                            a, b, sched.gk if condense else sched, counts,
+                            geom)
                 log("grouped: " + "; ".join(line))
         del ops
         torch.cuda.empty_cache()
+
+    # the wrapper's host time at the served shapes, by part
+    for (kn, op), (a, b, sched, counts, geom) in last_served.items():
+        kern, _, _, src = kernels[kn]
+        us = wrapper_parts(torch, kern, src, a, b, sched, counts, geom)
+        log(f"grouped: wrapper host time, {kn} {op} (served types, "
+            f"{KV_WRITTEN[-1]} slots): " + ", ".join(
+                f"{name} {v:.1f} us" for name, v in us.items())
+            + " a call (perf_counter over 300 calls)")
 
     # ragged: odd M, N, K, partial slices, an empty problem, and problems
     # filled to different depths
@@ -720,10 +875,10 @@ def phase_grouped(torch, cfg):
     for i, frac in enumerate((1.0, 0.6, 0.0, 0.25, 0.9)):
         a32[i, int(c * frac):] = 0
     geom = dict(block_m=16, block_n=16, slice_k=32)
-    for dtype in ("bfloat16", "float32"):
+    for dtype, (at, bt) in GROUPED_TYPES.items():
         for out_dtype in (None, torch.float32, torch.bfloat16):
-            a, b = a32.to(getattr(torch, dtype)), b32.to(getattr(torch, dtype))
-            odt = dtype if out_dtype is None else str(out_dtype)[6:]
+            a, b = a32.to(getattr(torch, at)), b32.to(getattr(torch, bt))
+            odt = at if out_dtype is None else str(out_dtype)[6:]
             for kn in kernels:
                 y, p, *_, counts = pair(kn, a, b, geom, out_dtype)
                 if not (counts[2] == 0).all() or y[2].any():
@@ -734,7 +889,8 @@ def phase_grouped(torch, cfg):
                     torch, kn, y, p, odt, f"ragged {e}x{c}x{k}x{n}"))
     log(f"grouped: ragged E={e} M={c} K={k} N={n} geometry "
         f"{tuple(geom.values())}, problem 2 empty: K3 and K4 agree with "
-        "their plain versions (bf16/float32 in, default/float32/bf16 out)")
+        "their plain versions (bf16, float32 and float32 x bf16 in; "
+        "default/float32/bf16 out)")
     return err, totals
 
 
@@ -1044,7 +1200,8 @@ def phase_attention_split(torch, cfg):
     4096-slot cache holding 264 tokens), timed whole and in parts:
     planning (occupancy, the slot schedule, the operands' metadata and
     both dispatch schedules), operand copies (the (E, T, hd) views of K
-    and V and the float32 cast of V), the two kernels, and the rest
+    and V; the kernels read V as stored, so there is no float32 copy of
+    it), the two kernels, and the rest
     (scaling, masks, softmax, reshapes); beside it the dense attention
     the plain-cache baseline runs over every slot.  Returns ms per
     call."""
@@ -1079,9 +1236,9 @@ def phase_attention_split(torch, cfg):
             kd, vd, _ = kvc.read(cache, dtype=q.dtype)
             k_e = kd.transpose(1, 2).reshape(ne, CAPACITY, hd)
             v_e = vd.transpose(1, 2).reshape(ne, CAPACITY, hd)
-            return k_e, v_e, v_e.float()
+            return k_e, v_e
 
-        k_e, v_e, v32 = copies()
+        k_e, v_e = copies()
         q_e = q.reshape(b, kvh, grp, hd).transpose(2, 3).reshape(ne, hd, grp)
         p_e = torch.rand(ne, grp, CAPACITY, device=dev, generator=g)
         g_s = site_geometry(c, "attn.score", CAPACITY, grp, hd)
@@ -1096,7 +1253,7 @@ def phase_attention_split(torch, cfg):
             x_p, w_v = skvc.value_operands(occ, p_e * sched, v_e, sched,
                                            g_v["slice_k"])
             s_v = dsp.schedule(x_p, w_v, mode="dual", condense=condense,
-                               w_arr=v32, **g_v)
+                               **g_v)
             return s_s, s_v, x_p.values
 
         (ks_s, cnt_s), (ks_v, cnt_v), p_sched = planning()
@@ -1108,7 +1265,7 @@ def phase_attention_split(torch, cfg):
 
         def kernels():
             kern(k_e, q_c, ks_s, cnt_s, out_dtype=f32, **g_s)
-            kern(p_c, v32, ks_v, cnt_v, out_dtype=f32, **g_v)
+            kern(p_c, v_e, ks_v, cnt_v, out_dtype=f32, **g_v)
 
         def dense():
             kd, vd, _ = kvc.read(cache, dtype=q.dtype)
@@ -1129,8 +1286,8 @@ def phase_attention_split(torch, cfg):
         t = {name: statistics.median(v) for name, v in times.items()}
         t["rest"] = t["total"] - t["planning"] - t["copies"] - t["kernels"]
         split[mode] = t
-        copy_mb = (2 * k_e.numel() * k_e.element_size()
-                   + v32.numel() * v32.element_size()) / 1e6
+        copy_mb = (k_e.numel() * k_e.element_size()
+                   + v_e.numel() * v_e.element_size()) / 1e6
         log(f"attention split: {mode}: one decode attention call "
             f"{t['total']:.3f} ms = planning {t['planning']:.3f} + operand "
             f"copies {t['copies']:.3f} ({copy_mb:.1f} MB written) + {kn} "
@@ -1591,9 +1748,12 @@ def main() -> int:
         t = totals[kn]
         log(f"time: {mode} generate {kv_walls[mode]:.0f} ms against "
             f"{kv_walls['dual']:.0f} ms with plain caches; timed alone, its "
-            f"{kn} launches take {t['ms']:.2f} ms and their planning "
+            f"{kn} launches take {t['ms']:.2f} ms (device "
+            f"{fmt_ms(t['device_ms'])}) and their planning "
             f"{t['plan_ms']:.1f} ms (torch.bmm over every slot "
-            f"{t['library_ms']:.2f} ms)")
+            f"{t['library_ms']:.2f} ms, device "
+            f"{fmt_ms(t['library_device_ms'])}; bound "
+            f"{max(t['nbytes'] / HBM_BYTES_PER_S, t['op_s']) * 1e3:.3f} ms)")
     conv_ms = sum(totals[kn]["ms"] for kn in ("K5", "K6", "K7"))
     for mode in MODES:
         log(f"time: whisper {mode} generate {w_walls[mode]:.0f} ms (prefill "
@@ -1652,8 +1812,8 @@ def main() -> int:
         f"{13 * NEW_TOKENS} dispatches (1 prefill of {PROMPTS * PROMPT_LEN} "
         f"rows, {NEW_TOKENS - 1} decodes of {PROMPTS}), ms and library_ms "
         f"(torch.matmul) CUDA events around one call; K3/K4 over "
-        f"{KV_CALLS} score (bf16 in) and {KV_CALLS} value (float32) "
-        f"products of the sparse-KV generate, "
+        f"{KV_CALLS} score (bf16 in) and {KV_CALLS} value (float32 p, "
+        f"bf16 V) products of the sparse-KV generate, "
         f"library_ms torch.bmm over all {CAPACITY} slots; K5-K7 bf16 over "
         f"one whisper generate's stem ({W_SEGMENTS} segments: K5 on both "
         f"stem convs, K6 on conv1, K7 on conv2), ms and library_ms "

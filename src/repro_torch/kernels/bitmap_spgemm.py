@@ -29,12 +29,14 @@ The wrapper takes ``device=None``, meaning the card.  For CPU tensors
 (``device="cpu"``) it runs the plain version; for CUDA tensors it launches
 the kernel or raises — there is no fallback.  ``launches`` on each wrapper
 counts its calls on the card, one each (a split call's second launch, the
-sum of the partials, is not counted apart).  The checks, the launch and the plain walks take
-a leading problem axis, so the grouped K3/K4
-(:mod:`repro_torch.kernels.grouped_spgemm`) share them.
+sum of the partials, is not counted apart).  The checks, the launch, the
+route rule (:func:`route`) and the plain walks take a leading problem
+axis, so the grouped K3/K4 (:mod:`repro_torch.kernels.grouped_spgemm`)
+share them.
 """
 from __future__ import annotations
 
+import array
 import functools
 from typing import Optional, Tuple
 
@@ -44,10 +46,15 @@ import torch.nn.functional as F
 from repro_torch.core import device as devmod
 from repro_torch.kernels import build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
-# the C entries that take a split count and its workspace (K1/K2)
-_SPLIT_SOURCES = ("bitmap_spgemm.cu", "bitmap_spgemm_kfused.cu")
+# the kernel a call runs on, the first launch word
+# (csrc/spgemm_entry.cuh; K1/K2 take simt and mma)
+ROUTES = {"simt": 0, "mma": 1, "narrow": 2, "mixed": 3}
+GROUPED_SOURCES = ("grouped_spgemm.cu", "grouped_spgemm_kfused.cu")
+# K3/K4's narrow-N kernel (csrc/spgemm_grouped.cuh): bf16 products of at
+# most NARROW_N columns, B staged whole in shared memory, K <= NARROW_MAX_K
+NARROW_N = 16
+NARROW_MAX_K = 2048
 
 # the tensor-core kernel's CUDA block (csrc/spgemm_mma.cuh): the smallest
 # of MMA_ROWS rows that holds block_m (128 at a time beyond) by MMA_COLS
@@ -138,6 +145,44 @@ def split_ranges(counts: torch.Tensor, s: int, splits: int
     return t0, torch.minimum(t0 + per, steps)
 
 
+def route(src: str, a_dtype, b_dtype, n: int, k: int) -> str:
+    """The kernel ``csrc/<src>`` runs an (E, M, K) @ (E, K, N) product on,
+    by rule from the types and N, K (a key of :data:`ROUTES`):
+
+    * bf16 @ bf16: ``"narrow"`` for K3/K4 when ``n <= NARROW_N`` and
+      ``k <= NARROW_MAX_K`` (the decode score), else ``"mma"``, the
+      128-column tensor-core kernel with split schedules;
+    * float32 @ float32: ``"simt"``, exact against a float32 walk;
+    * float32 @ bf16, K3/K4 only: ``"mixed"`` (the decode value, V read as
+      stored).
+
+    Any other pair raises ``TypeError``."""
+    grouped = src in GROUPED_SOURCES
+    if a_dtype == b_dtype == torch.bfloat16:
+        narrow = grouped and n <= NARROW_N and k <= NARROW_MAX_K
+        return "narrow" if narrow else "mma"
+    if a_dtype == b_dtype == torch.float32:
+        return "simt"
+    if grouped and a_dtype == torch.float32 and b_dtype == torch.bfloat16:
+        return "mixed"
+    raise TypeError(
+        f"kernel takes float32 or bfloat16 operands of one dtype"
+        f"{', or float32 @ bfloat16' if grouped else ''}, got {a_dtype} @ "
+        f"{b_dtype}")
+
+
+def route_splits(kind: str, geom, block_m: int, block_n: int,
+                 sms: int) -> int:
+    """Shares each tile's schedule is cut into on route ``kind``: the
+    tensor-core kernel's :func:`split_count`, 1 on every other route.
+    ``geom`` is :func:`check_problem`'s (e, m, n, k, mt, nt, s)."""
+    if kind != "mma":
+        return 1
+    e, m, n, k, mt, nt, s = geom
+    return split_count(mma_blocks(e, mt, nt, block_m, block_n), s, sms,
+                       m=m, k=k)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -146,12 +191,12 @@ def _sm_count(index: int) -> int:
 def launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
            out_dtype, geom) -> torch.Tensor:
     """Check what the kernel in ``csrc/<src>`` takes, allocate the
-    (E, M, N) output and launch on the current stream; K1/K2 also take
-    the split count and its float32 workspace."""
-    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel takes float32 or bfloat16 operands of one "
-                        f"dtype, got {a.dtype} @ {b.dtype}")
-    out_dtype = out_dtype or a.dtype
+    (E, M, N) output and, for a split schedule, its float32 workspace, and
+    launch on the current stream on the :func:`route` the operands
+    take."""
+    e, m, n, k, mt, nt, s = geom
+    kind = route(src, a.dtype, b.dtype, n, k)
+    out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"kernel writes float32 or bfloat16, not {out_dtype}")
     for t, what in ((a, "a"), (b, "b"), (sched, "schedule"),
@@ -161,25 +206,20 @@ def launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
     for t, what in ((sched, "schedule"), (counts, "counts")):
         if t.dtype != torch.int32:
             raise TypeError(f"kernel takes an int32 {what}, got {t.dtype}")
-    e, m, n, k, mt, nt, s = geom
-    out = torch.empty((e, m, n), dtype=out_dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    ptrs = [a.data_ptr(), b.data_ptr(), sched.data_ptr(), counts.data_ptr(),
-            out.data_ptr()]
-    blocks = [block_m, block_n, slice_k]
-    if src in _SPLIT_SOURCES:
-        splits = 1
-        if a.dtype == torch.bfloat16:
-            splits = split_count(mma_blocks(e, mt, nt, block_m, block_n), s,
-                                 _sm_count(a.device.index or 0), m=m, k=k)
-        # freed on return: later work on this stream runs after the kernel
-        ws = (torch.empty((splits, e, m, n), dtype=torch.float32,
-                          device=a.device) if splits > 1 else None)
-        ptrs.append(None if ws is None else ws.data_ptr())
-        blocks.append(splits)
-    rc = build.function(src)(
-        _DTYPE_CODE[a.dtype], int(out_dtype == torch.float32), *ptrs,
-        e, m, n, k, mt, nt, s, *blocks, stream)
+    index = a.get_device()
+    out = a.new_empty((e, m, n), dtype=out_dtype)
+    splits = route_splits(kind, geom, block_m, block_n, _sm_count(index))
+    # freed on return: later work on this stream runs after the kernel
+    ws = (a.new_empty((splits, e, m, n), dtype=torch.float32)
+          if splits > 1 else None)
+    # the launch words of csrc/spgemm_entry.cuh, one ctypes argument; the
+    # raw current stream, without building a torch.cuda.Stream
+    words = array.array("q", (
+        ROUTES[kind], int(out_dtype == torch.float32), a.data_ptr(),
+        b.data_ptr(), sched.data_ptr(), counts.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), e, m, n, k, mt, nt, s, block_m,
+        block_n, slice_k, splits, torch._C._cuda_getCurrentRawStream(index)))
+    rc = build.function(src)(words.buffer_info()[0])
     if rc != 0:
         raise RuntimeError(f"{src}: kernel launch failed with CUDA error "
                            f"{rc}")
@@ -262,9 +302,7 @@ def run(src: str, plain, a, b, sched, counts, *, kfused: bool,
     the card) → the plain walk for CPU tensors, else the kernel in
     ``csrc/<src>``; there is no fallback."""
     dev = devmod.resolve(device)
-    for t, what in ((a, "a"), (b, "b"), (sched, "schedule"),
-                    (counts, "counts")):
-        devmod.check_on(t, dev, what)
+    devmod.check_all_on(dev, a=a, b=b, schedule=sched, counts=counts)
     kw = dict(block_m=block_m, block_n=block_n, slice_k=slice_k)
     if dev.type == "cpu":
         return plain(a, b, sched, counts, out_dtype=out_dtype, **kw)

@@ -22,13 +22,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-# (dtype_code, out_f32, a, b, sched, counts, out, e, m, n, k, mt, nt, s,
-#  block_m, block_n, slice_k, stream)
-_SPGEMM_ARGS = [_I, _I] + [_P] * 5 + [_I] * 10 + [_P]
-# K1/K2: the same, with the split workspace after out and the split count
-# after slice_k: (dtype_code, out_f32, a, b, sched, counts, out, ws, e, m,
-#  n, k, mt, nt, s, block_m, block_n, slice_k, splits, stream)
-_SPLIT_ARGS = [_I, _I] + [_P] * 6 + [_I] * 11 + [_P]
+# K1-K4: one pointer to 20 int64 launch words (csrc/spgemm_entry.cuh)
+_WORDS_ARGS = [_P]
 # (elem_bytes, x, bits, cond, n, c, h, w, x's four strides, stream)
 _ENCODE_ARGS = [_I] + [_P] * 3 + [_I] * 4 + [_LL] * 4 + [_P]
 # (elem_bytes, cond, bits, out_bits, out_vals, n, c, h, w, kh, kw,
@@ -38,11 +33,11 @@ _IM2COL_ARGS = [_I] + [_P] * 4 + [_I] * 7 + [_P]
 # source → (exported C function, its argument types); every pointer and
 # the stream is a c_void_p, so ctypes never cuts one to 32 bits
 KERNELS = {
-    "bitmap_spgemm.cu": ("repro_bitmap_spgemm", _SPLIT_ARGS),
-    "bitmap_spgemm_kfused.cu": ("repro_bitmap_spgemm_kfused", _SPLIT_ARGS),
-    "grouped_spgemm.cu": ("repro_grouped_spgemm", _SPGEMM_ARGS),
+    "bitmap_spgemm.cu": ("repro_bitmap_spgemm", _WORDS_ARGS),
+    "bitmap_spgemm_kfused.cu": ("repro_bitmap_spgemm_kfused", _WORDS_ARGS),
+    "grouped_spgemm.cu": ("repro_grouped_spgemm", _WORDS_ARGS),
     "grouped_spgemm_kfused.cu": ("repro_grouped_spgemm_kfused",
-                                 _SPGEMM_ARGS),
+                                 _WORDS_ARGS),
     "bitmap_encode.cu": ("repro_bitmap_encode", _ENCODE_ARGS),
     "sparse_im2col.cu": ("repro_sparse_im2col", _IM2COL_ARGS),
     "sparse_im2col_strided.cu": ("repro_sparse_im2col_strided",

@@ -7,23 +7,9 @@
 // over `splits` CUDA blocks (partials in ws, summed in split order);
 // float32 operands on the SIMT kernel of spgemm_tile.cuh, exact against a
 // float32 walk, with splits == 1.  Takes e = 1.
-#include "spgemm_mma.cuh"
-#include "spgemm_tile.cuh"
+#include "spgemm_entry.cuh"
 
-extern "C" int repro_bitmap_spgemm(int dtype_code, int out_f32,
-                                   const void* a, const void* b,
-                                   const void* ks, const void* counts,
-                                   void* out, void* ws, int e, int m, int n,
-                                   int k, int mt, int nt, int s, int block_m,
-                                   int block_n, int slice_k, int splits,
-                                   void* stream) {
-  if (dtype_code == 1)
-    return repro::mma::launch_mma<false>(out_f32, a, b, ks, counts, out, ws,
-                                         e, m, n, k, mt, nt, s, block_m,
-                                         block_n, slice_k, splits, stream);
-  if (dtype_code != 0 || splits != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return repro::launch_spgemm<false>(dtype_code, out_f32, a, b, ks, counts,
-                                     out, e, m, n, k, mt, nt, s, block_m,
-                                     block_n, slice_k, stream);
+// words: the 20 launch words of spgemm_entry.cuh
+extern "C" int repro_bitmap_spgemm(const long long* words) {
+  return repro::launch_entry<false, false>(words);
 }

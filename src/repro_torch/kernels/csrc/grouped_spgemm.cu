@@ -7,17 +7,15 @@
 // empty expert, an unwritten stretch of a KV cache) has counts == 0 blocks
 // that load nothing and store zeros.  The TPU ran one (E, Mt, Nt, S) grid
 // with S sequential; here E, Mt and Nt fold into one parallel grid and S is
-// the loop inside each block.  See spgemm_tile.cuh for the tiling and what
-// bounds it.
-#include "spgemm_tile.cuh"
+// the loop inside each block.  The wrapper's route picks the kernel (see
+// spgemm_entry.cuh): bfloat16 on the tensor cores, in
+// the narrow-N layout for the decode score (N <= 16) and else in K1's
+// 128-column one with split schedules (partials in ws, summed in split
+// order); float32 A with bfloat16 B (the decode value, V as stored) on the
+// mixed SIMT kernel; float32 on the SIMT tile kernel.
+#include "spgemm_entry.cuh"
 
-extern "C" int repro_grouped_spgemm(int dtype_code, int out_f32,
-                                    const void* a, const void* b,
-                                    const void* ks, const void* counts,
-                                    void* out, int e, int m, int n, int k,
-                                    int mt, int nt, int s, int block_m,
-                                    int block_n, int slice_k, void* stream) {
-  return repro::launch_spgemm<false>(dtype_code, out_f32, a, b, ks, counts,
-                                     out, e, m, n, k, mt, nt, s, block_m,
-                                     block_n, slice_k, stream);
+// words: the 20 launch words of spgemm_entry.cuh
+extern "C" int repro_grouped_spgemm(const long long* words) {
+  return repro::launch_entry<false, true>(words);
 }

@@ -1,9 +1,10 @@
-// SIMT tile kernel of the dual-side sparse GEMMs: K1/K2 with float32
-// operands (bfloat16 K1/K2 run on the tensor cores, spgemm_mma.cuh) and the
-// grouped K3/K4 in both types.
+// SIMT tile kernel of the dual-side sparse GEMMs with float32 operands:
+// K1/K2 and the grouped K3/K4 (bfloat16 runs on the tensor cores,
+// spgemm_mma.cuh and spgemm_grouped.cuh; K3/K4's float32 x bfloat16 value
+// product on spgemm_grouped.cuh's mixed kernel).
 //
 // C[e] = A[e] @ B[e] for E stacked problems (E = 1 for K1/K2), A (E, M, K)
-// and B (E, K, N) row-major, float32 or bfloat16, with each output tiled
+// and B (E, K, N) row-major float32, with each output tiled
 // into (block_m x block_n) blocks and a per-block schedule:
 //
 //   K1/K3 (KFUSED = false): ks (E, Mt, Nt, S) int32, front-packed active
@@ -47,8 +48,9 @@
 // (T, hd) only V's scheduled slot slices; both do about 2*G flops per byte
 // read, so bytes bound them too.  An unscheduled tile loads nothing and
 // only stores its zeros (the score output is written whole, as the TPU
-// kernel flushes it).  G = 12 columns leave most lanes of a 128-column
-// block idle; a layout for narrow N is later work.
+// kernel flushes it).  In float32 both run here; the served types take
+// spgemm_grouped.cuh's narrow-N score (G = 12 columns, which would leave
+// most lanes of a 128-column block idle) and its mixed value kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -249,17 +251,17 @@ static void launch_tm(dim3 grid, cudaStream_t stream, const void* a,
       block_n, slice_k, msub, nsub, vec_ok);
 }
 
-// dtype_code: 0 = float32, 1 = bfloat16 (A and B alike); e problems (1 for
-// K1/K2).  Returns the cudaError_t of the launch (0 on success); an empty
-// grid launches nothing and succeeds.
+// float32 A and B; e problems (1 for K1/K2).  Returns the cudaError_t of
+// the launch (0 on success); an empty grid launches nothing and succeeds.
+// (The kernel is written for 2-byte elements too, which no route uses.)
 template <bool KFUSED>
-static int launch_spgemm(int dtype_code, int out_f32, const void* a,
-                         const void* b, const void* sched,
-                         const void* counts, void* out, int e, int m, int n,
-                         int k, int mt, int nt, int s, int block_m,
-                         int block_n, int slice_k, void* stream_ptr) {
-  if ((dtype_code != 0 && dtype_code != 1) || block_m <= 0 ||
-      block_n <= 0 || slice_k <= 0 || e < 0 || m < 0 || n < 0 || k < 0)
+static int launch_spgemm(int out_f32, const void* a, const void* b,
+                         const void* sched, const void* counts, void* out,
+                         int e, int m, int n, int k, int mt, int nt, int s,
+                         int block_m, int block_n, int slice_k,
+                         void* stream_ptr) {
+  if (block_m <= 0 || block_n <= 0 || slice_k <= 0 || e < 0 || m < 0 ||
+      n < 0 || k < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tm = block_m <= 8 ? 1 : block_m <= 16 ? 2 : block_m <= 32 ? 4
                : block_m <= 64 ? 8 : 16;
@@ -269,8 +271,7 @@ static int launch_spgemm(int dtype_code, int out_f32, const void* a,
       static_cast<long long>(e) * mt * msub * nt * nsub;
   if (blocks == 0 || m == 0 || n == 0) return static_cast<int>(cudaSuccess);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int eb = dtype_code == 0 ? 4 : 2;
-  const int vec = 16 / eb;
+  const int vec = 4;
   // problem p's B starts p*k*n elements in: still 16-byte aligned when n
   // is a multiple of the vector
   const int vec_ok = (reinterpret_cast<uintptr_t>(b) % 16 == 0) &&
@@ -291,11 +292,7 @@ static int launch_spgemm(int dtype_code, int out_f32, const void* a,
     case 8: REPRO_LAUNCH(EB, 8); break;    \
     default: REPRO_LAUNCH(EB, 16); break;  \
   }
-  if (eb == 4) {
-    REPRO_BY_TM(4)
-  } else {
-    REPRO_BY_TM(2)
-  }
+  REPRO_BY_TM(4)
 #undef REPRO_BY_TM
 #undef REPRO_LAUNCH
   return static_cast<int>(cudaGetLastError());

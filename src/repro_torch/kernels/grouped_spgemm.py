@@ -19,8 +19,15 @@ the problems are the decode attention's E = batch × KV-head products
 slots as block-rows and the value ``p[e] @ V[e]`` with slots as the
 contraction.  Both do about 2·G flops per byte (G query heads per KV
 head), so bytes bound them on the H100; the schedules skip the bytes of
-unscheduled cache blocks.  The CUDA kernel is K1/K2's tile kernel
-(``csrc/spgemm_tile.cuh``) with the problem index folded into its grid.
+unscheduled cache blocks.  The wrapper picks the CUDA kernel by rule
+(:func:`~repro_torch.kernels.bitmap_spgemm.route`): the served bf16 score
+(N = G = 12) takes the narrow-N tensor-core kernel of
+``csrc/spgemm_grouped.cuh``, one warp a tile of cache slots; the served
+value, float32 p against V as stored in bf16, its mixed kernel, which
+reads V as bf16 and multiplies in float32; other bf16 products K1/K2's
+tensor-core kernel (``csrc/spgemm_mma.cuh``, split schedules), and
+float32 ones the SIMT tile kernel (``csrc/spgemm_tile.cuh``), each with
+the problem index folded into its grid.
 
 ``device=None`` means the card; CPU tensors run the plain versions, CUDA
 tensors launch the kernel or raise.  ``launches`` on each wrapper counts
@@ -53,8 +60,9 @@ def grouped_spgemm_planned(a: torch.Tensor, b: torch.Tensor,
                            out_dtype: Optional[torch.dtype] = None,
                            device=None) -> torch.Tensor:
     """K3: ``a[e] @ b[e]`` for a (E, C, K), b (E, K, N) over the schedule
-    ks (E, Mt, Nt, S) / counts (E, Mt, Nt).  Returns (E, C, N) in
-    ``out_dtype`` (default: the promoted input dtype)."""
+    ks (E, Mt, Nt, S) / counts (E, Mt, Nt).  ``a`` and ``b`` share a type
+    (float32 or bf16), or ``a`` is float32 and ``b`` bf16.  Returns
+    (E, C, N) in ``out_dtype`` (default: the promoted input dtype)."""
     out = bsk.run("grouped_spgemm.cu", grouped_spgemm_planned_plain, a, b,
                   ks, counts, kfused=False, block_m=block_m,
                   block_n=block_n, slice_k=slice_k, out_dtype=out_dtype,

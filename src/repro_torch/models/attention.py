@@ -117,8 +117,10 @@ def attend_sparse(q: torch.Tensor, cache: skvc.SparseKVCache,
       the contraction; unwritten blocks are zero k-slices of V.
 
     Both accumulate in float32 (the sites pin ``out_dtype``), as dense
-    attention does.  As in the JAX package, p stays float32, so the
-    dispatch casts V to float32 over the whole capacity.
+    attention does.  As in the JAX package, p stays float32 and the value
+    is the float32 product of p and V; with the kernel on, K3/K4 read V as
+    stored in bf16 and widen it in registers (no float32 copy of the
+    cache), without it the dispatch casts V to float32 for one matmul.
     """
     b, _, h, hd = q.shape
     t = cache.capacity

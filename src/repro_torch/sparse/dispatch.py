@@ -147,7 +147,14 @@ def _dispatch(x: Operand, w: Weight, *, mode: str,
             f"condense must be one of {CONDENSE}, got {condense!r}")
     xv = _values(x)
     grouped = xv.ndim == 3
-    w_arr = _weight_array(w).to(xv.dtype)
+    run_kernel = use_kernel and mode != "dense"
+    w_arr = _weight_array(w)
+    # K3/K4 read a bf16 weight against a float32 activation as it is
+    # stored (the decode value's V: no float32 copy of the cache); every
+    # other route computes in the activation's type
+    if not (grouped and run_kernel and xv.dtype == torch.float32
+            and w_arr.dtype == torch.bfloat16):
+        w_arr = w_arr.to(xv.dtype)
     c, k = xv.shape[-2:]
     n = w_arr.shape[-1]
     block_m, block_n, slice_k = pln.clamp_geometry(
@@ -157,7 +164,6 @@ def _dispatch(x: Operand, w: Weight, *, mode: str,
 
     want_stats = collect_stats or tape.active()
     steps = None
-    run_kernel = use_kernel and mode != "dense"
     if mode == "dense":
         if use_kernel or condense:
             warnings.warn(

@@ -204,6 +204,119 @@ def test_grouped_kernels_match_plain(cuda, shape, dtype, out_dtype):
         assert err <= rtol * scale, (err, scale)
 
 
+def _grouped_pairs(a, b, ks, counts, kp, geom, out_dtype):
+    """(K3, K3 plain) and (K4, K4 plain) outputs, launches checked."""
+    n3 = gsk.grouped_spgemm_planned.launches
+    n4 = gsk.grouped_spgemm_kfused_planned.launches
+    kw = dict(out_dtype=out_dtype, **geom)
+    pairs = [
+        (gsk.grouped_spgemm_planned(a, b, ks, counts, **kw),
+         gsk.grouped_spgemm_planned_plain(a, b, ks, counts, **kw)),
+        (gsk.grouped_spgemm_kfused_planned(a, b, kp.gk, kp.counts, **kw),
+         gsk.grouped_spgemm_kfused_planned_plain(a, b, kp.gk, kp.counts,
+                                                 **kw)),
+    ]
+    torch.cuda.synchronize()
+    assert gsk.grouped_spgemm_planned.launches == n3 + 1
+    assert gsk.grouped_spgemm_kfused_planned.launches == n4 + 1
+    return pairs
+
+
+def _assert_close(pairs, want):
+    rtol = 1e-5 if want == torch.float32 else 1e-2
+    for y, p in pairs:
+        assert y.dtype == p.dtype == want
+        scale = p.float().abs().max().item()
+        err = (y.float() - p.float()).abs().max().item()
+        assert err <= rtol * scale, (err, scale)
+
+
+def _route(a, b, geom):
+    src = bsk.GROUPED_SOURCES[0]
+    e, m, k = a.shape
+    n = b.shape[2]
+    kind = bsk.route(src, a.dtype, b.dtype, n, k)
+    g = (e, m, n, k, pln._cdiv(m, geom["block_m"]),
+         pln._cdiv(n, geom["block_n"]), pln._cdiv(k, geom["slice_k"]))
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    return kind, bsk.route_splits(kind, g, geom["block_m"],
+                                  geom["block_n"], sms)
+
+
+NARROW = [  # (E, C, K, N, block_m, block_n, slice_k)
+    (16, 4096, 192, 12, 32, 12, 128),   # the served score
+    (3, 100, 192, 1, 32, 1, 128),
+    (3, 100, 192, 8, 16, 8, 64),
+    (3, 100, 90, 12, 64, 12, 40),       # K and slice_k off the 8-grid
+    (5, 37, 200, 16, 16, 16, 32),
+    (3, 300, 256, 12, 100, 6, 128),     # 2 column tiles, 2 warps a tile
+]
+
+
+@pytest.mark.parametrize("shape", NARROW)
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_grouped_narrow_route_matches_plain(cuda, shape, out_dtype):
+    """bf16 products of at most 16 columns: the narrow-N tensor-core
+    kernel, N in {1, 8, 12, 16}."""
+    a, b, ks, counts, kp, geom = _grouped_case(cuda, *shape, torch.bfloat16)
+    assert _route(a, b, geom) == ("narrow", 1)
+    pairs = _grouped_pairs(a, b, ks, counts, kp, geom, out_dtype)
+    for y, _ in pairs:
+        assert not y[2].any()
+    _assert_close(pairs, out_dtype or torch.bfloat16)
+
+
+MIXED = [
+    (16, 12, 4096, 192, 12, 128, 32),   # the served value
+    (5, 37, 200, 50, 16, 16, 32),       # ragged, partial slices
+    (3, 20, 300, 70, 20, 40, 24),       # N off the 8-grid: scalar loads
+]
+
+
+@pytest.mark.parametrize("shape", MIXED)
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
+def test_grouped_mixed_route_matches_plain(cuda, shape, out_dtype):
+    """float32 A against bf16 B (the decode value, V as stored): the mixed
+    kernel, equal to the float32 walk up to the order of the sums."""
+    a, b, ks, counts, kp, geom = _grouped_case(cuda, *shape, torch.float32)
+    b = b.to(torch.bfloat16)
+    assert _route(a, b, geom) == ("mixed", 1)
+    pairs = _grouped_pairs(a, b, ks, counts, kp, geom, out_dtype)
+    for y, _ in pairs:
+        assert not y[2].any()
+    _assert_close(pairs, out_dtype or torch.float32)
+
+
+@pytest.mark.parametrize("shape", [
+    (16, 12, 4096, 192, 12, 128, 32),   # the value's shape in bf16
+    (4, 8, 8192, 256, 8, 128, 64),
+])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_grouped_split_route_matches_plain(cuda, shape, out_dtype):
+    """bf16 products wider than 16 columns: the 128-column tensor-core
+    kernel, each tile's schedule split over several CUDA blocks."""
+    a, b, ks, counts, kp, geom = _grouped_case(cuda, *shape, torch.bfloat16)
+    kind, splits = _route(a, b, geom)
+    assert kind == "mma" and splits > 1
+    _assert_close(_grouped_pairs(a, b, ks, counts, kp, geom, out_dtype),
+                  out_dtype or torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
+def test_grouped_ragged_routes_match_plain(cuda, dtypes, out_dtype):
+    """The ragged shape with an empty problem on every route's types."""
+    a, b, ks, counts, kp, geom = _grouped_case(
+        cuda, 5, 37, 200, 50, 16, 16, 32, torch.float32)
+    a, b = a.to(dtypes[0]), b.to(dtypes[1])
+    pairs = _grouped_pairs(a, b, ks, counts, kp, geom, out_dtype)
+    for y, _ in pairs:
+        assert not y[2].any()
+    _assert_close(pairs, out_dtype or dtypes[0])
+
+
 def test_grouped_kernels_empty_grids(cuda):
     """No problems, and problems with no rows: clean launches, right
     shapes."""
