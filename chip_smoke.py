@@ -32,8 +32,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 5. conv kernels — K5, K6 and K7 bit-equal to their plain versions in bf16
    and float32 at whisper-base's stem shapes (4 segments, conv1 k=1x3 s=1
    over 80 mel bins, conv2 s=2 over 512 channels), the vision patch shape
-   (560 x 560 x 3, k = s = 14) and ragged shapes; bf16 device times at the
-   stem shapes beside the byte bound, the plain version and ``F.unfold``;
+   (560 x 560 x 3, k = s = 14) and ragged shapes that take every route of
+   K5 and K7; at the stem shapes, bf16, each kernel's route and blocks,
+   device time (K5's by pass) and CUDA events beside the byte bound, the
+   achieved bytes per second, the plain version and ``F.unfold``;
 6. reference — the smoke models (nemotron, whisper) on the card against
    the CPU plain path, the sparse-KV modes included;
 7. serving — full-width ``nemotron-4-340b`` cut to 2 layers (random bf16
@@ -123,10 +125,15 @@ W_PROMPT = (50258, 50259, 50359, 50363)
 # K7's other caller, checked here, served by a later slice
 PATCH = (1, 560, 560, 3, 14, 14, 14)
 # ragged conv shapes (N, H, W, C, kh, kw, stride): 3x3 at strides 1 and
-# 2, windows that cross or end on a word boundary, W multiple of 32
+# 2, windows that cross or end on a word boundary, W multiple of 32, and
+# shapes that take K5's and K7's other routes
 CONV_RAGGED = [(1, 7, 9, 3, 3, 3, 1), (2, 9, 10, 2, 3, 3, 2),
                (1, 1, 66, 2, 1, 34, 1), (1, 1, 65, 2, 1, 2, 1),
-               (1, 1, 100, 2, 1, 33, 2), (1, 2, 96, 3, 2, 1, 1)]
+               (1, 1, 100, 2, 1, 33, 2), (1, 2, 96, 3, 2, 1, 1),
+               # stride 3 on K5's channels route with a part tile (C 40);
+               # K7 in pieces (a 70000-column row); K7's lowered route
+               (2, 1, 500, 40, 1, 3, 3), (1, 1, 70000, 2, 1, 3, 2),
+               (1, 1, 5000, 2, 1, 4100, 2)]
 
 
 def whisper_k1_launches(cfg) -> int:
@@ -272,8 +279,8 @@ def cuda_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps=20):
-    """Device time per call of the kernels ``fn`` launches, from a
+def device_ms_by_kernel(torch, fn, reps=20):
+    """Device time per call of each kernel ``fn`` launches, by name, from a
     ``torch.profiler`` (CUPTI) trace of ``reps`` calls: the card's own
     time, without the host's time in the wrapper, which CUDA events around
     a call of a microsecond-scale kernel mostly measure.  None when two
@@ -288,11 +295,20 @@ def device_ms(torch, fn, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / reps / 1e3
+        per = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                per[e.name] = per.get(e.name, 0.0) + e.device_time_total
+        if sum(per.values()) > 0:
+            return {k: us / reps / 1e3 for k, us in per.items()}
     return None
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of all the kernels ``fn`` launches (see
+    :func:`device_ms_by_kernel`), or None."""
+    per = device_ms_by_kernel(torch, fn, reps)
+    return None if per is None else sum(per.values())
 
 
 def served_geometry(a, b):
@@ -1361,6 +1377,7 @@ def conv_check(torch, x, kh, kw, stride, what):
                  + ob.numel() * 4 + ov.numel() * e)
     xn = xv.contiguous()
     return dict(
+        routes=conv_routes(x, kh, kw, stride),
         k5=lambda: k5.bitmap_encode(xv),
         k5_plain=lambda: k5.bitmap_encode_plain(xv),
         k67=kern, k67_plain=plain,
@@ -1370,12 +1387,36 @@ def conv_check(torch, x, kh, kw, stride, what):
         zero_share=1.0 - int(torch.count_nonzero(ov)) / ov.numel())
 
 
+def conv_routes(x, kh, kw, stride):
+    """Each conv kernel's route on the NHWC input x and its CUDA blocks:
+    K5's from its rule, K6's one (lowered row, image) a block, K7's from
+    its rule."""
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import sparse_im2col as k67
+    xv = x.permute(0, 3, 1, 2)
+    n, c, h, w = xv.shape
+    r5 = k5.encode_route(xv)
+    k5_route = (f"{r5}, {k5.encode_blocks(xv, r5)} blocks"
+                + (" a pass, 2 passes" if r5 == "channels" else ""))
+    if stride == 1:
+        return k5_route, f"lowered rows, {n * c * kh * kw} blocks"
+    route, pj = k67.strided_route(n, c, h, w, kh, kw, stride)
+    if route == "feature":
+        oww = -(-((w - kw) // stride + 1) // 32)
+        return k5_route, (f"feature, {n * c * kh} blocks, pieces of {pj} "
+                          f"output words ({-(-oww // pj)} a feature row)")
+    return k5_route, f"lowered, {n * c * kh * kw} blocks"
+
+
 def phase_conv_kernels(torch):
     """K5, K6 and K7 bit-equal to their plain versions in bf16 and float32
-    at the whisper stem's shapes, the vision patch shape and ragged ones;
-    bf16 timings at the stem's shapes beside the byte bound, the plain
-    version and ``F.unfold`` (a dense im2col without bitmaps, a yardstick
-    only).  Returns {kernel: totals over one generate's launches}."""
+    at the whisper stem's shapes, the vision patch shape and ragged ones
+    (every route of K5 and K7 among them); bf16 timings at the stem's
+    shapes: each kernel's route, device time (K5's by pass) and CUDA
+    events per launch beside the byte bound, the achieved bytes per second,
+    the plain version and ``F.unfold`` (a dense im2col without bitmaps, a
+    yardstick only).  Returns {kernel: totals over one generate's
+    launches}."""
     from repro_torch.configs import get_config
     cfg = get_config(WHISPER)
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1396,34 +1437,44 @@ def phase_conv_kernels(torch):
             t = {k: cuda_ms(torch, res[k], reps)
                  for k, reps in (("k5", 20), ("k5_plain", 3), ("k67", 20),
                                  ("k67_plain", 3), ("unfold", 20))}
-            # the kernels' and F.unfold's own device time; CUDA events
-            # around one call also hold the wrapper's host time
-            dev = {k: device_ms(torch, res[k]) for k in ("k5", "k67",
-                                                          "unfold")}
-            if None in dev.values():
+            # the kernels' and F.unfold's own device time, by kernel; CUDA
+            # events around one call also hold the wrapper's host time
+            per = {k: device_ms_by_kernel(torch, res[k])
+                   for k in ("k5", "k67", "unfold")}
+            if None in per.values():
                 log("conv kernels: the profiler traced no device time; "
                     "the kernel times below are CUDA-event times")
-                dev = {k: t[k] for k in dev}
-            b5 = res["k5_bytes"] / HBM_BYTES_PER_S * 1e3
-            b67 = res["k67_bytes"] / HBM_BYTES_PER_S * 1e3
-            for k, ms, pms, nb in (("K5", dev["k5"], t["k5_plain"],
-                                    res["k5_bytes"]),
-                                   (kn, dev["k67"], t["k67_plain"],
-                                    res["k67_bytes"])):
+                per = {k: {"(events)": t[k]} for k in per}
+            dev = {k: sum(v.values()) for k, v in per.items()}
+            passes = " + ".join(
+                f"{p} {ms:.4f}" for p, ms in sorted(
+                    (("pass 1" if "bits" in nm else "pass 2"
+                      if "values" in nm else nm.split("(")[0][-40:]), ms)
+                    for nm, ms in per["k5"].items()))
+            for k, ms, pms, nb, route, extra in (
+                    ("K5", dev["k5"], t["k5_plain"], res["k5_bytes"],
+                     res["routes"][0], f" = {passes}"),
+                    (kn, dev["k67"], t["k67_plain"], res["k67_bytes"],
+                     res["routes"][1],
+                     f"; F.unfold {dev['unfold']:.4f} "
+                     f"(events {t['unfold']:.4f})")):
                 totals[k]["ms"] += ms
                 totals[k]["plain_ms"] += pms
                 totals[k]["nbytes"] += nb
+                bound = nb / HBM_BYTES_PER_S * 1e3
+                ev = t["k5" if k == "K5" else "k67"]
+                log(f"conv kernels: {what}: {k} route {route}: device "
+                    f"{ms:.4f} ms{extra}, events {ev:.4f} ms (wrapper "
+                    f"included), bound {bound:.4f} ms ({nb / 1e6:.2f} MB), "
+                    f"{nb / ms / 1e6:.1f} GB/s = "
+                    f"{nb / ms * 1e3 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s "
+                    f"({bound / ms:.1%} of the bound), plain {pms:.3f} ms")
             totals[kn]["library_ms"] += dev["unfold"]
-            log(f"conv kernels: {what}: bit-equal to plain; device time "
-                f"(events around one call, wrapper included): K5 "
-                f"{dev['k5']:.4f} ({t['k5']:.4f}) ms, bound {b5:.4f}, plain "
-                f"{t['k5_plain']:.3f}; {kn} {dev['k67']:.4f} "
-                f"({t['k67']:.4f}) ms, bound {b67:.4f}, plain "
-                f"{t['k67_plain']:.3f}, F.unfold {dev['unfold']:.4f} "
-                f"({t['unfold']:.4f}); {res['zero_share']:.4f} of the "
-                "lowered elements are zero")
+            log(f"conv kernels: {what}: bit-equal to plain; "
+                f"{res['zero_share']:.4f} of the lowered elements are zero")
         del x1, x2
         torch.cuda.empty_cache()
+        routes = set()
         for shape in [PATCH] + CONV_RAGGED:
             n, h, w, c, kh, kw, s = shape
             x = torch.randn(n, h, w, c, device="cuda", generator=g)
@@ -1433,10 +1484,14 @@ def phase_conv_kernels(torch):
             x[-1, -1, :, -1] = 1.0                     # all non-zero
             if w >= 32:
                 x[:, :, 31::32, ::2] = 1.5             # bit 31 set
-            conv_check(torch, x.to(getattr(torch, dtype)), kh, kw, s,
-                       f"{shape} {dtype}")
+            res = conv_check(torch, x.to(getattr(torch, dtype)), kh, kw, s,
+                             f"{shape} {dtype}")
+            routes.add("K5 " + res["routes"][0].split(",")[0])
+            routes.add(("K6 " if s == 1 else "K7 ")
+                       + res["routes"][1].split(",")[0])
         log(f"conv kernels: {dtype}: the patch shape {PATCH} and "
-            f"{len(CONV_RAGGED)} ragged shapes bit-equal to plain")
+            f"{len(CONV_RAGGED)} ragged shapes bit-equal to plain; routes "
+            f"{', '.join(sorted(routes))}")
     return totals
 
 

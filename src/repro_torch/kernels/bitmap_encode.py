@@ -9,15 +9,24 @@ kernel takes one image, (C, H, W); its ``vmap`` over images is the
 leading N axis here.
 
 On the H100 it is bound by bytes (one read and at most one write of each
-element); the CUDA kernel (``csrc/bitmap_encode.cu``) gives each row a
-warp that builds each word with ``__ballot_sync`` and each value's slot
-with a prefix popcount, reading x through its strides so that an NHWC
-feature map needs no transposed copy.  Outputs are bit-equal to the plain
-version: the kernel moves raw element bits.
+element).  The CUDA kernel (``csrc/bitmap_encode.cu``) reads x through its
+strides, so an NHWC feature map needs no transposed copy, on one of two
+routes that :func:`encode_route` picks:
+
+* ``channels`` — the conv path's NHWC view (channels contiguous, 16-byte
+  loads possible, C ≥ 32): blocks take tiles of 32 channels × 128 columns
+  of one (image, row), each lane loading one column's channels along C
+  with 16-byte loads and a warp ballot making each channel's words; two
+  device passes (words and segment counts, then values and the zero
+  tail), one call;
+* ``rows`` — every other layout: one warp walks one row.
+
+Outputs are bit-equal to the plain version: the kernel moves raw element
+bits.
 
 ``device=None`` means the card.  CPU tensors run the plain version; CUDA
 tensors launch the kernel or raise.  ``bitmap_encode.launches`` counts
-launches.
+calls that launched the kernel (one a call, whatever its passes).
 """
 from __future__ import annotations
 
@@ -31,6 +40,35 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _I32_MAX = 2 ** 31 - 1
+ROUTES = ("rows", "channels")     # the C entry's route numbers, in order
+TILE_C, SEG = 32, 128             # a channels-route tile: channels, columns
+_VEC_BYTES = 16                   # one load
+
+
+def encode_route(x: torch.Tensor) -> str:
+    """K5's route for x (N, C, H, W): ``channels`` when its channels are
+    contiguous and 16-byte loads can take them (C ≥ 32, C × element size,
+    the base address and the strides of every axis longer than 1
+    multiples of 16 bytes), else ``rows``."""
+    e = x.element_size()
+    n, c, h, w = x.shape
+    if c < TILE_C or x.stride(1) != 1 or (c * e) % _VEC_BYTES:
+        return "rows"
+    if x.data_ptr() % _VEC_BYTES:
+        return "rows"
+    for size, stride in zip((n, h, w), (x.stride(0), x.stride(2),
+                                        x.stride(3))):
+        if size > 1 and (stride * e) % _VEC_BYTES:
+            return "rows"
+    return "channels"
+
+
+def encode_blocks(x: torch.Tensor, route: str) -> int:
+    """CUDA blocks of each device pass on ``route``."""
+    n, c, h, w = x.shape
+    if route == "rows":
+        return -(-n * c * h // 8)
+    return -(-w // SEG) * -(-c // TILE_C) * h * n
 
 
 def bitmap_encode_plain(x: torch.Tensor
@@ -56,20 +94,25 @@ def bitmap_encode(x: torch.Tensor, *, device=None
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, not {x.dtype}")
     n, c, h, w = x.shape
-    if max(x.shape) > _I32_MAX or n * c * h > _I32_MAX * 8:
+    route = encode_route(x)
+    if (max(x.shape) > _I32_MAX or n * c * h > _I32_MAX * 8
+            or encode_blocks(x, route) > _I32_MAX):
         raise ValueError(f"shape {tuple(x.shape)} too large for the kernel")
     bits = torch.empty((n, c, h, -(-w // bm.WORD)), dtype=torch.int32,
                        device=x.device)
     cond = torch.empty((n, c, h, w), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return bits, cond
+    counts = (torch.empty((n * c * h, -(-w // SEG)), dtype=torch.int32,
+                          device=x.device) if route == "channels" else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = build.function("bitmap_encode.cu")(
-        x.element_size(), x.data_ptr(), bits.data_ptr(), cond.data_ptr(),
+        ROUTES.index(route), x.element_size(), x.data_ptr(), bits.data_ptr(),
+        cond.data_ptr(), 0 if counts is None else counts.data_ptr(),
         n, c, h, w, *x.stride(), stream)
     if rc != 0:
-        raise RuntimeError(f"bitmap_encode.cu: kernel launch failed with "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"bitmap_encode.cu ({route} route): kernel launch "
+                           f"failed with CUDA error {rc}")
     bitmap_encode.launches += 1
     return bits, cond
 

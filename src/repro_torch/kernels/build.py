@@ -24,11 +24,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # K1-K4: one pointer to 20 int64 launch words (csrc/spgemm_entry.cuh)
 _WORDS_ARGS = [_P]
-# (elem_bytes, x, bits, cond, n, c, h, w, x's four strides, stream)
-_ENCODE_ARGS = [_I] + [_P] * 3 + [_I] * 4 + [_LL] * 4 + [_P]
+# (route, elem_bytes, x, bits, cond, counts, n, c, h, w, x's four
+#  strides, stream)
+_ENCODE_ARGS = [_I, _I] + [_P] * 4 + [_I] * 4 + [_LL] * 4 + [_P]
 # (elem_bytes, cond, bits, out_bits, out_vals, n, c, h, w, kh, kw,
 #  stride, stream)
 _IM2COL_ARGS = [_I] + [_P] * 4 + [_I] * 7 + [_P]
+# K7: (route, piece, then as K6)
+_STRIDED_ARGS = [_I, _I] + _IM2COL_ARGS
 
 # source → (exported C function, its argument types); every pointer and
 # the stream is a c_void_p, so ctypes never cuts one to 32 bits
@@ -41,7 +44,7 @@ KERNELS = {
     "bitmap_encode.cu": ("repro_bitmap_encode", _ENCODE_ARGS),
     "sparse_im2col.cu": ("repro_sparse_im2col", _IM2COL_ARGS),
     "sparse_im2col_strided.cu": ("repro_sparse_im2col_strided",
-                                 _IM2COL_ARGS),
+                                 _STRIDED_ARGS),
 }
 
 _FUNCS: Dict[str, object] = {}

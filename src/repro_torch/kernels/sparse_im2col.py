@@ -6,8 +6,13 @@ plain versions.
   stride 1, window bits by word shift/OR.
 * K7, :func:`sparse_im2col_strided` — replaces
   ``kernels/sparse_im2col.py::sparse_im2col_strided_pallas``
-  (``_im2col_kernel_strided``): stride ≥ 2, strided bits tested one by
-  one.
+  (``_im2col_kernel_strided``): stride ≥ 2, on one of two routes that
+  :func:`strided_route` picks: ``feature`` (one block per (image,
+  channel, dy) stages each feature row once, in pieces of output words,
+  and makes all kw lowered rows from it: whole output words, one warp
+  scan of their popcounts) or ``lowered`` (one block per lowered row,
+  for the shapes whose pieces would not fit: kw or stride in the
+  thousands).
 
 Both take what K5 (:mod:`repro_torch.kernels.bitmap_encode`) leaves —
 condensed values cond (N, C, H, W) and bitmaps bits (N, C, H, ceil(W/32))
@@ -18,10 +23,12 @@ rows' condensed values (N, KKC, P), P = OH·OW, zero tail.  Lowered row
 ``k = (dy·kw + dx)·C + c``.  ``ops.rowpacked_to_flat`` turns the bits into
 the flat-P layout the planner reads.
 
-On the H100 both are bound by bytes; the CUDA kernels
-(``csrc/sparse_im2col.cu``, ``csrc/sparse_im2col_strided.cu``) give each
-(lowered row, image) a block that walks its output rows in order.
-Outputs are bit-equal to the plain versions: the kernels move raw bits.
+On the H100 both are bound by bytes (the lowered values written, the
+condensed rows read).  K6 (``csrc/sparse_im2col.cu``) gives each (lowered
+row, image) a block that walks its output rows in order; K7
+(``csrc/sparse_im2col_strided.cu``) reads each feature row once for its kw
+lowered rows on its feature route.  Outputs are bit-equal to the plain
+versions: the kernels move raw bits.
 
 ``device=None`` means the card.  CPU tensors run the plain versions; CUDA
 tensors launch the kernel or raise.  ``launches`` on each wrapper counts
@@ -40,9 +47,13 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _I32_MAX = 2 ** 31 - 1
-# K7 keeps one int per bitmap word of a feature row in static shared
-# memory beside its scan's 33
+# K7's lowered route keeps one int per bitmap word of a feature row in
+# static shared memory beside its scan's 33
 _SMEM_INTS = 48 * 1024 // 4 - 33
+# K7's feature route: feature columns one piece stages (at most), and
+# output words over all dx one piece holds
+PIECE_COLS, PIECE_WORDS = 4096, 1024
+STRIDED_ROUTES = ("lowered", "feature")   # the C entry's route numbers
 
 
 def _geometry(cond, bits, kh: int, kw: int, stride: int):
@@ -85,6 +96,23 @@ def sparse_im2col_strided_plain(cond, bits, *, kh: int, kw: int,
     return _plain(cond, bits, kh, kw, stride)
 
 
+def strided_route(n: int, c: int, h: int, w: int, kh: int, kw: int,
+                  stride: int) -> Tuple[str, int]:
+    """K7's route and piece for (N, C, H, W) feature maps: ``("feature",
+    pj)`` with pj output words a piece, as many as a row has and as fit
+    :data:`PIECE_COLS` feature columns (32·pj·stride − stride + kw) and
+    :data:`PIECE_WORDS` output words over the kw lowered rows; else, or
+    when the N·C·kh blocks or a lowered row's P positions pass 2³¹ − 1,
+    ``("lowered", 0)``."""
+    oh, ow = i2c.out_size(h, kh, stride), i2c.out_size(w, kw, stride)
+    pj = min(-(-ow // bm.WORD),
+             (PIECE_COLS + stride - kw) // (bm.WORD * stride),
+             PIECE_WORDS // kw)
+    if pj < 1 or oh * ow > _I32_MAX or n * c * kh > _I32_MAX:
+        return "lowered", 0
+    return "feature", pj
+
+
 def _launch(src: str, cond, bits, kh, kw, stride):
     n, c, h, w, oh, ow = _geometry(cond, bits, kh, kw, stride)
     if cond.dtype not in _DTYPES:
@@ -95,16 +123,20 @@ def _launch(src: str, cond, bits, kh, kw, stride):
     kkc = kh * kw * c
     if kkc > _I32_MAX or n > 65535 or max(cond.shape) > _I32_MAX:
         raise ValueError(f"grid ({kkc}, {n}) too large for the kernel")
-    if src == "sparse_im2col_strided.cu" and -(-w // bm.WORD) > _SMEM_INTS:
-        raise ValueError(f"feature rows of {w} columns exceed K7's shared "
-                         "memory")
+    args = ()
+    if src == "sparse_im2col_strided.cu":
+        route, pj = strided_route(n, c, h, w, kh, kw, stride)
+        if route == "lowered" and -(-w // bm.WORD) > _SMEM_INTS:
+            raise ValueError(f"feature rows of {w} columns exceed the "
+                             "shared memory of K7's lowered route")
+        args = (STRIDED_ROUTES.index(route), pj)
     out_bits = torch.empty((n, kkc, oh, -(-ow // bm.WORD)),
                            dtype=torch.int32, device=cond.device)
     out_vals = torch.empty((n, kkc, oh * ow), dtype=cond.dtype,
                            device=cond.device)
     stream = torch.cuda.current_stream(cond.device).cuda_stream
     rc = build.function(src)(
-        cond.element_size(), cond.data_ptr(), bits.data_ptr(),
+        *args, cond.element_size(), cond.data_ptr(), bits.data_ptr(),
         out_bits.data_ptr(), out_vals.data_ptr(), n, c, h, w, kh, kw, stride,
         stream)
     if rc != 0:

@@ -369,6 +369,10 @@ CONV = [  # (N, H, W, C, kh, kw, stride)
     (1, 1, 65, 2, 1, 2, 1),       # OW = 64 ends on a word boundary
     (1, 1, 100, 2, 1, 33, 2),
     (1, 2, 96, 3, 2, 1, 1),
+    (4, 1, 3002, 512, 1, 3, 2),   # whisper-base conv2, as served
+    (1, 1, 70000, 2, 1, 3, 2),    # K7's feature route in pieces
+    (2, 1, 500, 40, 1, 3, 3),     # stride 3; K5 with a part tile
+    (1, 1, 5000, 2, 1, 4100, 2),  # K7's lowered route
 ]
 
 
@@ -414,6 +418,38 @@ def test_conv_kernels_match_plain(cuda, shape, dtype):
              k67.sparse_im2col_strided.launches)
     assert after == (before[0] + 1, before[1] + (s == 1),
                      before[2] + (s != 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_routes_match_plain(cuda, dtype):
+    """K5 on each route: the NHWC view (channels), the same map contiguous
+    as NCHW and a view one element off a 16-byte boundary (rows), with
+    non-zeros that straddle segment boundaries (128 columns)."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 3, 600, 64, generator=g)
+    x[torch.rand(x.shape, generator=g) < 0.5] = 0
+    x[0, 0, :, 0] = 0
+    x[0, 0, 122:134, 0] = 1.0               # across segments 0 and 1
+    x[0, 1, :, 1] = 0
+    x[0, 1, 128, 1] = 2.0                   # first column of segment 1
+    x[1, 2, :, 2] = 0
+    x[1, 2, 255:257, 2] = 3.0               # across segments 1 and 2
+    x[1, 0, :127, 3] = 0                    # a segment with one non-zero
+    flat = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = x.flatten().to(dtype)
+    base = flat[1:].view(x.shape)
+    nhwc = base.clone().permute(0, 3, 1, 2)
+    views = {"channels": nhwc, "rows": nhwc.contiguous()}
+    views["rows, misaligned"] = base.permute(0, 3, 1, 2)
+    for what, xv in views.items():
+        assert k5.encode_route(xv) == what.split(",")[0], what
+        before = k5.bitmap_encode.launches
+        bits, cond = k5.bitmap_encode(xv)
+        pb, pc = k5.bitmap_encode_plain(xv)
+        torch.cuda.synchronize()
+        assert k5.bitmap_encode.launches == before + 1
+        assert torch.equal(bits, pb), what
+        assert torch.equal(_raw(cond), _raw(pc)), what
 
 
 def test_whisper_generate_matches_cpu(cuda):
