@@ -33,7 +33,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    and float32 at whisper-base's stem shapes (4 segments, conv1 k=1x3 s=1
    over 80 mel bins, conv2 s=2 over 512 channels), the vision patch shape
    (560 x 560 x 3, k = s = 14) and ragged shapes that take every route of
-   K5 and K7; at the stem shapes, bf16, each kernel's route and blocks,
+   K5, K6 and K7; at the stem shapes, bf16, each kernel's route and blocks,
    device time (K5's by pass) and CUDA events beside the byte bound, the
    achieved bytes per second, the plain version and ``F.unfold``;
 6. reference — the smoke models (nemotron, whisper) on the card against
@@ -59,7 +59,24 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    dual+kc; launches exactly K5 2, K6 1, K7 1 and K1 (K2) 1618; the stem
    convs execute what they count; prefill logits and tokens against dense
    as in 7; then the stem convs of one prefill are split into K5, K6/K7,
-   the lowering glue, planning, K1/K2 and the rest, beside ``F.conv2d``.
+   the lowering glue, planning, K1/K2 and the rest, beside ``F.conv2d``;
+10. pruned serving, traffic A — the model of 7 in dual and dual+kc through
+   its own prefill/decode loop over ``Transformer.forward``, unpruned with
+   per-call and with cached weight plans (``plan_weight_activities``,
+   built once, as the JAX engine builds them); then every layer's
+   mlp.w_up and mlp.w_down block-pruned in place (``block_mask`` at
+   sparsity 0.5 in (slice_k, block_n) tiles; layer 0's mask on the card
+   held against the CPU's), dense, and dual and dual+kc with per-call and
+   with cached plans.  Each run: tokens/s, one prefill, the decode-step
+   median, launches (exactly 104 of K1 or K2), steps per site, the
+   dispatch's planning time (a second pass), and for the cached runs K1/K2
+   device time beside its bound (a third, profiled pass).  Checks:
+   executed == counted everywhere, each cached run's tape equal to the
+   per-call run's, the pruned MLP sites under dense (mlp.up near half),
+   pruned sparse logits and tokens against pruned dense as in 7;
+11. pruned serving, traffic C — the same for whisper-base (its encoder
+   layers pruned too, the stem's plans among the cached ones), with the
+   launch counts of 9.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -126,14 +143,18 @@ W_PROMPT = (50258, 50259, 50359, 50363)
 PATCH = (1, 560, 560, 3, 14, 14, 14)
 # ragged conv shapes (N, H, W, C, kh, kw, stride): 3x3 at strides 1 and
 # 2, windows that cross or end on a word boundary, W multiple of 32, and
-# shapes that take K5's and K7's other routes
+# shapes that take K5's, K6's and K7's other routes
 CONV_RAGGED = [(1, 7, 9, 3, 3, 3, 1), (2, 9, 10, 2, 3, 3, 2),
                (1, 1, 66, 2, 1, 34, 1), (1, 1, 65, 2, 1, 2, 1),
                (1, 1, 100, 2, 1, 33, 2), (1, 2, 96, 3, 2, 1, 1),
                # stride 3 on K5's channels route with a part tile (C 40);
                # K7 in pieces (a 70000-column row); K7's lowered route
                (2, 1, 500, 40, 1, 3, 3), (1, 1, 70000, 2, 1, 3, 2),
-               (1, 1, 5000, 2, 1, 4100, 2)]
+               (1, 1, 5000, 2, 1, 4100, 2),
+               # K6 in pieces; K6's lowered route; the patch kernel at
+               # stride 1 (K6, 43 output rows of a 56-row map)
+               (1, 1, 70000, 2, 1, 3, 1), (1, 1, 5000, 2, 1, 4100, 1),
+               (1, 56, 56, 3, 14, 14, 1)]
 
 
 def whisper_k1_launches(cfg) -> int:
@@ -1008,14 +1029,19 @@ def parting_report(torch, mode, toks, base_toks, base_steps, tol):
     return agree
 
 
+def traffic_a_batch(torch, cfg):
+    """Traffic A's prompts: PROMPTS random prompts of PROMPT_LEN tokens."""
+    prompts = torch.randint(0, cfg.vocab_size, (PROMPTS, PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(2))
+    return {"tokens": prompts.cuda()}
+
+
 def phase_serving(torch, cfg, model):
     from repro_torch.kernels import bitmap_spgemm as bsk
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import serve_loop
     from repro_torch.sparse import tape
-    prompts = torch.randint(0, cfg.vocab_size, (PROMPTS, PROMPT_LEN),
-                            generator=torch.Generator().manual_seed(2))
-    batch = {"tokens": prompts.cuda()}
+    batch = traffic_a_batch(torch, cfg)
     want = 13 * NEW_TOKENS
     counters = (bsk.bitmap_spgemm_planned, bsk.bitmap_spgemm_kfused_planned)
     launches, tokens, walls = {}, {}, {}
@@ -1388,9 +1414,8 @@ def conv_check(torch, x, kh, kw, stride, what):
 
 
 def conv_routes(x, kh, kw, stride):
-    """Each conv kernel's route on the NHWC input x and its CUDA blocks:
-    K5's from its rule, K6's one (lowered row, image) a block, K7's from
-    its rule."""
+    """Each conv kernel's route on the NHWC input x and its CUDA blocks,
+    from K5's, K6's and K7's rules."""
     from repro_torch.kernels import bitmap_encode as k5
     from repro_torch.kernels import sparse_im2col as k67
     xv = x.permute(0, 3, 1, 2)
@@ -1399,13 +1424,33 @@ def conv_routes(x, kh, kw, stride):
     k5_route = (f"{r5}, {k5.encode_blocks(xv, r5)} blocks"
                 + (" a pass, 2 passes" if r5 == "channels" else ""))
     if stride == 1:
-        return k5_route, f"lowered rows, {n * c * kh * kw} blocks"
-    route, pj = k67.strided_route(n, c, h, w, kh, kw, stride)
+        route, pj = k67.k6_route(n, c, h, w, kh, kw)
+    else:
+        route, pj = k67.strided_route(n, c, h, w, kh, kw, stride)
     if route == "feature":
         oww = -(-((w - kw) // stride + 1) // 32)
         return k5_route, (f"feature, {n * c * kh} blocks, pieces of {pj} "
                           f"output words ({-(-oww // pj)} a feature row)")
     return k5_route, f"lowered, {n * c * kh * kw} blocks"
+
+
+def k6_lowered_route(torch, res):
+    """K6 at ``res``'s shape on its lowered route (one block per lowered
+    row, K6's whole kernel before its feature route existed): held
+    bit-equal to plain, and its device time."""
+    from repro_torch.kernels import sparse_im2col as k67
+    rule = k67.k6_route
+    k67.k6_route = lambda *args: ("lowered", 0)
+    try:
+        ob, ov = res["k67"]()
+        per = device_ms_by_kernel(torch, res["k67"])
+    finally:
+        k67.k6_route = rule
+    qb, qv = res["k67_plain"]()
+    torch.cuda.synchronize()
+    if not (torch.equal(ob, qb) and torch.equal(raw_bits(ov), raw_bits(qv))):
+        raise AssertionError("K6's lowered route != plain at conv1")
+    return None if per is None else sum(per.values())
 
 
 def phase_conv_kernels(torch):
@@ -1470,6 +1515,11 @@ def phase_conv_kernels(torch):
                     f"{nb / ms * 1e3 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s "
                     f"({bound / ms:.1%} of the bound), plain {pms:.3f} ms")
             totals[kn]["library_ms"] += dev["unfold"]
+            if kn == "K6":
+                low = k6_lowered_route(torch, res)
+                log(f"conv kernels: {what}: K6 forced onto its lowered route "
+                    f"(the earlier kernel, the same code): bit-equal to "
+                    f"plain, device {fmt_ms(low)} ms")
             log(f"conv kernels: {what}: bit-equal to plain; "
                 f"{res['zero_share']:.4f} of the lowered elements are zero")
         del x1, x2
@@ -1755,6 +1805,333 @@ def phase_conv_split(torch, cfg, model):
     return split
 
 
+# ---------------------------------------------------------------------------
+# phases 10-11: block-pruned models served on cached weight plans
+# ---------------------------------------------------------------------------
+
+# every layer's mlp.w_up and mlp.w_down block-pruned at the kernels' skip
+# granularity (slice_k x block_n) by core/pruning.block_mask, as the JAX
+# package's benchmarks/bench_models.py::run_dispatch prunes them
+PRUNE_SPARSITY = 0.5
+# the kernels K1 and K2 launch (their split sums included)
+K1K2_KERNELS = ("spgemm_mma_kernel", "spgemm_tile_kernel", "split_sum_kernel")
+
+
+def serve_with_plans(torch, model, c, batch, new, plans):
+    """``serve_loop.generate``'s prefill and greedy decode steps over
+    ``Transformer.forward``, every forward given ``plans`` (the cached
+    weight plans, or None: each dispatch plans its weight per call), as
+    the JAX engine passes its plans to every prefill and decode.  Each
+    step ends in a synchronize.  Returns the tokens (B, new) on the host,
+    the prefill logits, the last position's logits of every step and the
+    ms of every step."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    b, s = batch["tokens"].shape
+    caches = tfm.init_caches(c, b, s + new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(batch, c, caches=caches,
+                positions=torch.arange(s, device="cuda"), weight_plans=plans)
+    state = serve_loop.DecodeState(caches=out.caches,
+                                   last_token=out.logits[:, -1:].argmax(-1),
+                                   pos=s)
+    prefill = out.logits.float()
+    steps, toks = [prefill[:, -1]], [state.last_token[:, 0]]
+    torch.cuda.synchronize()
+    times = [(time.perf_counter() - t0) * 1e3]
+    for _ in range(new - 1):
+        t0 = time.perf_counter()
+        out = model({"tokens": state.last_token}, c, caches=state.caches,
+                    positions=torch.tensor([state.pos], device="cuda"),
+                    weight_plans=plans)
+        lg = out.logits[:, 0]
+        state = serve_loop.DecodeState(caches=out.caches,
+                                       last_token=lg.argmax(-1)[:, None],
+                                       pos=state.pos + 1)
+        steps.append(lg.float())
+        toks.append(state.last_token[:, 0])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(tokens=torch.stack(toks, 1).int().cpu(), prefill=prefill,
+                steps=steps, times=times)
+
+
+def planning_ms(torch, fn):
+    """(ms, calls) of the dispatch's planning (``sparse.dispatch.schedule``,
+    synchronized on both sides) during ``fn()``."""
+    from repro_torch.sparse import dispatch as dsp
+    orig, acc = dsp.schedule, [0.0, 0]
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[0] += (time.perf_counter() - t0) * 1e3
+        acc[1] += 1
+        return out
+    dsp.schedule = timed
+    try:
+        fn()
+    finally:
+        dsp.schedule = orig
+    return acc[0], acc[1]
+
+
+def k1k2_device_and_bound(torch, fn):
+    """K1/K2's device time during one ``fn()`` (a ``torch.profiler``
+    trace; None when the trace holds no device time) and their bound: over
+    every dispatch, the larger of the bytes its data needs over 3.35 TB/s
+    and its flops over the bf16 peak (:func:`needed_work` on the schedule
+    the dispatch built), in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.sparse import dispatch as dsp
+    orig, bound = dsp.schedule, [0.0]
+
+    def hooked(x, w, **kw):
+        sched, counts = orig(x, w, **kw)
+        if sched is not None:
+            a, b = dsp._values(x), kw["w_arr"]
+            kfused = kw["condense"] == "k"
+            geom = {k: kw[k] for k in ("block_m", "block_n", "slice_k")}
+            nb, fl, _ = needed_work(
+                torch, a[None], b[None], a.dtype, geom,
+                type(sched)(*(t[None] for t in sched)) if kfused
+                else sched[None], counts[None], kfused)
+            bound[0] += max(nb / HBM_BYTES_PER_S,
+                            fl / PEAK_FLOPS["bfloat16"]) * 1e3
+        return sched, counts
+    # the device's activity alone keeps the trace small; with the host's
+    # too where that traces nothing
+    for activities in ([ProfilerActivity.CUDA],
+                       [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        bound[0] = 0.0
+        torch.cuda.synchronize()
+        dsp.schedule = hooked
+        try:
+            with profile(activities=activities) as prof:
+                fn()
+                torch.cuda.synchronize()
+        finally:
+            dsp.schedule = orig
+        total, k1k2 = 0.0, 0.0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                total += e.device_time_total
+                if any(k in e.name for k in K1K2_KERNELS):
+                    k1k2 += e.device_time_total
+        if total > 0:
+            return k1k2 / 1e3, bound[0]
+    return None, bound[0]
+
+
+def mask_on_card_vs_cpu(torch, w, block):
+    """``block_mask`` of a served weight on the card and on the CPU: the
+    tiles whose keep differs (bf16 tile norms tie often, and the card
+    sums a tile in another order than the CPU), the tiles, and the CPU's
+    time."""
+    from repro_torch.core import pruning
+    got = pruning.block_mask(w, PRUNE_SPARSITY, block=block)
+    t0 = time.perf_counter()
+    want = pruning.block_mask(w.cpu(), PRUNE_SPARSITY, block=block)
+    cpu_s = time.perf_counter() - t0
+    tiles = got[::block[0], ::block[1]].cpu()
+    diff = int((tiles != want[::block[0], ::block[1]]).sum())
+    return diff, tiles.numel(), cpu_s
+
+
+def prune_mlps(torch, model, cfg):
+    """Block-prune every layer's (and encoder layer's) mlp.w_up and
+    mlp.w_down in place on the card, one weight at a time, so that peak
+    memory grows by one weight's temporaries only.  Returns the kept
+    share of each weight's tiles."""
+    from repro_torch.core import pruning
+    block = (cfg.sparse_slice_k, cfg.sparse_block_n)
+    kept = []
+    layers = list(model.layers) + list(getattr(model, "enc_layers", []))
+    with torch.no_grad():
+        for layer in layers:
+            for w in (layer.mlp.w_up, layer.mlp.w_down):
+                m = pruning.block_mask(w, PRUNE_SPARSITY, block=block)
+                kept.append(float(m[::block[0], ::block[1]].float().mean()))
+                w.mul_(m)
+                del m
+    torch.cuda.empty_cache()
+    return kept
+
+
+def tape_rows(tape, entries):
+    """The tape's entries as (name, dense, counted, executed, tiles
+    skipped) rows, in order."""
+    return [(e["name"], e["dense_steps"], e["sparse_steps"],
+             e["executed_steps"], e["tiles_skipped"])
+            for e in tape.summarize(entries)]
+
+
+def phase_pruned(torch, what, cfg, model, batch, new, expect):
+    """One served model on cached weight plans, then block-pruned: for
+    dual and dual+kc, the model unpruned with per-call plans and with
+    cached plans; then every MLP weight block-pruned in place (layer 0's
+    mlp.w_up mask on the card held against the CPU's), dense, and dual and
+    dual+kc with per-call and with cached plans.  Each run: tokens/s,
+    prefill, decode-step median, launches (exactly ``expect[mode]``),
+    steps per site; a second pass times the dispatch's planning; the
+    cached runs' K1/K2 device time from a profiled third pass.  Checks:
+    executed == counted on every tape entry; each cached run's tape equal
+    to the per-call run's on the same weights, site for site; pruned, the
+    MLP sites execute fewer steps than dense (mlp.up near half); pruned
+    sparse prefill logits within the tolerance of pruned dense, tokens
+    parting only where its top-2 logits are within it."""
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import sparse_im2col as k67
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sparse import tape
+    counters = {"K1": bsk.bitmap_spgemm_planned,
+                "K2": bsk.bitmap_spgemm_kfused_planned,
+                "K5": k5.bitmap_encode, "K6": k67.sparse_im2col,
+                "K7": k67.sparse_im2col_strided}
+    b = batch["tokens"].shape[0]
+    runs = {}
+    t_phase = time.perf_counter()
+
+    def run(weights, mode, cached):
+        c = dataclasses.replace(cfg, **MODES[mode])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plans = tfm.plan_weight_activities(model, c) if cached else None
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            r = serve_with_plans(torch, model, c, batch, new, plans)
+        wall = (time.perf_counter() - t0) * 1e3
+        got = {kn: fn.launches for kn, fn in counters.items()}
+        want = {kn: expect[mode].get(kn, 0) for kn in counters}
+        key = f"{what} {weights} {mode}" + (", cached plans" if cached
+                                            else ", per-call plans")
+        if got != want:
+            raise AssertionError(f"{key}: launches {got}, expected {want}")
+        rows = tape_rows(tape, entries)
+        bad = [row for row in rows if mode != "dense" and row[2] != row[3]]
+        if bad:
+            raise AssertionError(f"{key}: executed != counted at {bad[:3]}")
+        if not all(torch.isfinite(s).all() for s in r["steps"]):
+            raise AssertionError(f"{key}: non-finite logits")
+        t1 = time.perf_counter()
+        plan_ms, calls = planning_ms(torch, lambda: serve_with_plans(
+            torch, model, c, batch, new, plans))
+        t2 = time.perf_counter()
+        dev, bound = (k1k2_device_and_bound(torch, lambda: serve_with_plans(
+            torch, model, c, batch, new, plans))
+            if cached and mode != "dense" else (None, None))
+        passes = f"passes {wall / 1e3:.1f} + {t2 - t1:.1f} + " \
+                 f"{time.perf_counter() - t2:.1f} s"
+        sites = site_steps(tape, entries)
+        r.update(rows=rows, sites=sites, wall=wall, plan_ms=plan_ms,
+                 calls=calls, dev=dev, bound=bound, build_ms=build_ms)
+        runs[(weights, mode, cached)] = r
+        t = r["times"]
+        log(f"pruned serving: {key}: {b * new / wall * 1e3:.2f} tokens/s "
+            f"({wall:.0f} ms, stats tape on), one prefill {t[0]:.1f} ms, "
+            f"decode steps median {statistics.median(t[1:]):.1f} ms; "
+            f"launches { {k: v for k, v in got.items() if v} }; planning "
+            f"{plan_ms:.1f} ms in {calls} dispatches "
+            f"({plan_ms / max(calls, 1):.3f} ms each, a second pass)"
+            + (f"; plans built once in {build_ms:.1f} ms" if cached else "")
+            + (f"; K1/K2 device ms {fmt_ms(dev)} against a bound of "
+               f"{bound:.4f} ms (a third pass)" if cached and mode != "dense"
+               else "") + f"; {passes}"
+            + "; dense/counted/executed steps " + ", ".join(
+                f"{k} {v[0]}/{v[1]}/{v[2]}" for k, v in sites.items()))
+
+    sparse = ("dual", "dual+kc")
+    for mode in sparse:
+        run("unpruned", mode, False)
+        run("unpruned", mode, True)
+    block = (cfg.sparse_slice_k, cfg.sparse_block_n)
+    diff, tiles, cpu_s = mask_on_card_vs_cpu(torch, model.layers[0].mlp.w_up,
+                                             block)
+    log(f"pruned serving: {what}: layer 0 mlp.w_up "
+        f"{tuple(model.layers[0].mlp.w_up.shape)} block_mask{block} on the "
+        f"card {'==' if diff == 0 else '!='} the CPU's: {diff} of {tiles} "
+        f"tiles differ (CPU mask in {cpu_s:.1f} s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kept = prune_mlps(torch, model, cfg)
+    torch.cuda.synchronize()
+    log(f"pruned serving: {what}: {len(kept)} MLP weights block-pruned in "
+        f"place at {block}, kept tile share {min(kept):.4f}-{max(kept):.4f},"
+        f" in {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    run("pruned", "dense", False)
+    for mode in sparse:
+        run("pruned", mode, False)
+        run("pruned", mode, True)
+
+    for weights in ("unpruned", "pruned"):
+        for mode in sparse:
+            per, cached = runs[(weights, mode, False)], runs[
+                (weights, mode, True)]
+            if per["rows"] != cached["rows"]:
+                raise AssertionError(f"{what} {weights} {mode}: the cached "
+                                     "plans' tape != the per-call tape")
+            same = torch.equal(per["tokens"], cached["tokens"])
+            log(f"pruned serving: {what} {weights} {mode}: cached-plan tape "
+                f"== per-call tape ({len(per['rows'])} entries); tokens "
+                f"{'equal' if same else 'differ'}; planning "
+                f"{per['plan_ms']:.1f} -> {cached['plan_ms']:.1f} ms a "
+                "generate")
+    dense = runs[("pruned", "dense", False)]
+    scale = dense["prefill"].abs().max().item()
+    tol = SERVE_RTOL * scale
+    for mode in sparse:
+        r = runs[("pruned", mode, True)]
+        for site in ("mlp.up", "mlp.down"):
+            d, _, executed = r["sites"][site]
+            if not executed < d:
+                raise AssertionError(f"{what} pruned {mode}: {site} executes "
+                                     f"{executed} of {d} dense steps")
+        d, _, up = r["sites"]["mlp.up"]
+        if not 0.45 <= up / d <= 0.55:
+            raise AssertionError(f"{what} pruned {mode}: mlp.up executes "
+                                 f"{up / d:.4f} of its dense steps")
+        err = (r["prefill"] - dense["prefill"]).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{what} pruned {mode}: prefill logits "
+                                 f"differ from pruned dense by {err:.4f} > "
+                                 f"{tol:.4f}")
+        agree = parting_report(torch, f"{what} pruned {mode}", r["tokens"],
+                               dense["tokens"], dense["steps"], tol)
+        log(f"pruned serving: {what} pruned {mode}, cached plans: mlp.up "
+            f"executes {up / d:.4f} of dense, mlp.down "
+            f"{r['sites']['mlp.down'][2] / r['sites']['mlp.down'][0]:.4f}; "
+            f"prefill logits max |diff| to pruned dense {err:.4f} <= "
+            f"{tol:.4f} ({SERVE_RTOL} x max|pruned dense| {scale:.2f}); "
+            + "; ".join(agree))
+
+    def tps(r):
+        return b * new / r["wall"] * 1e3
+    for mode in sparse:
+        up, uc, pp, pc = (runs[(w, mode, cached)] for w in ("unpruned",
+                          "pruned") for cached in (False, True))
+        log(f"time: {what} {mode}: tokens/s unpruned {tps(up):.2f} "
+            f"per-call / {tps(uc):.2f} cached plans, pruned {tps(pp):.2f} / "
+            f"{tps(pc):.2f} (pruned dense {tps(dense):.2f}); planning a "
+            f"generate {up['plan_ms']:.1f} / {uc['plan_ms']:.1f} ms "
+            f"unpruned, {pp['plan_ms']:.1f} / {pc['plan_ms']:.1f} pruned; "
+            f"K1/K2 device ms a generate {fmt_ms(uc['dev'])} unpruned -> "
+            f"{fmt_ms(pc['dev'])} pruned (bound {uc['bound']:.4f} -> "
+            f"{pc['bound']:.4f})")
+    log(f"pruned serving: {what}: {time.perf_counter() - t_phase:.0f} s")
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1783,12 +2160,20 @@ def main() -> int:
     model = make_model(torch, cfg)
     launches, walls = phase_serving(torch, cfg, model)
     kv_launches, kv_walls, _ = phase_serving_kv(torch, cfg, model)
+    proj = 13 * NEW_TOKENS
+    phase_pruned(torch, "traffic A", cfg, model, traffic_a_batch(torch, cfg),
+                 NEW_TOKENS, {"dense": {}, "dual": {"K1": proj},
+                              "dual+kc": {"K2": proj}})
     del model
     torch.cuda.empty_cache()
     phase_attention_split(torch, cfg)
     wcfg = get_config(WHISPER)
     wmodel, w_launches, w_walls, w_times = phase_serving_whisper(torch, wcfg)
     phase_conv_split(torch, wcfg, wmodel)
+    n1, conv = whisper_k1_launches(wcfg), {"K5": 2, "K6": 1, "K7": 1}
+    phase_pruned(torch, "traffic C", wcfg, wmodel, whisper_batch(torch, wcfg),
+                 W_NEW, {"dense": {}, "dual": {"K1": n1, **conv},
+                         "dual+kc": {"K2": n1, **conv}})
     del wmodel
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]

@@ -27,11 +27,9 @@ _WORDS_ARGS = [_P]
 # (route, elem_bytes, x, bits, cond, counts, n, c, h, w, x's four
 #  strides, stream)
 _ENCODE_ARGS = [_I, _I] + [_P] * 4 + [_I] * 4 + [_LL] * 4 + [_P]
-# (elem_bytes, cond, bits, out_bits, out_vals, n, c, h, w, kh, kw,
-#  stride, stream)
-_IM2COL_ARGS = [_I] + [_P] * 4 + [_I] * 7 + [_P]
-# K7: (route, piece, then as K6)
-_STRIDED_ARGS = [_I, _I] + _IM2COL_ARGS
+# K6, K7: (route, piece, elem_bytes, cond, bits, out_bits, out_vals, n,
+#  c, h, w, kh, kw, stride, stream)
+_IM2COL_ARGS = [_I, _I, _I] + [_P] * 4 + [_I] * 7 + [_P]
 
 # source → (exported C function, its argument types); every pointer and
 # the stream is a c_void_p, so ctypes never cuts one to 32 bits
@@ -44,7 +42,7 @@ KERNELS = {
     "bitmap_encode.cu": ("repro_bitmap_encode", _ENCODE_ARGS),
     "sparse_im2col.cu": ("repro_sparse_im2col", _IM2COL_ARGS),
     "sparse_im2col_strided.cu": ("repro_sparse_im2col_strided",
-                                 _STRIDED_ARGS),
+                                 _IM2COL_ARGS),
 }
 
 _FUNCS: Dict[str, object] = {}

@@ -17,6 +17,10 @@
 namespace repro {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+// the im2col kernels' routes, as their wrappers number them
+constexpr int kRouteLowered = 0, kRouteFeature = 1;
+// the dynamic shared memory one block may use on the H100
+constexpr long long kMaxSmem = 227 * 1024;
 
 // raw element bits by width; an element is non-zero iff its magnitude
 // bits are (so -0.0 is zero, NaN is not, as `x != 0` has it)
@@ -33,6 +37,10 @@ template <> struct Raw<4> {
 // the bits of a word below bit b (b < 32: 1u << 32 is undefined)
 __device__ __forceinline__ unsigned below(unsigned b) {
   return (1u << b) - 1u;
+}
+
+__host__ __device__ constexpr long long align16(long long b) {
+  return (b + 15) & ~15ll;
 }
 
 // Exclusive prefix sum of v over the block, in thread order; *total gets

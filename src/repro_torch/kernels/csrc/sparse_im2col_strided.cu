@@ -46,13 +46,7 @@
 
 namespace repro {
 
-constexpr int kRouteLowered = 0, kRouteFeature = 1;
 constexpr int kThreads = 128;
-constexpr long long kMaxSmem = 227 * 1024;
-
-__host__ __device__ constexpr long long align16(long long b) {
-  return (b + 15) & ~15ll;
-}
 
 // The feature route's shared memory for pieces of pj output words: the
 // kw runs (long long) and the carry, then two buffers of the staged values

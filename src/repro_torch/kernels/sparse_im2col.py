@@ -3,7 +3,12 @@ plain versions.
 
 * K6, :func:`sparse_im2col` — replaces the JAX package's TPU kernel
   ``kernels/sparse_im2col.py::sparse_im2col_pallas`` (``_im2col_kernel``):
-  stride 1, window bits by word shift/OR.
+  stride 1, window bits by word shift/OR, on one of two routes that
+  :func:`k6_route` picks: ``feature`` (one block per (image, channel,
+  dy) stages each feature row once, in pieces of output words, and
+  copies each of its kw windows' values as one contiguous run in 16-byte
+  stores) or ``lowered`` (one block per lowered row, for kw in the
+  thousands).
 * K7, :func:`sparse_im2col_strided` — replaces
   ``kernels/sparse_im2col.py::sparse_im2col_strided_pallas``
   (``_im2col_kernel_strided``): stride ≥ 2, on one of two routes that
@@ -24,11 +29,10 @@ rows' condensed values (N, KKC, P), P = OH·OW, zero tail.  Lowered row
 the flat-P layout the planner reads.
 
 On the H100 both are bound by bytes (the lowered values written, the
-condensed rows read).  K6 (``csrc/sparse_im2col.cu``) gives each (lowered
-row, image) a block that walks its output rows in order; K7
-(``csrc/sparse_im2col_strided.cu``) reads each feature row once for its kw
-lowered rows on its feature route.  Outputs are bit-equal to the plain
-versions: the kernels move raw bits.
+condensed rows read).  On their feature routes K6
+(``csrc/sparse_im2col.cu``) and K7 (``csrc/sparse_im2col_strided.cu``)
+read each feature row once for its kw lowered rows.  Outputs are
+bit-equal to the plain versions: the kernels move raw bits.
 
 ``device=None`` means the card.  CPU tensors run the plain versions; CUDA
 tensors launch the kernel or raise.  ``launches`` on each wrapper counts
@@ -50,10 +54,11 @@ _I32_MAX = 2 ** 31 - 1
 # K7's lowered route keeps one int per bitmap word of a feature row in
 # static shared memory beside its scan's 33
 _SMEM_INTS = 48 * 1024 // 4 - 33
-# K7's feature route: feature columns one piece stages (at most), and
-# output words over all dx one piece holds
+# K6's and K7's feature routes: feature columns one piece stages (at
+# most), and output words over all dx one piece holds (K7), or dx one
+# block makes (K6: its (off, len, run) per dx in shared memory)
 PIECE_COLS, PIECE_WORDS = 4096, 1024
-STRIDED_ROUTES = ("lowered", "feature")   # the C entry's route numbers
+ROUTES = ("lowered", "feature")   # the C entries' route numbers
 
 
 def _geometry(cond, bits, kh: int, kw: int, stride: int):
@@ -113,6 +118,21 @@ def strided_route(n: int, c: int, h: int, w: int, kh: int, kw: int,
     return "feature", pj
 
 
+def k6_route(n: int, c: int, h: int, w: int, kh: int, kw: int
+             ) -> Tuple[str, int]:
+    """K6's route and piece for (N, C, H, W) feature maps: ``("feature",
+    pj)`` with pj output words a piece, as many as a row has and as fit
+    :data:`PIECE_COLS` feature columns (32·pj + kw − 1), when kw is at most
+    :data:`PIECE_WORDS`; else, or when the N·C·kh blocks or a lowered
+    row's P positions pass 2³¹ − 1, ``("lowered", 0)``."""
+    oh, ow = i2c.out_size(h, kh, 1), i2c.out_size(w, kw, 1)
+    pj = min(-(-ow // bm.WORD), (PIECE_COLS + 1 - kw) // bm.WORD)
+    if (pj < 1 or kw > PIECE_WORDS or oh * ow > _I32_MAX
+            or n * c * kh > _I32_MAX):
+        return "lowered", 0
+    return "feature", pj
+
+
 def _launch(src: str, cond, bits, kh, kw, stride):
     n, c, h, w, oh, ow = _geometry(cond, bits, kh, kw, stride)
     if cond.dtype not in _DTYPES:
@@ -123,22 +143,22 @@ def _launch(src: str, cond, bits, kh, kw, stride):
     kkc = kh * kw * c
     if kkc > _I32_MAX or n > 65535 or max(cond.shape) > _I32_MAX:
         raise ValueError(f"grid ({kkc}, {n}) too large for the kernel")
-    args = ()
-    if src == "sparse_im2col_strided.cu":
+    if src == "sparse_im2col.cu":
+        route, pj = k6_route(n, c, h, w, kh, kw)
+    else:
         route, pj = strided_route(n, c, h, w, kh, kw, stride)
         if route == "lowered" and -(-w // bm.WORD) > _SMEM_INTS:
             raise ValueError(f"feature rows of {w} columns exceed the "
                              "shared memory of K7's lowered route")
-        args = (STRIDED_ROUTES.index(route), pj)
     out_bits = torch.empty((n, kkc, oh, -(-ow // bm.WORD)),
                            dtype=torch.int32, device=cond.device)
     out_vals = torch.empty((n, kkc, oh * ow), dtype=cond.dtype,
                            device=cond.device)
     stream = torch.cuda.current_stream(cond.device).cuda_stream
     rc = build.function(src)(
-        *args, cond.element_size(), cond.data_ptr(), bits.data_ptr(),
-        out_bits.data_ptr(), out_vals.data_ptr(), n, c, h, w, kh, kw, stride,
-        stream)
+        ROUTES.index(route), pj, cond.element_size(), cond.data_ptr(),
+        bits.data_ptr(), out_bits.data_ptr(), out_vals.data_ptr(), n, c, h,
+        w, kh, kw, stride, stream)
     if rc != 0:
         raise RuntimeError(f"{src}: kernel launch failed with CUDA error "
                            f"{rc}")

@@ -1,5 +1,6 @@
-"""K1-K7, the sparse-KV decode and the whisper path on the card against
-their plain versions (needs an NVIDIA GPU with nvcc; skipped elsewhere).  Run there with
+"""K1-K7, the sparse-KV decode, the whisper path and block pruning on the
+card against their plain versions and the CPU (needs an NVIDIA GPU with
+nvcc; skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.configs.base import RunConfig
+from repro_torch.core import pruning
 from repro_torch.kernels import bitmap_spgemm as bsk
 from repro_torch.kernels import bitmap_encode as k5
 from repro_torch.kernels import grouped_spgemm as gsk
@@ -418,6 +420,79 @@ def test_conv_kernels_match_plain(cuda, shape, dtype):
              k67.sparse_im2col_strided.launches)
     assert after == (before[0] + 1, before[1] + (s == 1),
                      before[2] + (s != 1))
+
+
+K6 = [  # ((N, H, W, C, kh, kw), K6's route)
+    ((4, 1, 3002, 80, 1, 3), "feature"),     # whisper-base conv1
+    ((1, 56, 56, 3, 14, 14), "feature"),     # the patch kernel at stride 1
+    ((1, 7, 9, 3, 3, 3), "feature"),
+    ((2, 9, 10, 2, 3, 3), "feature"),
+    ((1, 1, 66, 2, 1, 34), "feature"),       # dx >= 32
+    ((1, 1, 65, 2, 1, 2), "feature"),        # OW = 64
+    ((1, 2, 96, 3, 2, 1), "feature"),
+    ((2, 1, 500, 40, 1, 3), "feature"),
+    ((1, 1, 70000, 2, 1, 3), "feature"),     # pieces of 127 output words
+    ((1, 1, 9000, 2, 1, 1024), "feature"),   # the widest kernel it takes
+    ((1, 1, 5000, 2, 1, 4100), "lowered"),   # kw past a piece
+    ((1, 1, 4000, 2, 1, 1500), "lowered"),   # kw past 1024
+]
+
+
+def _k6_inputs(cuda, shape, dtype):
+    """K5's outputs for a map with all-zero and all-non-zero rows, -0.0
+    and bit 31 of words set."""
+    n, h, w, c, _, _ = shape
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(n, h, w, c, generator=g)
+    x[torch.rand(x.shape, generator=g) < 0.5] = 0
+    x[0, 0, :, 0] = 0
+    x[..., 1::7, :] = -0.0
+    x[-1, -1, :, -1] = 1.0
+    if w >= 32:
+        x[:, :, 31::32, ::2] = 1.5
+    return k5.bitmap_encode(x.to(dtype).to(cuda).permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("case", K6)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_routes_match_plain(cuda, case, dtype):
+    """K6 on each route bit-equal to its plain version, one launch."""
+    shape, route = case
+    n, h, w, c, kh, kw = shape
+    assert k67.k6_route(n, c, h, w, kh, kw)[0] == route
+    bits, cond = _k6_inputs(cuda, shape, dtype)
+    before = k67.sparse_im2col.launches
+    got = k67.sparse_im2col(cond, bits, kh=kh, kw=kw)
+    want = k67.sparse_im2col_plain(cond, bits, kh=kh, kw=kw)
+    torch.cuda.synchronize()
+    assert k67.sparse_im2col.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(_raw(got[1]), _raw(want[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_lowered_route_at_conv1(cuda, dtype, monkeypatch):
+    """The lowered route, forced at whisper conv1's shape, agrees too."""
+    shape = K6[0][0]
+    bits, cond = _k6_inputs(cuda, shape, dtype)
+    want = k67.sparse_im2col(cond, bits, kh=1, kw=3)
+    monkeypatch.setattr(k67, "k6_route", lambda *args: ("lowered", 0))
+    got = k67.sparse_im2col(cond, bits, kh=1, kw=3)
+    plain = k67.sparse_im2col_plain(cond, bits, kh=1, kw=3)
+    torch.cuda.synchronize()
+    for out in (got, want):
+        assert torch.equal(out[0], plain[0])
+        assert torch.equal(_raw(out[1]), _raw(plain[1]))
+
+
+@pytest.mark.parametrize("shape", [(2048, 4096), (1000, 700)])
+def test_block_mask_on_card_matches_cpu(cuda, shape):
+    """bf16 tile norms tie often; the card's mask equals the CPU's."""
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(
+        torch.bfloat16)
+    want = pruning.block_mask(w, 0.5, block=(128, 128))
+    got = pruning.block_mask(w.to(cuda), 0.5, block=(128, 128))
+    assert got.is_cuda and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
