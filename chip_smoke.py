@@ -76,7 +76,31 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    pruned sparse logits and tokens against pruned dense as in 7;
 11. pruned serving, traffic C — the same for whisper-base (its encoder
    layers pruned too, the stem's plans among the cached ones), with the
-   launch counts of 9.
+   launch counts of 9;
+12. engine, traffic D — a control-plane smoke of continuous batching
+   through the paged engine (``serving.engine.Engine``) on the model of 10,
+   as 10 left it (MLPs block-pruned): 8 requests of 17-256 prompt tokens,
+   16 new tokens each, one submitted a tick while the earlier ones decode,
+   4 slots of 4096 cache slots in a fully provisioned pool; dense, dual
+   (K1 + K3) and dual+kc (K2 + K4, per-slot schedules).  Checks: every
+   request gets its 16 tokens, the pool drains, no eviction; K1 (K2)
+   launches exactly 13 x (prefill calls + decode calls) and K3 (K4) 2 x
+   layers x decode calls; the tape executes what it counts; dense engine
+   tokens against ``generate`` at batch 1 and sparse against dense,
+   parting only at top-2 ties.  Then, with the four longest requests in
+   the four slots: every launch of the tick that admits them (a packed
+   prefill, the other prefills, a decode of 4 slots) held against its
+   plain walk on the same inputs at phases 3-4's tolerances, and the next
+   decode tick's ``attn.score``/``attn.value`` steps against the blocks
+   each slot's query sees, worked out on the host from the slot's
+   position and the window; ``profile_sparsity`` executes what it counts.
+   Reports tokens/s (a path smoke: 128 tokens, no throughput meaning),
+   ticks, calls, the decode-tick median, prefill ms a call, one decode
+   tick split into the ``paged_read`` gather, planning, K1/K2, K3/K4 and
+   the rest, the scheduled share of cache-block steps and peak memory.
+   Then a pressure run in dual on a 15-page pool: it evicts, every budget
+   is met, the pool drains, and how many streams equal the fully
+   provisioned run's.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -130,6 +154,24 @@ KV_MODES = {
 KV_CALLS = N_LAYERS * (KV_NEW_TOKENS - 1)
 # cache slots written at the first and the last decode step
 KV_WRITTEN = (KV_PROMPT_LEN + 1, KV_PROMPT_LEN + KV_NEW_TOKENS - 1)
+
+# traffic D, a control-plane smoke of continuous batching (a hand-picked
+# ladder of lengths, not a measured request mix): requests of these prompt
+# lengths (seeded tokens), D_NEW new tokens each, one submitted a tick
+# while the earlier ones decode, through the paged engine: D_SLOTS slots
+# of D_CAPACITY logical cache slots, fully provisioned (512 pages of 32)
+D_PROMPT_LENS = (17, 32, 48, 64, 100, 128, 200, 256)
+D_NEW, D_SLOTS, D_CAPACITY = 16, 4, 4096
+# the pressure run's pool: fewer pages than the four longest requests hold
+# together (9 + 7 + 5 + 4 = 25); the largest pool on which traffic D evicts
+D_PRESSURE_PAGES = 15
+# sparse_kv only decides what profile_sparsity's contiguous caches are: the
+# paged decode schedules its cache blocks in every sparse mode
+ENGINE_MODES = {"dense": MODES["dense"],
+                "dual": dict(MODES["dual"], sparse_kv=True),
+                "dual+kc": dict(MODES["dual+kc"], sparse_kv=True)}
+# K1 (K2) dispatches a forward: q/k/v/out and mlp up/down a layer, the head
+PROJ_PER_FORWARD = 6 * N_LAYERS + 1
 
 # the whisper traffic: 4 segments of 30 s audio (3000 mel frames x 80
 # bins each), whisper's start-of-transcript prefix as the prompt, 32 greedy
@@ -2132,6 +2174,459 @@ def phase_pruned(torch, what, cfg, model, batch, new, expect):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the continuous-batching engine, traffic D
+# ---------------------------------------------------------------------------
+
+def traffic_d_prompts(torch, cfg):
+    """Traffic D's prompts: one of each length in ``D_PROMPT_LENS``."""
+    g = torch.Generator().manual_seed(4)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in D_PROMPT_LENS]
+
+
+def serve_traffic_d(torch, eng, prompts):
+    """Traffic D through ``eng``: one submission a tick while the earlier
+    requests decode, then drain with ``run_to_completion``.  Returns
+    ({uid: request}, wall ms, {"prefill": [ms], "decode": [ms]}): each
+    core call timed from a synchronize to its own host read of the next
+    tokens."""
+    from repro_torch.serving.engine import Request
+    times = {"prefill": [], "decode": []}
+
+    def timed(fn, acc):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            acc.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    eng._prefill_impl = timed(eng._prefill_impl, times["prefill"])
+    eng._decode_impl = timed(eng._decode_impl, times["decode"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = []
+    try:
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=D_NEW))
+            done.extend(eng.step())
+        done.extend(eng.run_to_completion())
+        torch.cuda.synchronize()
+    finally:
+        del eng._prefill_impl, eng._decode_impl
+    return ({r.uid: r for r in done}, (time.perf_counter() - t0) * 1e3,
+            times)
+
+
+def check_engine_run(what, mode, eng, done, launches, evictions_ok):
+    """Every request done with its D_NEW tokens, the pool drained (and no
+    eviction unless ``evictions_ok``), and the launches exact: K1 (K2)
+    once a dispatch of every prefill and decode call, K3 (K4) twice a
+    layer and decode call."""
+    st = eng.stats()
+    short = [u for u, r in done.items()
+             if len(r.output) != D_NEW or r.status != "done"]
+    if sorted(done) != list(range(len(D_PROMPT_LENS))) or short:
+        raise AssertionError(f"{what}: requests {short} missed their budget "
+                             f"(finished {sorted(done)})")
+    if st["pages_free"] != st["pages_total"]:
+        raise AssertionError(f"{what}: pool not drained: {st}")
+    if st["evictions"] and not evictions_ok:
+        raise AssertionError(f"{what}: {st['evictions']} evictions")
+    proj = PROJ_PER_FORWARD * (st["prefill_calls"] + st["decode_calls"])
+    grouped = 2 * N_LAYERS * st["decode_calls"]
+    want = {"dense": {}, "dual": {"K1": proj, "K3": grouped},
+            "dual+kc": {"K2": proj, "K4": grouped}}[mode]
+    want = {kn: want.get(kn, 0) for kn in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    return st
+
+
+def batch1_stream(torch, model, c, prompt, force=None):
+    """``generate``'s own prefill and decode steps at batch 1 over a
+    D_CAPACITY-slot cache: the greedy tokens (1, D_NEW) on the host and
+    each step's logits; with ``force`` each decode is fed ``force``'s
+    previous token instead (the logits along another stream)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    caches = tfm.init_caches(c, 1, D_CAPACITY)
+    state, lg = serve_loop.make_prefill_step(c)(
+        model, {"tokens": torch.tensor([prompt], device="cuda")}, caches)
+    steps, toks = [lg[:, -1].float()], [state.last_token[:, 0]]
+    decode = serve_loop.make_decode_step(c)
+    for t in range(1, D_NEW):
+        if force is not None:
+            state = state._replace(last_token=torch.tensor(
+                [[force[t - 1]]], device="cuda"))
+        state, lg1 = decode(model, state)
+        steps.append(lg1.float())
+        toks.append(state.last_token[:, 0])
+    return torch.stack(toks, 1).int().cpu(), steps
+
+
+def held_to_plain(torch, eng, fn):
+    """``fn()`` with every kernel launch of a decode or a packed prefill
+    (``eng``'s prefill calls of more than one row) held against its plain
+    walk on the same inputs, run right after the launch (before anything
+    can write them), at the tolerance of its output type (``RTOL``, as in
+    phases 3 and 4); one-row prefills run unchecked.  Launches are seen at
+    ``bitmap_spgemm.run``, which all four wrappers call; the plain walk is
+    not a launch and is not counted.  Returns {source: dict(n, err,
+    shapes)}, ``shapes`` the set of (stage, E, M, least, most scheduled
+    steps of a problem)."""
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    real_run, real_prefill = bsk.run, eng._prefill_impl
+    stage, seen = ["decode"], {}
+
+    def run(src, plain, a, b, sched, counts, *, block_m, block_n, slice_k,
+            out_dtype, **kw):
+        geom = dict(block_m=block_m, block_n=block_n, slice_k=slice_k)
+        y = real_run(src, plain, a, b, sched, counts, out_dtype=out_dtype,
+                     **geom, **kw)
+        if stage[0] == "prefill 1":
+            return y
+        p = plain(a, b, sched, counts, out_dtype=out_dtype, **geom)
+        (e, m, k), n = a.shape, b.shape[-1]
+        err = check_pair(torch, src, y, p, str(y.dtype).split(".")[-1],
+                         f"engine {stage[0]} E={e} M={m} K={k} N={n}")
+        steps = counts.reshape(e, -1).sum(1)
+        got = seen.setdefault(src, dict(n=0, err=0.0, shapes=set()))
+        got["n"] += 1
+        got["err"] = max(got["err"], err)
+        got["shapes"].add((stage[0], e, m, int(steps.min()),
+                           int(steps.max())))
+        return y
+
+    def prefill(tokens, *args):
+        stage[0] = f"prefill {tokens.shape[0]}" + (
+            f"x{tokens.shape[1]}" if tokens.shape[0] > 1 else "")
+        try:
+            return real_prefill(tokens, *args)
+        finally:
+            stage[0] = "decode"
+    bsk.run, eng._prefill_impl = run, prefill
+    try:
+        fn()
+    finally:
+        bsk.run = real_run
+        del eng._prefill_impl
+    return seen
+
+
+def fill_slots(torch, eng, prompts):
+    """Submit the D_SLOTS longest prompts to the idle ``eng`` and run the
+    tick that admits them all (their prefills, one packed) and decodes the
+    D_SLOTS slots once, the packed prefill's and the decode's launches
+    held to their plain walks (:func:`held_to_plain`).  In a sparse mode the tick must have run K1
+    (K2) at a packed prefill and at decode M = D_SLOTS, and K3 (K4) at E =
+    slots x KV heads with problems scheduled to different depths (one
+    schedule per slot).  Returns the held launches by source."""
+    from repro_torch.serving.engine import Request
+    for i, p in enumerate(prompts[-D_SLOTS:]):
+        eng.submit(Request(uid=100 + i, prompt=p, max_new_tokens=D_NEW))
+    seen = held_to_plain(torch, eng, eng.step)
+    if sum(r is not None for r in eng.active.values()) != D_SLOTS:
+        raise AssertionError("engine: not every slot is busy")
+    if eng.cfg.sparse_mode == "dense":
+        return seen
+    shapes = [x for got in seen.values() for x in got["shapes"]]
+    e_want = D_SLOTS * eng.cfg.n_kv_heads
+    if not (any(st.startswith("prefill ") for st, *_ in shapes)
+            and any(st == "decode" and m == D_SLOTS
+                    for st, e, m, *_ in shapes if e == 1)
+            and any(st == "decode" and e == e_want and lo < hi
+                    for st, e, m, lo, hi in shapes)):
+        raise AssertionError(f"engine: the admitting tick missed a packed "
+                             f"prefill, a {D_SLOTS}-row decode or per-slot "
+                             f"grouped schedules: {sorted(shapes)}")
+    return seen
+
+
+def slot_schedule_check(torch, eng):
+    """One decode tick of ``eng``, every slot busy at its own length,
+    under the stats tape: each ``attn.score`` and ``attn.value`` entry
+    must schedule, summed over the slots, exactly the cache blocks each
+    slot's query sees, worked out on the host from the slot's position
+    and the model's window (score: the key rows' blocks at the score's
+    block_m; value: the cache slices at its slice_k, or under kcondense
+    the seen slots condensed into slices).  A schedule shared by the slots
+    would give every slot the longest one's blocks.  Returns (the slots'
+    query positions, {site: host blocks per slot}, {site: scheduled steps
+    of each entry})."""
+    from repro_torch.sparse import tape
+    c = eng.cfg
+    t, hd, grp = eng.capacity, c.hd, c.n_heads // c.n_kv_heads
+    w = c.sliding_window or None
+    qpos = list(eng.pos)            # the positions this tick attends from
+    lo = [max(0, q - w + 1) if w else 0 for q in qpos]
+    bm = site_geometry(c, "attn.score", t, grp, hd)["block_m"]
+    bt = site_geometry(c, "attn.value", grp, hd, t)["slice_k"]
+
+    def touched(size):
+        return [-(-(q + 1) // size) - lq // size for q, lq in zip(qpos, lo)]
+    want = {"attn.score": touched(bm),
+            "attn.value": ([-(-(q + 1 - lq) // bt) for q, lq in zip(qpos, lo)]
+                           if c.sparse_kcondense else touched(bt))}
+    tiles = {"attn.score": -(-t // bm), "attn.value": -(-t // bt)}
+    if len(set(want["attn.score"])) == 1:
+        raise AssertionError(f"engine: every slot at one length: {qpos}")
+    with tape.collect() as entries:
+        eng.step()
+    rows = tape.summarize(entries)
+    got = {}
+    for k, blocks in want.items():
+        got[k] = [e["sparse_steps"] for e in rows if e["name"] == k]
+        dense = {e["dense_steps"] for e in rows if e["name"] == k}
+        if len(got[k]) != N_LAYERS or len(dense) != 1:
+            raise AssertionError(f"engine: {len(got[k])} {k} entries")
+        per_block, rem = divmod(dense.pop(), D_SLOTS * tiles[k])
+        if rem or got[k] != [per_block * sum(blocks)] * N_LAYERS:
+            raise AssertionError(
+                f"engine: {k} scheduled {got[k]} steps a layer; the slots' "
+                f"own blocks {blocks} (positions {qpos}) give "
+                f"{per_block} x {sum(blocks)}")
+    return qpos, want, got
+
+
+def tick_split(torch, eng, reps=5):
+    """``reps`` decode ticks of ``eng``, every slot busy, each timed whole
+    and in parts: the ``paged_read`` gather, the dispatch's planning
+    (``dispatch.schedule``), K1/K2 and K3/K4, and the rest; CUDA events,
+    with a synchronize before each part and the tick, so the parts do not
+    overlap.  The kernels are timed at ``bitmap_spgemm.run``, which all
+    four wrappers call (a wrapper looks its own name up to count its
+    launches, so it is not replaced).  Then ``eng`` is drained.  Medians
+    of the ticks, in ms."""
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.sparse import dispatch as dsp
+    from repro_torch.sparse import kvcache as skvc
+    parts = {"paged_read": (skvc, "paged_read"),
+             "planning": (dsp, "schedule"), "kernels": (bsk, "run")}
+    acc = dict.fromkeys(("paged_read", "planning", "K1/K2", "K3/K4"), 0.0)
+
+    def events(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def timed(fn, part):
+        def run(*args, **kwargs):
+            out, ms = events(lambda: fn(*args, **kwargs))
+            if part == "kernels":    # run(src, ...): K3/K4 are grouped_*.cu
+                acc["K3/K4" if args[0].startswith("grouped")
+                    else "K1/K2"] += ms
+            else:
+                acc[part] += ms
+            return out
+        return run
+    saved = [(mod, name, getattr(mod, name))
+             for mod, name in parts.values()]
+    for part, (mod, name) in parts.items():
+        setattr(mod, name, timed(getattr(mod, name), part))
+    ticks = []
+    try:
+        for _ in range(reps):
+            for part in acc:
+                acc[part] = 0.0
+            _, total = events(eng.step)
+            ticks.append(dict(acc, total=total,
+                              rest=total - sum(acc.values())))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    eng.run_to_completion()
+    return {k: statistics.median(t[k] for t in ticks) for k in ticks[0]}
+
+
+def phase_engine(torch, cfg, model, smi):
+    """Traffic D through the paged continuous-batching engine; see the
+    module docstring, phase 12.  ``smi`` is the card's name and power
+    limit, printed beside every number."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import grouped_spgemm as gsk
+    from repro_torch.serving import serve_loop
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sparse import tape
+    t_phase = time.perf_counter()
+    counters = {"K1": bsk.bitmap_spgemm_planned,
+                "K2": bsk.bitmap_spgemm_kfused_planned,
+                "K3": gsk.grouped_spgemm_planned,
+                "K4": gsk.grouped_spgemm_kfused_planned}
+    prompts = traffic_d_prompts(torch, cfg)
+    n_tok = D_NEW * len(prompts)
+    runs = {}
+
+    def run(mode, pages=0):
+        c = dataclasses.replace(cfg, **ENGINE_MODES[mode])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = Engine(model, c, serve=ServeConfig(
+            slots=D_SLOTS, capacity=D_CAPACITY, pages=pages))
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        with tape.collect() as entries:
+            done, wall, times = serve_traffic_d(torch, eng, prompts)
+        launches = {kn: fn.launches for kn, fn in counters.items()}
+        what = f"engine: {mode}" + (f", {pages}-page pool" if pages else "")
+        st = check_engine_run(what, mode, eng, done, launches, bool(pages))
+        rows = tape.summarize(entries)
+        bad = [e for e in rows if e["executed_steps"] != e["sparse_steps"]]
+        if mode != "dense" and bad:
+            raise AssertionError(f"{what}: executed != counted at {bad[:3]}")
+        attn = {k: [e for e in rows if e["name"] == k]
+                for k in ("attn.score", "attn.value")}
+        if mode != "dense":
+            for k, es in attn.items():
+                if len(es) != N_LAYERS * st["decode_calls"]:
+                    raise AssertionError(f"{what}: {len(es)} {k} entries")
+        share = {k: sum(e["sparse_steps"] for e in es)
+                 / max(sum(e["dense_steps"] for e in es), 1)
+                 for k, es in attn.items() if es}
+        r = dict(eng=eng, done=done, st=st, wall=wall, times=times,
+                 launches=launches, share=share, build_ms=build_ms,
+                 peak=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"{what}: {n_tok / wall * 1e3:.2f} tokens/s (a path smoke with "
+            f"no throughput meaning: {wall:.0f} ms for {len(prompts)} "
+            f"requests x {D_NEW} tokens, stats tape on), "
+            f"{st['ticks']} ticks, {st['prefill_calls']} prefill calls "
+            f"(mean {statistics.mean(times['prefill']):.1f} ms a call, "
+            f"median {statistics.median(times['prefill']):.1f}), "
+            f"{st['decode_calls']} decode calls (tick median "
+            f"{statistics.median(times['decode']):.1f} ms), evictions "
+            f"{st['evictions']}, pool drained ({st['pages_total']} pages); "
+            f"launches { {k: v for k, v in launches.items() if v} }"
+            + ("; scheduled share of cache-block steps " + ", ".join(
+                f"{k} {v:.4f}" for k, v in share.items()) if share else "")
+            + f"; peak memory {r['peak']:.1f} GB; engine built in "
+            f"{build_ms:.0f} ms; {smi}")
+        return r
+
+    for mode in ENGINE_MODES:
+        r = runs[mode] = run(mode)
+        eng = r.pop("eng")
+        held = fill_slots(torch, eng, prompts)
+        if mode != "dense":
+            for src, got in held.items():
+                log(f"engine: {mode}: {src}: {got['n']} launches (the "
+                    f"packed prefill and the {D_SLOTS}-slot decode of the "
+                    f"tick admitting the {D_SLOTS} longest requests) held to "
+                    f"their plain walk, max |kernel - plain| "
+                    f"{got['err']:.3e}; (stage, E, M, least..most steps a "
+                    f"problem): " + ", ".join(
+                        f"({st}, {e}, {m}, {lo}..{hi})"
+                        for st, e, m, lo, hi in sorted(got["shapes"])))
+            qpos, want, got = slot_schedule_check(torch, eng)
+            log(f"engine: {mode}: the next tick's per-slot schedules: "
+                + "; ".join(f"{k} schedules {got[k]} steps a layer = the "
+                            f"slots' own blocks {want[k]}"
+                            for k in want)
+                + f" (query positions {qpos})")
+        t = tick_split(torch, eng)
+        log(f"engine: {mode}: one decode tick, {D_SLOTS} slots busy, "
+            f"{t['total']:.2f} ms = paged_read gather {t['paged_read']:.2f} "
+            f"+ planning {t['planning']:.2f} + K1/K2 {t['K1/K2']:.2f} + "
+            f"K3/K4 {t['K3/K4']:.2f} + the rest {t['rest']:.2f} (CUDA "
+            f"events, synchronized around each part; medians of 5 ticks); "
+            f"{smi}")
+        runs[mode]["split"] = t
+
+    # references: generate at batch 1 for the dense engine, the dense
+    # engine's streams (their batch-1 logits) for the sparse ones
+    dense_c = dataclasses.replace(cfg, **ENGINE_MODES["dense"])
+    ref, gen_toks = {}, {}
+    for uid, p in enumerate(prompts):
+        gen_toks[uid] = serve_loop.generate(
+            model, {"tokens": torch.tensor([p], device="cuda")}, dense_c,
+            max_new_tokens=D_NEW, capacity=D_CAPACITY).cpu()
+        toks, steps = batch1_stream(torch, model, dense_c, p)
+        if not torch.equal(toks, gen_toks[uid]):
+            raise AssertionError(f"request {uid}: stepwise != generate")
+        ref[uid] = steps
+    tol = SERVE_RTOL * max(s[0].abs().max().item() for s in ref.values())
+
+    def parting(mode, base_name, base_toks, base_steps):
+        notes = []
+        for uid, req in runs[mode]["done"].items():
+            got = torch.tensor([req.output], dtype=torch.int32)
+            (note,) = parting_report(torch, f"engine {mode} request {uid}",
+                                     got, base_toks[uid], base_steps[uid],
+                                     tol)
+            notes.append(f"request {uid} " + note.split(": ", 1)[1])
+        log(f"engine: {mode} tokens against {base_name}: " + "; ".join(notes)
+            + f" (parting allowed where the reference's top-2 logits are "
+            f"within {tol:.4f} = {SERVE_RTOL} x {tol / SERVE_RTOL:.2f})")
+    parting("dense", "generate at batch 1", gen_toks, ref)
+    dense_toks = {uid: torch.tensor([r.output], dtype=torch.int32)
+                  for uid, r in runs["dense"]["done"].items()}
+    dense_steps = {
+        uid: ref[uid] if torch.equal(dense_toks[uid], gen_toks[uid])
+        else batch1_stream(torch, model, dense_c, prompts[uid],
+                           force=runs["dense"]["done"][uid].output)[1]
+        for uid in dense_toks}
+    for mode in ("dual", "dual+kc"):
+        parting(mode, "the dense engine", dense_toks, dense_steps)
+    del ref, dense_steps
+
+    # profile_sparsity: executed == counted
+    for mode in ("dual", "dual+kc"):
+        c = dataclasses.replace(cfg, **ENGINE_MODES[mode])
+        eng = Engine(model, c, serve=ServeConfig(slots=D_SLOTS,
+                                                 capacity=D_CAPACITY))
+        short = min(D_PROMPT_LENS)
+        rows = eng.profile_sparsity([p[:short] for p in prompts[:D_SLOTS]],
+                                    decode_steps=2)
+        del eng
+        steps = [e for e in rows if "executed_steps" in e]
+        bad = [e for e in steps if e["executed_steps"] != e["sparse_steps"]]
+        if bad:
+            raise AssertionError(f"engine {mode} profile: executed != "
+                                 f"counted at {bad[:3]}")
+        for k in ("attn.score", "attn.value"):
+            n = sum(e["name"] == k for e in rows)
+            if n != 2 * N_LAYERS:
+                raise AssertionError(f"engine {mode} profile: {n} {k} "
+                                     f"entries")
+        occ = [e for e in rows if e["name"].startswith("kvcache.")]
+        log(f"engine: {mode}: profile_sparsity over {D_SLOTS} rows of "
+            f"{short} tokens + 2 decodes: {len(steps)} dispatch entries, "
+            f"executed == counted in each; occupancy "
+            + ", ".join(f"{e['name']} {e['written_frac']:.4f}" for e in occ))
+
+    # the pressure run: dual on a pool too small for the longest requests
+    r = run("dual", D_PRESSURE_PAGES)
+    r.pop("eng")
+    if not r["st"]["evictions"]:
+        raise AssertionError(f"engine: no eviction on a {D_PRESSURE_PAGES}-"
+                             f"page pool")
+    same = sum(r["done"][u].output == runs["dual"]["done"][u].output
+               for u in r["done"])
+    log(f"engine: pressure: dual on a {D_PRESSURE_PAGES}-page pool "
+        f"({D_PRESSURE_PAGES * 32} cache slots): evictions "
+        f"{r['st']['evictions']}, every budget met, pool drained; {same} of "
+        f"{len(prompts)} token streams equal the fully provisioned run's "
+        f"(recompute-preemption re-prefills prompt + output, so near-ties "
+        f"may part on bf16); {smi}")
+    for mode, r in runs.items():
+        log(f"time: engine {mode}: {n_tok / r['wall'] * 1e3:.2f} tokens/s "
+            f"(path smoke, {n_tok} tokens), "
+            f"decode tick median {statistics.median(r['times']['decode']):.1f}"
+            f" ms, prefill median "
+            f"{statistics.median(r['times']['prefill']):.1f} ms a call; {smi}")
+    log(f"engine: {time.perf_counter() - t_phase:.0f} s")
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2146,7 +2641,7 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
-    phase_device(torch)
+    smi = phase_device(torch)
     phase_build()
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
     err, totals = phase_kernels(torch, cfg)
@@ -2164,6 +2659,7 @@ def main() -> int:
     phase_pruned(torch, "traffic A", cfg, model, traffic_a_batch(torch, cfg),
                  NEW_TOKENS, {"dense": {}, "dual": {"K1": proj},
                               "dual+kc": {"K2": proj}})
+    phase_engine(torch, cfg, model, smi)
     del model
     torch.cuda.empty_cache()
     phase_attention_split(torch, cfg)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ServeConfig
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
@@ -29,5 +29,5 @@ def _ensure_loaded():
     from repro_torch.configs import nemotron_4_340b, whisper_base  # noqa: F401
 
 
-__all__ = ["ModelConfig", "RunConfig", "get_config", "register",
-           "smoke_config"]
+__all__ = ["ModelConfig", "RunConfig", "ServeConfig", "get_config",
+           "register", "smoke_config"]

@@ -115,3 +115,41 @@ class ModelConfig:
 class RunConfig:
     """Execution knobs this package reads."""
     act_dtype: str = "bfloat16"    # bfloat16 | float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Continuous-batching engine knobs (:mod:`repro_torch.serving`).
+
+    The engine decodes a fixed ``slots``-wide batch in one step; every
+    slot's KV history lives in pages of one shared physical pool
+    (``pages`` × ``page_size`` cache slots) indexed through a per-slot
+    block table, so freed pages recycle across requests and the pool may
+    be over-subscribed (``pages`` < ``slots`` × blocks-per-slot) with
+    preemption on exhaustion.
+    """
+    slots: int = 4
+    capacity: int = 256        # logical per-slot cache slots (rounded up
+                               # to a page multiple)
+    page_size: int = 0         # cache slots per page; 0 → sparse_block_t
+                               # (page occupancy ≡ the level-2 bitmap)
+    pages: int = 0             # physical pool pages; 0 → fully
+                               # provisioned (slots × capacity/page_size)
+    prefill_bucket: int = 0    # pad prompts up to a bucket multiple;
+                               # 0 → page_size (exact length for MoE
+                               # models — token-count-dependent expert
+                               # capacity makes padding non-neutral)
+    max_prefill_batch: int = 4  # same-bucket admissions packed into one
+                                # batched prefill call
+    policy: str = "fcfs"       # admission order: fcfs | cost (cheapest
+                               # estimated sparse compute first, from the
+                               # StepCounts tape)
+    eos_id: int = -1
+    # robustness knobs
+    alloc_retries: int = 3     # bounded reclaim/evict attempts per page
+                               # allocation before the slot self-preempts
+    backoff_ticks: int = 2     # base requeue backoff after a failed
+                               # allocation (doubles per retry, capped)
+    watchdog_ticks: int = 200  # no-progress ticks before
+                               # run_to_completion raises EngineStalled
+                               # with a health snapshot; 0 disables

@@ -6,8 +6,9 @@ group dim), and the softmax runs in float32.  ``Attention.forward`` is the
 JAX package's ``attention_forward`` (no qkv bias, no int8 cache); its
 KV-chunked long-context path (``chunk``) is not ported — this
 :func:`attend` is the single-block path, the same function up to rounding.
-Decode over a :class:`~repro_torch.sparse.kvcache.SparseKVCache` in a
-sparse mode runs :func:`attend_sparse`.
+Decode over a :class:`~repro_torch.sparse.kvcache.SparseKVCache`, or
+over the serving engine's paged pool, in a sparse mode runs
+:func:`attend_sparse`.
 """
 from __future__ import annotations
 
@@ -36,20 +37,23 @@ def _rope_angles(positions: torch.Tensor, dim: int, theta: float
     exps = torch.arange(0, dim, 2, dtype=torch.float32,
                         device=positions.device) / dim
     freqs = 1.0 / (theta ** exps)
-    ang = positions.to(torch.float32)[..., None] * freqs   # (S, dim/2)
+    ang = positions.to(torch.float32)[..., None] * freqs   # (..., dim/2)
     return torch.cos(ang), torch.sin(ang)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, style: str,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (S,) absolute token positions."""
+    """x: (B, S, H, hd); positions: (S,) shared or (B, S) per-row
+    absolute token positions (the multi-slot batched decode)."""
     if style == "none":
         return x
     hd = x.shape[-1]
     rot = hd if style == "half" else hd // 2   # chatglm "2d": half the dims
-    cos, sin = _rope_angles(positions, rot, theta)
-    cos = cos[None, :, None, :].to(x.dtype)
-    sin = sin[None, :, None, :].to(x.dtype)
+    cos, sin = _rope_angles(positions, rot, theta)   # (S|B,S, rot/2)
+    if positions.ndim == 1:
+        cos, sin = cos[None], sin[None]
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
     xr, xp = x[..., :rot], x[..., rot:]
     x1, x2 = xr.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -64,18 +68,21 @@ def _attend_block(q, k, v, qpos, kpos, window):
     """Unnormalised attention over one KV block.
 
     q: (B, Sq, KV, G, hd); k/v: (B, Skv, KV, hd); qpos (Sq,) / kpos (Skv,)
-    absolute positions (-1 = invalid slot).  Returns (acc (B,Sq,KV,G,hd)
-    f32, row max m, row sumexp l), the last two (B, Sq, KV, G).
+    absolute positions (-1 = invalid slot), each optionally batched with a
+    (B, ·) leading dim (the per-slot serving decode).  Returns (acc
+    (B,Sq,KV,G,hd) f32, row max m, row sumexp l), the last two (B, Sq, KV,
+    G).
     """
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
                           k.to(torch.float32))
     scores = scores * (q.shape[-1] ** -0.5)
-    kp = kpos[None, :]
-    qp = qpos[:, None]
+    kp = kpos[..., None, :]
+    qp = qpos[..., :, None]
     valid = (kp >= 0) & (kp <= qp)
     if window is not None:
         valid &= kp > (qp - window)
-    vb = valid[None, None, None]                 # (1, 1, 1, Sq, Skv)
+    # (1|B, 1, 1, Sq, Skv)
+    vb = valid[:, None, None] if valid.ndim == 3 else valid[None, None, None]
     scores = torch.where(vb, scores, NEG_INF)
     m = scores.amax(-1)                          # (B, KV, G, Sq)
     e = torch.exp(scores - m[..., None])
@@ -97,11 +104,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def attend_sparse(q: torch.Tensor, cache: skvc.SparseKVCache,
-                  cfg: ModelConfig, *, qpos: torch.Tensor,
-                  kpos: torch.Tensor,
+def attend_sparse(q: torch.Tensor, cache, cfg: ModelConfig, *,
+                  qpos: torch.Tensor, kpos: torch.Tensor,
                   window: Optional[int] = None) -> torch.Tensor:
-    """Bitmap-scheduled decode attention over a ``SparseKVCache``.
+    """Bitmap-scheduled decode attention over a ``SparseKVCache`` or a
+    ``PagedSparseKVCache``.
 
     q: (B, 1, H, hd).  The masked-softmax GQA of :func:`attend`, with both
     products sent through the grouped dispatch as E = B·KV stacked
@@ -121,6 +128,11 @@ def attend_sparse(q: torch.Tensor, cache: skvc.SparseKVCache,
     is the float32 product of p and V; with the kernel on, K3/K4 read V as
     stored in bf16 and widen it in registers (no float32 copy of the
     cache), without it the dispatch casts V to float32 for one matmul.
+
+    A paged cache is read through its block tables first (the logical
+    per-slot view), and carries per-row positions: qpos (B, 1) and kpos
+    (B, T) give each slot its own (B, T) schedule, expanded over the slot's
+    KV heads to per-problem (E, T) metadata.
     """
     b, _, h, hd = q.shape
     t = cache.capacity
@@ -128,14 +140,24 @@ def attend_sparse(q: torch.Tensor, cache: skvc.SparseKVCache,
     g = h // kvh
     ne = b * kvh
 
-    kd, vd, _ = kvc.read(cache, dtype=q.dtype)
-    occ = skvc.occupancy_mask(cache)
+    if isinstance(cache, skvc.PagedSparseKVCache):
+        kd, vd = skvc.paged_read(cache, dtype=q.dtype)
+        occ = skvc.paged_occupancy_mask(cache)           # (B, T)
+    else:
+        kd, vd, _ = kvc.read(cache, dtype=q.dtype)
+        occ = skvc.occupancy_mask(cache)                 # (T,)
     k_e = kd.transpose(1, 2).reshape(ne, t, hd)
     v_e = vd.transpose(1, 2).reshape(ne, t, hd)
     q_e = q.reshape(b, kvh, g, hd).transpose(2, 3).reshape(ne, hd, g)
 
     # occupancy equals kpos >= 0, so the schedule is also the softmax mask
-    sched = pln.kv_decode_slots(occ, kpos, qpos[0], window)
+    sched = pln.kv_decode_slots(occ, kpos,
+                                qpos[0] if qpos.ndim == 1 else qpos, window)
+    if sched.ndim == 2:
+        sched_e = sched[:, None, :].expand(b, kvh, t).reshape(ne, t)
+        occ_e = occ[:, None, :].expand(b, kvh, t).reshape(ne, t)
+    else:
+        sched_e, occ_e = sched, occ
     # attn.score tiles slot rows at block_m, attn.value slices the slot
     # contraction at slice_k; both resolve before the operands are built,
     # which must carry metadata at the served tiles
@@ -146,12 +168,13 @@ def attend_sparse(q: torch.Tensor, cache: skvc.SparseKVCache,
     bt = pln.effective_slice_k(t, kw_v["slice_k"])
     sk_hd = pln.effective_slice_k(hd, kw_s["slice_k"])
 
-    x_k = skvc.score_operand(k_e, sched, sk_hd)
+    x_k = skvc.score_operand(k_e, sched_e, sk_hd)
     scores_t, _ = site.grouped_matmul(x_k, q_e, st_s, cfg, resolved=kw_s)
     scores = scores_t.reshape(b, kvh, t, g).transpose(2, 3)
     scores = scores[:, :, :, None, :] * (hd ** -0.5)     # (B,KV,G,1,T)
 
-    valid = sched[None, None, None, None, :]
+    valid = (sched[:, None, None, None, :] if sched.ndim == 2
+             else sched[None, None, None, None, :])      # (B|1,1,1,1,T)
     scores = torch.where(valid, scores, NEG_INF)
     m = scores.amax(-1)
     e = torch.exp(scores - m[..., None])
@@ -159,7 +182,7 @@ def attend_sparse(q: torch.Tensor, cache: skvc.SparseKVCache,
     l = e.sum(-1)                                        # (B,KV,G,1)
 
     p_e = e[:, :, :, 0, :].reshape(ne, g, t)
-    x_p, w_v = skvc.value_operands(occ, p_e, v_e, sched, bt)
+    x_p, w_v = skvc.value_operands(occ_e, p_e, v_e, sched_e, bt)
     acc_e, _ = site.grouped_matmul(x_p, w_v, st_v, cfg,
                                    resolved={**kw_v, "slice_k": bt})
 
@@ -225,8 +248,9 @@ class Attention(nn.Module):
         ``kv_source``, written to the cross cache when ``update_cache``
         (prefill); at decode (``kv_source=None``, ``update_cache=False``)
         it projects no K/V and reads the cache.  x: (B, S, D); positions:
-        (S,) absolute positions of x.  Returns (y (B, S, D), the updated
-        cache or None).
+        (S,) absolute positions of x, or (B, S) per row (the paged decode
+        over a :class:`~repro_torch.sparse.kvcache.PagedSparseKVCache`).
+        Returns (y (B, S, D), the updated cache or None).
         """
         if is_cross:
             causal = False
@@ -249,19 +273,28 @@ class Attention(nn.Module):
                 k = apply_rope(k, positions, cfg.rope_style, cfg.rope_theta)
         window = (cfg.sliding_window or None) if causal else None
         if cache is not None:
-            if update_cache and isinstance(cache, skvc.SparseKVCache):
+            paged = isinstance(cache, skvc.PagedSparseKVCache)
+            if update_cache and paged:
+                cache = skvc.paged_update(cache, k, v)
+            elif update_cache and isinstance(cache, skvc.SparseKVCache):
                 cache = skvc.update(cache, k, v)
             elif update_cache:
                 cache = kvc.update(cache, k, v)
             qpos = (positions if causal
                     else torch.full_like(positions, NOT_CAUSAL))
-            kpos = kvc.key_positions(cache)
-            if (isinstance(cache, skvc.SparseKVCache) and causal
+            kpos = (skvc.paged_key_positions(cache) if paged
+                    else kvc.key_positions(cache))
+            if ((paged or isinstance(cache, skvc.SparseKVCache)) and causal
                     and cfg.sparse_mode != "dense" and q.shape[1] == 1):
                 # bitmap-scheduled decode: both attention products go
                 # through the grouped dispatch
                 out = attend_sparse(q, cache, cfg, qpos=qpos, kpos=kpos,
                                     window=window)
+            elif paged:
+                # dense-mode paged decode: the logical per-slot view under
+                # the shared masked attend (per-row positions)
+                kd, vd = skvc.paged_read(cache, dtype=x.dtype)
+                out = attend(q, kd, vd, qpos=qpos, kpos=kpos, window=window)
             else:
                 kd, vd, _ = kvc.read(cache, dtype=x.dtype)
                 out = attend(q, kd, vd, qpos=qpos, kpos=kpos, window=window)

@@ -12,9 +12,11 @@ cache with the advanced cursor.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
+
+Cursor = Union[int, torch.Tensor]   # one shared cursor, or (B,) per row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,27 +67,39 @@ def update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
     return dataclasses.replace(cache, pos=cache.pos + s)
 
 
-def written_slot_mask(pos: int, window: int, capacity: int, s: int,
+def written_slot_mask(pos: Cursor, window: int, capacity: int, s: int,
                       device=None) -> torch.Tensor:
     """(capacity,) bool: the slots an :func:`update` of ``s`` tokens at
-    ring cursor ``pos`` writes.  Closed form of its placement: only the
-    newest ``min(s, window)`` tokens survive, at slots
+    ring cursor ``pos`` writes; a (B,) tensor of per-row cursors (the
+    paged serving cache) gives (B, capacity).  Closed form of its
+    placement: only the newest ``min(s, window)`` tokens survive, at slots
     ``(pos + s - n + j) mod window``.  Ring metadata only; no buffer is
     read."""
+    pos, device = _cursor(pos, device)
     slots = torch.arange(capacity, device=device)
     n = min(s, window)
     start = (pos + s - n) % window
     return (slots < window) & (((slots - start) % window) < n)
 
 
-def key_positions_at(pos: int, window: int, capacity: int,
+def key_positions_at(pos: Cursor, window: int, capacity: int,
                      device=None) -> torch.Tensor:
     """Absolute token position held in each slot (-1 = empty): slot i
-    holds the newest p < pos with p ≡ i (mod window)."""
+    holds the newest p < pos with p ≡ i (mod window).  ``pos`` is an int,
+    or a (B,) tensor of per-row cursors, which gives (B, capacity)."""
+    pos, device = _cursor(pos, device)
     slots = torch.arange(capacity, device=device)
     last = pos - 1
     kpos = last - ((last - slots) % window)
     return torch.where((slots < window) & (kpos >= 0) & (pos > 0), kpos, -1)
+
+
+def _cursor(pos: Cursor, device):
+    """An int cursor as it is; a (B,) cursor tensor as (B, 1), on its own
+    device, to broadcast against the slot axis."""
+    if isinstance(pos, torch.Tensor):
+        return pos[..., None], pos.device
+    return pos, device
 
 
 def key_positions(cache: KVCache) -> torch.Tensor:

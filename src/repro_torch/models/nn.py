@@ -51,17 +51,16 @@ def apply_norm(params: nn.ParameterDict, x: torch.Tensor, eps: float
 
 def sinusoidal_positions(positions: torch.Tensor, dim: int,
                          dtype=torch.float32) -> torch.Tensor:
-    """(S,) positions → (S, dim) sinusoidal embeddings: the JAX package's
-    float32 formula (sin on even, cos on odd features), evaluated at the
-    given positions instead of gathered from a 65536-row table, then cast
-    to ``dtype``."""
-    pos = positions.to(torch.float32)[:, None]
+    """(...) positions → (..., dim) sinusoidal embeddings: the JAX
+    package's float32 formula (sin on even, cos on odd features),
+    evaluated at the given positions instead of gathered from a 65536-row
+    table, then cast to ``dtype``."""
+    pos = positions.to(torch.float32)[..., None]
     div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
                                  device=positions.device)
                     * (-math.log(10000.0) / dim))
-    pe = torch.zeros(positions.shape[0], dim, dtype=torch.float32,
+    pe = torch.zeros(*positions.shape, dim, dtype=torch.float32,
                      device=positions.device)
-    pe[:, 0::2] = torch.sin(pos * div)
-    pe[:, 1::2] = torch.cos(pos * div)
+    pe[..., 0::2] = torch.sin(pos * div)
+    pe[..., 1::2] = torch.cos(pos * div)
     return pe.to(dtype)
-

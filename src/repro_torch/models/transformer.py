@@ -158,7 +158,8 @@ class Transformer(nn.Module):
         """batch: {"tokens": (B, S)}, plus "mel" (B, T, n_mels) for an
         encoder-decoder at prefill; decode passes S == 1, the caches and
         the position of the new token (and no mel: the memory's K/V are
-        in the cross caches).  ``weight_plans`` are cached weight
+        in the cross caches), or (B, 1) positions, one per row, over the
+        serving engine's paged caches.  ``weight_plans`` are cached weight
         activities from :func:`plan_weight_activities` (optional: without
         them the sparse modes plan the weights per call)."""
         tokens = batch["tokens"]
@@ -176,8 +177,9 @@ class Transformer(nn.Module):
                 raise ValueError(f"{cfg.name}: forward needs batch['mel'] "
                                  "or filled cross caches")
         if cfg.abs_positions:
-            x = x + sinusoidal_positions(positions, cfg.d_model,
-                                         x.dtype)[None]
+            # (B, S) positions (the multi-slot batched decode) per row
+            pe = sinusoidal_positions(positions, cfg.d_model, x.dtype)
+            x = x + (pe if positions.ndim == 2 else pe[None])
         layer_plans = (weight_plans["layers"] if weight_plans
                        else [None] * len(self.layers))
         new_caches = [] if caches is not None else None
@@ -259,27 +261,35 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
 
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
-                dtype=torch.bfloat16, device=None) -> List[Any]:
+                dtype=torch.bfloat16, sparse: Optional[bool] = None,
+                full_history: bool = False, device=None) -> List[Any]:
     """One cache per decoder layer, bf16 whatever the activation dtype, as
     in the JAX package.
 
-    ``cfg.sparse_kv`` in a non-dense sparse mode allocates
-    :class:`~repro_torch.sparse.kvcache.SparseKVCache` s of the full
-    ``capacity`` with no ring (``window=capacity``): a sliding window is
-    applied as the attention mask instead, and the blocks it hides are
+    ``sparse`` (default: ``cfg.sparse_kv`` in a non-dense sparse mode)
+    allocates :class:`~repro_torch.sparse.kvcache.SparseKVCache` s of the
+    full ``capacity`` with no ring (``window=capacity``): a sliding window
+    is applied as the attention mask instead, and the blocks it hides are
     what the decode schedule skips.  Plain caches of a sliding-window
-    model keep ``window`` ring slots.  An encoder-decoder's layers hold
+    model keep ``window`` ring slots, unless ``full_history``: then every
+    cache holds all ``capacity`` slots with no wrap (token i in slot i),
+    the layout the serving engine's prefill caches need so that
+    ``insert_prefill`` can lift contiguous rows into pool pages.  An
+    encoder-decoder's layers hold
     :class:`~repro_torch.models.cache.EncDecCache` s, each with a cross
     cache of ``encoder_len`` slots.
     """
     dev = devmod.resolve(device)
+    if sparse is None:
+        sparse = cfg.sparse_kv and cfg.sparse_mode != "dense"
 
     def self_cache():
-        if cfg.sparse_kv and cfg.sparse_mode != "dense":
+        if sparse:
             return skvc.init_sparse_cache(
                 batch, capacity, cfg.n_kv_heads, cfg.hd, dtype=dtype,
                 window=capacity, block_t=cfg.sparse_block_t, device=dev)
-        ring = min(cfg.sliding_window or capacity, capacity)
+        ring = (capacity if full_history
+                else min(cfg.sliding_window or capacity, capacity))
         return kvc.init_cache(batch, ring, cfg.n_kv_heads, cfg.hd,
                               dtype=dtype, window=ring, device=dev)
 
@@ -290,4 +300,23 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
                 cross_kv=kvc.init_cache(batch, cfg.encoder_len,
                                         cfg.n_kv_heads, cfg.hd, dtype=dtype,
                                         device=dev))
+            for _ in range(cfg.n_layers)]
+
+
+def init_paged_caches(cfg: ModelConfig, slots: int, pages: int,
+                      page_size: int, capacity: int, *,
+                      dtype=torch.bfloat16, device=None) -> List[Any]:
+    """The continuous-batching engine's decode caches: one
+    :class:`~repro_torch.sparse.kvcache.PagedSparseKVCache` per decoder
+    layer, each its own page pool of ``pages`` pages with per-slot block
+    tables.  Encoder-decoder stacks are not paged (their memory K/V are
+    per request and fixed in size): they raise ``ValueError``, as in the
+    JAX package."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            "paged serving supports decoder-only self-attention stacks")
+    dev = devmod.resolve(device)
+    return [skvc.init_paged_cache(slots, pages, page_size, capacity,
+                                  cfg.n_kv_heads, cfg.hd, dtype=dtype,
+                                  device=dev)
             for _ in range(cfg.n_layers)]

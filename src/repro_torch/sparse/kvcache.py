@@ -30,7 +30,7 @@ row: all rows share the cursor.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -164,3 +164,204 @@ def value_operands(occ_slots: torch.Tensor, p: torch.Tensor,
     w = PlannedWeight(w=v_e, slice_act=w_act, slice_k=block_t)
     p_mask = sched_slots[:, None, :].expand(p.shape)
     return sparsify(p, mask=p_mask, slice_k=block_t), w
+
+
+# ---------------------------------------------------------------------------
+# the paged pool (the continuous-batching engine's decode state)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PagedSparseKVCache:
+    """One layer's multi-slot KV cache: a physical page pool plus per-slot
+    block tables.
+
+    Every serving slot sees a *logical* cache of ``capacity`` slots; the
+    K/V live in pages of ``page_size`` cache slots drawn from one pool
+    shared by the slots and indexed through ``table``.  The page size is
+    the occupancy block size (``ModelConfig.sparse_block_t`` by default),
+    so a page's occupied count in ``blk`` is the decode schedule's block
+    entry, and a page freed by one request is a block its next owner's
+    occupancy re-covers (stale contents are never scheduled).
+
+    Physical page 0 is the *trash page*: every unmapped table entry (all
+    of an inactive slot's) points at it, so the batched decode write of
+    an idle slot lands somewhere harmless without per-slot control flow.
+    The allocator (:mod:`repro_torch.serving.scheduler`) hands out pages
+    1..P.  Unlike the JAX package's pool there are no scales (no int8 KV)
+    and no stacked layer axis.
+
+    k/v    : (P+1, page, KV, hd) physical pool, written in place
+    pos    : (B,) int32 tokens written per slot
+    window : logical ring size (== capacity: the engine retires a request
+             before its cache wraps and applies a model window as a mask)
+    table  : (B, NB) int32 physical page of each logical block
+    occ    : (B, ceil(capacity/32)) int32 packed per-slot occupancy
+    blk    : (B, NB) int32 occupied slots per logical block
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    window: int
+    table: torch.Tensor
+    occ: torch.Tensor
+    blk: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[-3]
+
+    @property
+    def n_pages(self) -> int:
+        """Allocatable pages (the trash page excluded)."""
+        return self.k.shape[0] - 1
+
+    @property
+    def n_slots(self) -> int:
+        return self.table.shape[0]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.table.shape[1]
+
+    @property
+    def capacity(self) -> int:
+        return self.n_blocks * self.page_size
+
+
+def init_paged_cache(slots: int, pages: int, page_size: int, capacity: int,
+                     n_kv: int, hd: int, *, dtype=torch.bfloat16,
+                     device=None) -> PagedSparseKVCache:
+    """Zero pool of ``pages`` usable pages plus the trash page, empty
+    tables (every block → page 0).  ``capacity`` must be a page multiple
+    (the engine rounds it up)."""
+    if capacity % page_size:
+        raise ValueError(f"capacity {capacity} is not a multiple of the "
+                         f"page size {page_size}")
+    nb = capacity // page_size
+    shape = (pages + 1, page_size, n_kv, hd)
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return PagedSparseKVCache(
+        k=zeros(*shape, dtype=dtype), v=zeros(*shape, dtype=dtype),
+        pos=zeros(slots), window=capacity, table=zeros(slots, nb),
+        occ=bm.pack_bits_padded(zeros(slots, capacity, dtype=torch.bool)),
+        blk=zeros(slots, nb))
+
+
+def paged_occupancy_mask(cache: PagedSparseKVCache) -> torch.Tensor:
+    """(B, capacity) bool per-slot occupancy from the packed bitmap."""
+    return bm.unpack_bits(cache.occ, axis=-1)[..., :cache.capacity]
+
+
+def paged_key_positions(cache: PagedSparseKVCache) -> torch.Tensor:
+    """(B, capacity) absolute position held in each logical slot (-1
+    empty)."""
+    return kvc.key_positions_at(cache.pos, cache.window, cache.capacity)
+
+
+def paged_view(cache: PagedSparseKVCache
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather the logical (B, capacity, KV, hd) K/V view of the pool
+    through the block tables.  Blocks mapped to the trash page read stale
+    values; every consumer masks by occupancy and visibility first."""
+    b, nb = cache.table.shape
+
+    def gather(pool):
+        return pool[cache.table].reshape(b, nb * cache.page_size,
+                                         *pool.shape[2:])
+    return gather(cache.k), gather(cache.v)
+
+
+def paged_read(cache: PagedSparseKVCache, dtype=torch.bfloat16
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The logical K/V view in ``dtype``: the block-table gather plus a
+    cast.  The JAX package multiplies its unquantised pool by float32
+    scales of one and rounds back, which is exact, so the values are the
+    same."""
+    k, v = paged_view(cache)
+    return k.to(dtype), v.to(dtype)
+
+
+def paged_update(cache: PagedSparseKVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor) -> PagedSparseKVCache:
+    """Batched single-token decode append across all slots, in place on
+    the pool.
+
+    k_new/v_new: (B, 1, KV, hd).  Each slot writes the page its table maps
+    its ring cursor to; a slot whose block is unmapped (an inactive slot,
+    or a cursor the host has not backed yet) writes the trash page, where
+    several such slots may write the same offset — a harmless race.
+    Occupancy follows the closed-form ring mask, per slot.
+    """
+    if k_new.shape[-3] != 1:
+        raise ValueError("paged caches take batched single-token appends")
+    page = cache.page_size
+    slot = cache.pos % cache.window                      # (B,)
+    lb = (slot // page).long()
+    off = (slot % page).long()
+    pp = cache.table.gather(1, lb[:, None])[:, 0].long()
+    cache.k[pp, off] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[pp, off] = v_new[:, 0].to(cache.v.dtype)
+    written = kvc.written_slot_mask(cache.pos, cache.window,
+                                    cache.capacity, 1)
+    occ_slots = paged_occupancy_mask(cache) | written
+    blk = _blocked(occ_slots, page).sum(-1, dtype=torch.int32)
+    return dataclasses.replace(cache, pos=cache.pos + 1,
+                               occ=bm.pack_bits_padded(occ_slots), blk=blk)
+
+
+def insert_prefill(cache: PagedSparseKVCache, pre: kvc.KVCache, row: int,
+                   slot: int, pages: Sequence[int],
+                   true_len: int) -> PagedSparseKVCache:
+    """Copy row ``row`` of a full-history contiguous prefill cache ``pre``
+    (B, Tc, KV, hd) into serving slot ``slot``, whose first ``len(pages)``
+    logical blocks the host backed with physical ``pages``; the pool is
+    written in place.
+
+    All ``len(pages) * page`` slots are copied, the padding past
+    ``true_len`` in the last page included (a shorter prefill is
+    zero-padded); that padding is never scheduled, because occupancy is
+    rebuilt from ``true_len``, never from values.
+    """
+    page = cache.page_size
+    nbr = len(pages)
+    need = nbr * page
+    idx = torch.as_tensor(pages, dtype=torch.long, device=cache.k.device)
+    for pool, src in ((cache.k, pre.k), (cache.v, pre.v)):
+        r = src[row, :need]
+        if r.shape[0] < need:
+            r = torch.nn.functional.pad(r, (0, 0, 0, 0, 0, need - r.shape[0]))
+        pool[idx] = r.reshape(nbr, page, *src.shape[-2:]).to(pool.dtype)
+    # a fresh slot at cursor 0 with window == capacity: the ring mask is
+    # the first true_len slots
+    occ_row = torch.arange(cache.capacity, device=cache.occ.device) < true_len
+    occ, pos, blk = cache.occ.clone(), cache.pos.clone(), cache.blk.clone()
+    occ[slot] = bm.pack_bits_padded(occ_row)
+    pos[slot] = true_len
+    blk[slot] = _blocked(occ_row, page).sum(-1, dtype=torch.int32)
+    return dataclasses.replace(cache, pos=pos, occ=occ, blk=blk)
+
+
+def paged_occupancy_report(cache: PagedSparseKVCache,
+                           mask_window: Optional[int] = None) -> dict:
+    """Per-slot occupancy and pool mapping (host-side): the metrics of
+    :func:`occupancy_report` per serving slot as lists, plus how many
+    logical blocks are backed by real pages."""
+    pos = [float(p) for p in cache.pos.tolist()]
+    ring = [min(p, cache.window) for p in pos]
+    live = [min(p, r if mask_window is None else min(r, mask_window))
+            for p, r in zip(pos, ring)]
+    occ = cache.blk.sum(-1).tolist()
+    return {
+        "written_frac": [o / cache.capacity for o in occ],
+        "evicted_frac": [max(p - lv, 0.0) / max(p, 1.0)
+                         for p, lv in zip(pos, live)],
+        "live_slots": live,
+        "mapped_blocks": [float(m)
+                          for m in (cache.table > 0).sum(-1).tolist()],
+        "capacity": cache.capacity,
+        "block_t": cache.page_size,
+        "n_blocks": cache.n_blocks,
+        "n_pages": cache.n_pages,
+    }

@@ -23,7 +23,7 @@ repeat-last tails, int32 — so that they compare with it bit for bit.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -267,6 +267,24 @@ def plan_kv_decode(occ_slots: torch.Tensor, kpos: torch.Tensor, qpos,
     blocks = slot_block_reduce(slots, block_t)
     idx, count = front_pack(blocks)
     return KVDecodePlan(slots=slots, blocks=blocks, idx=idx, count=count)
+
+
+def kv_blocks_reclaimable(pos: int, window: Optional[int], block_t: int,
+                          n_blocks: int) -> List[bool]:
+    """Which cache blocks no future query can attend (host-side): the
+    paged engine's page-reclaim predicate.
+
+    In a full-history cache (logical slot i holds token i), block b spans
+    slots [b·block_t, (b+1)·block_t); once its last slot falls out of the
+    sliding window of the current cursor, ``(b+1)·block_t - 1 <= pos -
+    window``, it is out for every later query too (the window only moves
+    forward), and the decode schedule already skips it.  All False
+    without a window.
+    """
+    if not window:
+        return [False] * n_blocks
+    horizon = pos - window  # slots <= horizon are invisible forever
+    return [(b + 1) * block_t - 1 <= horizon for b in range(n_blocks)]
 
 
 # ---------------------------------------------------------------------------

@@ -553,3 +553,39 @@ def test_whisper_generate_matches_cpu(cuda):
                 k67.sparse_im2col_strided.launches) == (
                     before[0] + 2, before[1] + 1, before[2] + 1)
         assert torch.equal(want, got.cpu())
+
+
+@pytest.mark.parametrize("kc", [False, True])
+def test_engine_matches_cpu(cuda, kc):
+    """The smoke model behind the paged engine on the card (K1 + K3, or
+    K2 + K4 with per-slot schedules) emits the CPU engine's tokens for
+    staggered requests, with one K3 (K4) launch per site, layer and decode
+    tick, and drains its pool."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.engine import Engine, Request
+    cfg = smoke_config("nemotron-4-340b")
+    c = dataclasses.replace(cfg, sparse_mode="dual", sparse_use_kernel=True,
+                            sparse_kcondense=kc, sparse_block_t=8)
+    prompts = [[5, 6, 7], [11, 3, 9, 2, 4, 1, 1, 2, 9], [8], [2] * 17]
+    grouped = (gsk.grouped_spgemm_kfused_planned if kc
+               else gsk.grouped_spgemm_planned)
+    outs, engines = [], []
+    for dev in ("cpu", cuda):
+        model = tfm.init_model(cfg, torch.Generator().manual_seed(0),
+                               device="cpu", dtype=torch.float32).to(dev)
+        eng = Engine(model, c, serve=ServeConfig(slots=3, capacity=40),
+                     rc=RunConfig(act_dtype="float32"), device=dev)
+        before = grouped.launches
+        done = []
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+            done.extend(eng.step())
+        done.extend(eng.run_to_completion())
+        outs.append({r.uid: r.output for r in done})
+        engines.append(eng)
+        if dev != "cpu":
+            assert grouped.launches == before + 2 * 2 * eng.decode_calls
+    assert outs[0] == outs[1]
+    assert engines[0].stats() == engines[1].stats()
+    st = engines[1].stats()
+    assert st["pages_free"] == st["pages_total"]
