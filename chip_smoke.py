@@ -102,6 +102,28 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    is met, the pool drains, and how many streams equal the fully
    provisioned run's.
 
+13. paper evaluation — the paper's own Fig. 21 / Fig. 22 workloads at
+   their published shapes (``configs/paper_models.py``), operands drawn
+   as the JAX package's benches draw them (numpy ``default_rng(0)``):
+   Fig. 21's OHMMA and block-skip step models over the 7 x 4 sparsity
+   grid at n = 1024 and Fig. 22's OHMMA models of all 22 layers, each
+   StepCounts integer equal to the JAX package's (tabled below); K1
+   through ``core.spgemm.spgemm`` and K2 through ``bitmap_spgemm_kfused``
+   at 4096 x 4096 x 4096 bf16 over the same grid and a block-structured
+   case: one launch each, executed steps equal to ``mxu_steps`` /
+   ``kcondensed_counts``, outputs within 2e-2 of ``spgemm_ref``, plain
+   walks at two points, device time beside ``torch.matmul`` and the
+   bound; the 14 CONV layers through ``sparse.conv.conv2d`` dense / dual /
+   dual+kc in float32 with exact launches (K5, K6, K1 or K2 once each),
+   scheduled steps equal to the JAX package's and outputs within 1e-4 of
+   ``F.conv2d``, the kernels held to their plain versions in float32 and
+   bf16 at VGG-16 conv1_2 and Mask R-CNN res2; each layer in bf16 (the
+   tensor-core route) within 2e-2 of ``F.conv2d`` on the same operands
+   in float32 and timed by part beside ``F.conv2d``; the stride-2
+   check through ``core.spconv.conv2d_dual_sparse`` (K7); the BERT-base
+   and RNN GEMM layers through ``core.layers`` in dense / weight / dual
+   (K1), agreeing within 1e-4.
+
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, it exits non-zero and prints no result.
@@ -346,15 +368,18 @@ def device_ms_by_kernel(torch, fn, reps=20):
     """Device time per call of each kernel ``fn`` launches, by name, from a
     ``torch.profiler`` (CUPTI) trace of ``reps`` calls: the card's own
     time, without the host's time in the wrapper, which CUDA events around
-    a call of a microsecond-scale kernel mostly measure.  None when two
-    traces hold no device event."""
+    a call of a microsecond-scale kernel mostly measure.  None when three
+    traces hold no device event: with the host's activity, with the
+    device's alone (late in a long run a trace of a kernel launched
+    through ctypes can come back empty with the host's activity on),
+    then with both again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for activities in (both, [ProfilerActivity.CUDA], both):
+        with profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -374,6 +399,21 @@ def device_ms(torch, fn, reps=20):
     return None if per is None else sum(per.values())
 
 
+def kernel_counters():
+    """Every kernel's wrapper by name (K1-K7), each counting the launches
+    of its kernel in ``launches``."""
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import grouped_spgemm as gsk
+    from repro_torch.kernels import sparse_im2col as k67
+    return {"K1": bsk.bitmap_spgemm_planned,
+            "K2": bsk.bitmap_spgemm_kfused_planned,
+            "K3": gsk.grouped_spgemm_planned,
+            "K4": gsk.grouped_spgemm_kfused_planned,
+            "K5": k5.bitmap_encode, "K6": k67.sparse_im2col,
+            "K7": k67.sparse_im2col_strided}
+
+
 def served_geometry(a, b):
     """The clamped (block_m, block_n, slice_k) of ``a @ b`` at the
     config's 128/128/128 knobs, as the dispatch resolves them."""
@@ -381,16 +421,6 @@ def served_geometry(a, b):
     bm, bn, sk = pln.clamp_geometry(a.shape[0], b.shape[1], a.shape[1],
                                     128, 128, 128)
     return dict(block_m=bm, block_n=bn, slice_k=sk)
-
-
-def plan_slices(a, b, geom):
-    """K1's schedule (ks, counts) of ``a @ b`` as the dispatch builds it
-    per call, from ``a != 0`` and ``w != 0``."""
-    from repro_torch.sparse import plan as pln
-    sk = geom["slice_k"]
-    col = pln.block_reduce_lhs(pln.slice_activity_lhs(a, sk), geom["block_m"])
-    row = pln.block_reduce_rhs(pln.slice_activity_rhs(b, sk), geom["block_n"])
-    return pln.plan_from_activity(col, row)
 
 
 def plan_gathers(a, b, geom):
@@ -402,8 +432,10 @@ def plan_gathers(a, b, geom):
 
 
 def plan_k1(a, b):
+    from repro_torch.kernels import bitmap_spgemm as bsk
     geom = served_geometry(a, b)
-    return (geom, *plan_slices(a, b, geom))
+    return (geom, *bsk.plan_slices(a, b, geom["block_m"], geom["block_n"],
+                                   geom["slice_k"]))
 
 
 def plan_k2(a, b):
@@ -637,7 +669,8 @@ def phase_kernels(torch, cfg):
         for dtype in ("bfloat16", "float32"):
             tdt = getattr(torch, dtype)
             a, b = a32.to(tdt), b32.to(tdt)
-            ks, counts = plan_slices(a, b, geom)
+            ks, counts = bsk.plan_slices(a, b, geom["block_m"],
+                                         geom["block_n"], geom["slice_k"])
             kp = plan_gathers(a, b, geom)
             if n > bn and not ((counts == 0).any() and (kp.counts == 0).any()):
                 raise AssertionError("split case lost its empty blocks")
@@ -1160,18 +1193,13 @@ def phase_serving(torch, cfg, model):
 def phase_serving_kv(torch, cfg, model):
     """Long allocated context, short live one: 2 prompts of 256 tokens in
     a 4096-slot cache, 16 new tokens, through ``generate``."""
-    from repro_torch.kernels import bitmap_spgemm as bsk
-    from repro_torch.kernels import grouped_spgemm as gsk
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import serve_loop
     from repro_torch.sparse import tape
     prompts = torch.randint(0, cfg.vocab_size, (KV_PROMPTS, KV_PROMPT_LEN),
                             generator=torch.Generator().manual_seed(3))
     batch = {"tokens": prompts.cuda()}
-    counters = {"K1": bsk.bitmap_spgemm_planned,
-                "K2": bsk.bitmap_spgemm_kfused_planned,
-                "K3": gsk.grouped_spgemm_planned,
-                "K4": gsk.grouped_spgemm_kfused_planned}
+    counters = kernel_counters()
     proj = 13 * KV_NEW_TOKENS              # K1/K2: 13 dispatches a forward
     grouped = 2 * KV_CALLS                 # K3/K4: 2 sites a layer and step
     expect = {"dual": {"K1": proj},
@@ -1436,13 +1464,7 @@ def conv_check(torch, x, kh, kw, stride, what):
     if not (torch.equal(ob, qb) and torch.equal(raw_bits(ov), raw_bits(qv))):
         raise AssertionError(f"{'K6' if stride == 1 else 'K7'} != plain at "
                              f"{what}")
-    e = x.element_size()
-    # K5 tests every element: x read whole, bits and cond written whole;
-    # K6/K7 read only the condensed rows' non-zeros, and the bitmaps, and
-    # write their whole outputs (the zero tails included)
-    k5_bytes = x.numel() * e * 2 + bits.numel() * 4
-    k67_bytes = (int(torch.count_nonzero(cond)) * e + bits.numel() * 4
-                 + ob.numel() * 4 + ov.numel() * e)
+    k5_bytes, k67_bytes = conv_kernel_bytes(torch, x, bits, cond, ob, ov)
     xn = xv.contiguous()
     return dict(
         routes=conv_routes(x, kh, kw, stride),
@@ -1453,6 +1475,18 @@ def conv_check(torch, x, kh, kw, stride, what):
                                                   stride=stride),
         k5_bytes=k5_bytes, k67_bytes=k67_bytes,
         zero_share=1.0 - int(torch.count_nonzero(ov)) / ov.numel())
+
+
+def conv_kernel_bytes(torch, x, bits, cond, ob, ov):
+    """The bytes K5 and K6/K7 must move on input x, K5's outputs (bits,
+    cond) and K6/K7's (ob, ov): K5 tests every element (x read whole, bits
+    and cond written whole); K6/K7 read only the condensed rows'
+    non-zeros and the bitmaps, and write their whole outputs (the zero
+    tails included)."""
+    e = x.element_size()
+    return (x.numel() * e * 2 + bits.numel() * 4,
+            int(torch.count_nonzero(cond)) * e + bits.numel() * 4
+            + ob.numel() * 4 + ov.numel() * e)
 
 
 def conv_routes(x, kh, kw, stride):
@@ -1639,11 +1673,7 @@ def phase_serving_whisper(torch, cfg):
     seed) through ``generate`` in dense, dual and dual+kc: exact launch
     counts, stem convs executing what they count, prefill logits and
     tokens against dense."""
-    from repro_torch.kernels import bitmap_encode as k5
-    from repro_torch.kernels import bitmap_spgemm as bsk
-    from repro_torch.kernels import grouped_spgemm as gsk
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import sparse_im2col as k67
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import serve_loop
     from repro_torch.sparse import tape
@@ -1657,12 +1687,7 @@ def phase_serving_whisper(torch, cfg):
         f"{n_params / 1e6:.1f} M bf16 parameters, made in "
         f"{time.perf_counter() - t0:.1f} s")
     batch = whisper_batch(torch, cfg)
-    counters = {"K1": bsk.bitmap_spgemm_planned,
-                "K2": bsk.bitmap_spgemm_kfused_planned,
-                "K3": gsk.grouped_spgemm_planned,
-                "K4": gsk.grouped_spgemm_kfused_planned,
-                "K5": k5.bitmap_encode, "K6": k67.sparse_im2col,
-                "K7": k67.sparse_im2col_strided}
+    counters = kernel_counters()
     n1 = whisper_k1_launches(cfg)
     conv = {"K5": 2, "K6": 1, "K7": 1}
     expect = {"dense": {}, "dual": {"K1": n1, **conv},
@@ -2026,15 +2051,9 @@ def phase_pruned(torch, what, cfg, model, batch, new, expect):
     MLP sites execute fewer steps than dense (mlp.up near half); pruned
     sparse prefill logits within the tolerance of pruned dense, tokens
     parting only where its top-2 logits are within it."""
-    from repro_torch.kernels import bitmap_encode as k5
-    from repro_torch.kernels import bitmap_spgemm as bsk
-    from repro_torch.kernels import sparse_im2col as k67
     from repro_torch.models import transformer as tfm
     from repro_torch.sparse import tape
-    counters = {"K1": bsk.bitmap_spgemm_planned,
-                "K2": bsk.bitmap_spgemm_kfused_planned,
-                "K5": k5.bitmap_encode, "K6": k67.sparse_im2col,
-                "K7": k67.sparse_im2col_strided}
+    counters = kernel_counters()
     b = batch["tokens"].shape[0]
     runs = {}
     t_phase = time.perf_counter()
@@ -2450,16 +2469,11 @@ def phase_engine(torch, cfg, model, smi):
     module docstring, phase 12.  ``smi`` is the card's name and power
     limit, printed beside every number."""
     from repro_torch.configs.base import ServeConfig
-    from repro_torch.kernels import bitmap_spgemm as bsk
-    from repro_torch.kernels import grouped_spgemm as gsk
     from repro_torch.serving import serve_loop
     from repro_torch.serving.engine import Engine
     from repro_torch.sparse import tape
     t_phase = time.perf_counter()
-    counters = {"K1": bsk.bitmap_spgemm_planned,
-                "K2": bsk.bitmap_spgemm_kfused_planned,
-                "K3": gsk.grouped_spgemm_planned,
-                "K4": gsk.grouped_spgemm_kfused_planned}
+    counters = kernel_counters()
     prompts = traffic_d_prompts(torch, cfg)
     n_tok = D_NEW * len(prompts)
     runs = {}
@@ -2627,6 +2641,706 @@ def phase_engine(torch, cfg, model, smi):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper's own evaluation (Fig. 21 / Fig. 22) at its shapes
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_spgemm.py::run: its A x B sparsity grid and size
+FIG21_A = (0.0, 0.25, 0.5, 0.75, 0.9, 0.99, 0.999)
+FIG21_B = (0.0, 0.5, 0.75, 0.99)
+FIG21_N = 1024
+# the paper's Fig. 21 SpGEMM for the kernels, bf16, at the blocks of
+# core.spgemm.spgemm (block_m, block_n, slice_k; block_k 256)
+FIG21_KERNEL_N = 4096
+SPGEMM_GEOM = dict(block_m=256, block_n=256, slice_k=128)
+# benchmarks/bench_models.py::run_conv's blocks (block_m, block_n, slice_k)
+CONV_BLOCKS = (64, 128, 128)
+# run_conv's three schedules: (mode, condense)
+CONV_MODES = {"dense": ("dense", None), "dual": ("dual", None),
+              "dual+kc": ("dual", "k")}
+CONV_LAUNCHES = {"dense": {}, "dual": {"K5": 1, "K6": 1, "K1": 1},
+                 "dual+kc": {"K5": 1, "K6": 1, "K2": 1}}
+# the full-size layers whose K5, K6, K1 and K2 are held to their plain
+# versions: the first layer (49284 rows) and the largest (64516)
+CONV_HELD = (("vgg16", "conv1_2"), ("mask_rcnn", "res2"))
+# The JAX package's step counts on the CPU for the same operands (the
+# benches' own code, unedited, numpy generator default_rng(0)), as
+# (dense, sparse, tiles skipped).  bench_spgemm.run at n = 1024, per
+# (A sparsity, B sparsity): (ohmma_steps, mxu_steps at 256/256/256/128)
+FIG21_REF = {
+    (0.0, 0.0): ((8388608, 8388608, 0), (128, 128, 0)),
+    (0.25, 0.0): ((8388608, 7188480, 0), (128, 128, 0)),
+    (0.5, 0.0): ((8388608, 5097728, 0), (128, 128, 0)),
+    (0.75, 0.0): ((8388608, 2951360, 96), (128, 128, 0)),
+    (0.9, 0.0): ((8388608, 2032704, 35488), (128, 128, 0)),
+    (0.99, 0.0): ((8388608, 570048, 763552), (128, 128, 0)),
+    (0.999, 0.0): ((8388608, 64064, 1016544), (128, 128, 0)),
+    (0.0, 0.5): ((8388608, 6009344, 0), (128, 128, 0)),
+    (0.25, 0.5): ((8388608, 5156363, 0), (128, 128, 0)),
+    (0.5, 0.5): ((8388608, 3650318, 0), (128, 128, 0)),
+    (0.75, 0.5): ((8388608, 2121214, 96), (128, 128, 0)),
+    (0.9, 0.5): ((8388608, 1453059, 36896), (128, 128, 0)),
+    (0.99, 0.5): ((8388608, 406651, 764896), (128, 128, 0)),
+    (0.999, 0.5): ((8388608, 48168, 1014976), (128, 128, 0)),
+    (0.0, 0.75): ((8388608, 4196352, 64), (128, 128, 0)),
+    (0.25, 0.75): ((8388608, 3600509, 64), (128, 128, 0)),
+    (0.5, 0.75): ((8388608, 2543125, 64), (128, 128, 0)),
+    (0.75, 0.75): ((8388608, 1480101, 224), (128, 128, 0)),
+    (0.9, 0.75): ((8388608, 1016820, 35806), (128, 128, 0)),
+    (0.99, 0.75): ((8388608, 291916, 756826), (128, 128, 0)),
+    (0.999, 0.75): ((8388608, 32536, 1016064), (128, 128, 0)),
+    (0.0, 0.99): ((8388608, 1160448, 758464), (128, 128, 0)),
+    (0.25, 0.99): ((8388608, 995491, 758464), (128, 128, 0)),
+    (0.5, 0.99): ((8388608, 704539, 758464), (128, 128, 0)),
+    (0.75, 0.99): ((8388608, 407501, 758490), (128, 128, 0)),
+    (0.9, 0.99): ((8388608, 280463, 769040), (128, 128, 0)),
+    (0.99, 0.99): ((8388608, 79652, 968924), (128, 128, 0)),
+    (0.999, 0.99): ((8388608, 9080, 1039496), (128, 128, 0)),
+}
+# bench_models.run per layer: (ohmma_steps, ohmma_steps_single_side)
+FIG22_REF = {
+    ("vgg16", "conv1_2"): ((14201856, 7082014, 74), (18432, 16352, 0)),
+    ("vgg16", "conv2_2"): ((13971456, 4354806, 412), (147456, 80144, 0)),
+    ("vgg16", "conv3_3"): ((13565952, 3350444, 2680), (1179648, 604832, 0)),
+    ("vgg16", "conv4_3"): ((12976128, 2684974, 17238),
+                           (9437184, 4742912, 16)),
+    ("vgg16", "conv5_3"): ((2949120, 515957, 1930), (9437184, 4720576, 288)),
+    ("resnet18", "layer1-1"): ((847872, 421561, 48), (18432, 13096, 0)),
+    ("resnet18", "layer2-1"): ((811008, 251691, 428), (147456, 80896, 0)),
+    ("resnet18", "layer3-1"): ((737280, 176470, 0), (1179648, 605568, 0)),
+    ("resnet18", "layer4-1"): ((589824, 122221, 49), (9437184, 4742208, 16)),
+    ("resnet18", "layer5-4"): ((589824, 115640, 3), (9437184, 4729024, 48)),
+    ("mask_rcnn", "res2"): ((18588672, 8538480, 32), (18432, 13128, 0)),
+    ("mask_rcnn", "res3"): ((18321408, 5733244, 388), (147456, 80912, 0)),
+    ("mask_rcnn", "res4"): ((17842176, 4233581, 3328),
+                            (1179648, 604832, 0)),
+    ("mask_rcnn", "fpn"): ((17842176, 5379385, 2528), (1179648, 723424, 0)),
+    ("bert_base", "attn.qkv"): ((5308416, 2562096, 23028),
+                                (5308416, 2562096, 23028)),
+    ("bert_base", "attn.out"): ((1769472, 822768, 15492),
+                                (1769472, 822768, 15492)),
+    ("bert_base", "ffn.in"): ((7077888, 3045600, 123336),
+                              (7077888, 3045600, 123336)),
+    ("bert_base", "ffn.out"): ((7077888, 3026460, 121812),
+                               (7077888, 3051696, 121812)),
+    ("rnn", "enc.l0"): ((4512000, 2175968, 20008), (4512000, 2175968, 20008)),
+    ("rnn", "enc.l1"): ((4512000, 1584074, 40000), (4512000, 2096000, 40000)),
+    ("rnn", "dec.l0"): ((4512000, 1538444, 55872), (4512000, 2032512, 55872)),
+    ("rnn", "dec.l3"): ((4512000, 1374079, 109984),
+                        (4512000, 1816064, 109984)),
+}
+# bench_models.run_conv (a fresh default_rng(0)): scheduled steps of
+# sparse.conv.conv2d dense / dual / dual+kc at CONV_BLOCKS; every mode's
+# dense count is the dense column, no tile is skipped
+CONV_REF = {
+    ("vgg16", "conv1_2"): (3855, 3855, 1542),
+    ("vgg16", "conv2_2"): (1710, 1710, 950),
+    ("vgg16", "conv3_3"): (1656, 1656, 644),
+    ("vgg16", "conv4_3"): (1584, 1584, 528),
+    ("vgg16", "conv5_3"): (432, 432, 108),
+    ("resnet18", "layer1-1"): (230, 230, 138),
+    ("resnet18", "layer2-1"): (99, 99, 55),
+    ("resnet18", "layer3-1"): (108, 108, 42),
+    ("resnet18", "layer4-1"): (144, 144, 40),
+    ("resnet18", "layer5-4"): (144, 144, 60),
+    ("mask_rcnn", "res2"): (5045, 5045, 3027),
+    ("mask_rcnn", "res3"): (2241, 2241, 1245),
+    ("mask_rcnn", "res4"): (2196, 2196, 732),
+    ("mask_rcnn", "fpn"): (2196, 2196, 976),
+}
+
+
+def step_ints(sc):
+    """A StepCounts as a tuple of Python ints."""
+    return tuple(int(v) for v in sc)
+
+
+def check_ints(what, got, ref):
+    """Raise unless every integer of ``got`` equals the JAX reference's."""
+    bad = [(key, got.get(key), want) for key, want in ref.items()
+           if got.get(key) != want]
+    if bad or set(got) != set(ref):
+        raise AssertionError(f"{what}: step counts differ from the JAX "
+                             f"package's at {bad[:4]} ({len(bad)} in all)")
+
+
+def bench_sparse(rng, shape, sparsity):
+    """``benchmarks/bench_utils.py::sparse``, drawing from ``rng`` in its
+    order: normal float32 values, each zeroed with probability
+    ``sparsity``."""
+    import numpy as np
+    x = rng.normal(size=shape).astype(np.float32)
+    x[rng.random(shape) < sparsity] = 0
+    return x
+
+
+def bench_kfiber_sparse(rng, shape, sparsity, axis=-1):
+    """``benchmarks/bench_utils.py::kfiber_sparse``, in its order: normal
+    float32 values with a random share of whole fibers along ``axis``
+    (the input channels) zeroed."""
+    import numpy as np
+    x = rng.normal(size=shape).astype(np.float32)
+    idx = [slice(None)] * len(shape)
+    idx[axis] = rng.random(shape[axis]) < sparsity
+    x[tuple(idx)] = 0
+    return x
+
+
+def magnitude_pruned(torch, w, sparsity, dev):
+    """numpy weights on ``dev``, times their ``core.pruning`` magnitude
+    mask at ``sparsity`` (as the benches prune)."""
+    from repro_torch.core import pruning
+    t = torch.from_numpy(w).to(dev)
+    return t * pruning.magnitude_mask(t, sparsity)
+
+
+def fig21_step_models(torch, dev, grid_a=FIG21_A, grid_b=FIG21_B,
+                      n=FIG21_N):
+    """``bench_spgemm.run``'s step models on ``dev``: for each B sparsity
+    B, then A at each A sparsity, from ``default_rng(0)``; returns
+    {(A sparsity, B sparsity): (ohmma_steps, mxu_steps) as ints}."""
+    import numpy as np
+    from repro_torch.core import stats
+    rng = np.random.default_rng(0)
+    out = {}
+    for sb in grid_b:
+        b = torch.from_numpy(bench_sparse(rng, (n, n), sb)).to(dev)
+        for sa in grid_a:
+            a = torch.from_numpy(bench_sparse(rng, (n, n), sa)).to(dev)
+            out[(sa, sb)] = (step_ints(stats.ohmma_steps(a, b)),
+                             step_ints(stats.mxu_steps(a, b, 256, 256, 256,
+                                                       128)))
+    return out
+
+
+def fig22_layers(conv_only=False):
+    """[(model, layer)] of ``configs/paper_models.py`` in ``MODELS`` order
+    (the CONV layers alone with ``conv_only``)."""
+    from repro_torch.configs import paper_models as pm
+    return [(model, layer) for model, ls in pm.MODELS.items()
+            for layer in ls
+            if not conv_only or isinstance(layer, pm.ConvLayer)]
+
+
+def fig22_operands(torch, dev, rng, layer):
+    """``bench_models.conv_operands`` / ``gemm_operands`` on ``dev``, in
+    their draw order: a CONV layer's (weights (F, KKC), lowered map L^T
+    (KKC, P)) and a GEMM layer's (activation (M, K), weights (K, N)),
+    magnitude-pruned weights."""
+    import numpy as np
+    from repro_torch.configs import paper_models as pm
+    from repro_torch.core import im2col as i2c
+    if isinstance(layer, pm.ConvLayer):
+        x = bench_sparse(rng, (layer.h, layer.w, layer.cin),
+                         layer.a_sparsity)
+        w = magnitude_pruned(torch, rng.normal(size=(
+            layer.k, layer.k, layer.cin, layer.cout)).astype(np.float32),
+            layer.w_sparsity, dev)
+        lt = i2c.im2col_outer(torch.from_numpy(x).to(dev), layer.k, layer.k,
+                              layer.stride)
+        return w.reshape(-1, layer.cout).T, lt
+    act = bench_sparse(rng, (layer.m, layer.k), layer.a_sparsity)
+    w = magnitude_pruned(torch, rng.normal(size=(layer.k, layer.n)).astype(
+        np.float32), layer.w_sparsity, dev)
+    return torch.from_numpy(act).to(dev), w
+
+
+def fig22_step_models(torch, dev, layers):
+    """``bench_models.run``'s models on ``dev``, from ``default_rng(0)``:
+    ({(model, layer): (ohmma_steps, ohmma_steps_single_side) as ints},
+    {(model, layer): a GEMM layer's (activation, weights)})."""
+    import numpy as np
+    from repro_torch.configs import paper_models as pm
+    from repro_torch.core import stats
+    rng = np.random.default_rng(0)
+    steps, gemms = {}, {}
+    for model, layer in layers:
+        a, b = fig22_operands(torch, dev, rng, layer)
+        gemm = isinstance(layer, pm.GemmLayer)
+        single = stats.ohmma_steps_single_side(b if gemm else a.T,
+                                               m=a.shape[0])
+        steps[(model, layer.name)] = (step_ints(stats.ohmma_steps(a, b)),
+                                      step_ints(single))
+        if gemm:
+            gemms[(model, layer.name)] = (a, b)
+    return steps, gemms
+
+
+def conv_inputs(torch, dev, rng, layer):
+    """``bench_models.run_conv``'s operands of one layer, in its draw
+    order: x (1, H, W, Cin) with dead input channels, w (k, k, Cin, Cout)
+    normal and magnitude-pruned."""
+    import numpy as np
+    x = bench_kfiber_sparse(rng, (1, layer.h, layer.w, layer.cin),
+                            layer.a_sparsity)
+    w = rng.normal(size=(layer.k, layer.k, layer.cin, layer.cout)).astype(
+        np.float32)
+    return (torch.from_numpy(x).to(dev),
+            magnitude_pruned(torch, w, layer.w_sparsity, dev))
+
+
+def conv_modes(torch, x, w, stride, blocks, counters):
+    """``run_conv``'s three schedules of one layer through
+    ``sparse.conv.conv2d``, the sparse modes on the kernels; each run with
+    ``counters`` (kernel wrappers) set to 0 just before it.  Returns
+    {mode: (y, StepCounts, tape rows, launches)}."""
+    from repro_torch.sparse import conv as spc
+    from repro_torch.sparse import tape
+    bm, bn, sk = blocks
+    out = {}
+    for mode, (base, condense) in CONV_MODES.items():
+        for fn in counters.values():
+            fn.launches = 0
+        with tape.collect() as entries:
+            y, sc = spc.conv2d(x, w, stride, mode=base, block_m=bm,
+                               block_n=bn, slice_k=sk,
+                               use_kernel=base != "dense",
+                               condense=condense, collect_stats=True)
+        out[mode] = (y, sc, tape_rows(tape, entries),
+                     {kn: fn.launches for kn, fn in counters.items()})
+    return out
+
+
+def host_ms(torch, fn, reps=3):
+    """Median host time of ``fn`` with the card synchronized on both
+    sides (planning: host work and small device ops)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# launches of phase 13's main-path runs, by kernel (each run checked exact)
+PAPER_LAUNCHES = {}
+
+
+def expect_launches(what, counters, got, want):
+    """Raise unless the launches ``got`` of one main-path run equal
+    ``want``; add them to :data:`PAPER_LAUNCHES`."""
+    want = {kn: want.get(kn, 0) for kn in counters}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    for kn, n in got.items():
+        PAPER_LAUNCHES[kn] = PAPER_LAUNCHES.get(kn, 0) + n
+
+
+def fig21_kernel_points(torch, n):
+    """Fig. 21's operands for the kernels, bf16 on the card, from a seed:
+    for each B sparsity of the grid, B, then A at each A sparsity; then
+    the block-structured case (A's first half of rows and B's second half
+    of columns empty)."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def draw(s):
+        x = torch.randn(n, n, device="cuda", generator=g)
+        x[torch.rand(n, n, device="cuda", generator=g) < s] = 0
+        return x.to(torch.bfloat16)
+    for sb in FIG21_B:
+        b = draw(sb)
+        for sa in FIG21_A:
+            yield f"A {sa:.1%} B {sb:.0%}", draw(sa), b
+    a, b = draw(0.0), draw(0.0)
+    a[: n // 2] = 0
+    b[:, n // 2:] = 0
+    yield "block-structured", a, b
+
+
+def fig21_kernels(torch, n=FIG21_KERNEL_N):
+    """K1 through ``core.spgemm.spgemm`` and K2 through
+    ``bitmap_spgemm_kfused`` at every Fig. 21 point at n x n x n (bf16):
+    exactly one launch each, K1's executed steps (its schedule's counts)
+    equal to ``mxu_steps``' sparse count, K2's to ``kcondensed_counts``,
+    outputs within 2e-2 x max|ref| of ``kernels.ref.spgemm_ref``; at the
+    dense and the block-structured points each held to its plain walk.
+    Logs planning, device times (the profiler's, and CUDA events around 5
+    calls) beside ``torch.matmul``, the bound and K2's skipped share."""
+    from repro_torch.core import spgemm as csp
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import ref
+    from repro_torch.sparse import plan as pln
+    counters = kernel_counters()
+    geom = SPGEMM_GEOM
+    bm, bn, sk = geom["block_m"], geom["block_n"], geom["slice_k"]
+    steps_dense = -(-n // bm) * -(-n // bn) * -(-n // sk)
+    mm_ms = mm_ev = None
+    for name, a, b in fig21_kernel_points(torch, n):
+        for fn in counters.values():
+            fn.launches = 0
+        res = csp.spgemm(a, b, block_m=bm, block_n=bn, block_k=256)
+        y2 = bsk.bitmap_spgemm_kfused(a, b, **geom)
+        torch.cuda.synchronize()
+        expect_launches(f"Fig. 21 {name}", counters,
+                        {kn: fn.launches for kn, fn in counters.items()},
+                        {"K1": 1, "K2": 1})
+        ks, counts = bsk.plan_slices(a, b, bm, bn, sk)
+        col = pln.element_activity_lhs(a, bm)
+        row = pln.element_activity_rhs(b, bn)
+        kp = pln.plan_kcondensed(col, row, sk)
+        k1_steps, k2_steps = int(counts.sum()), int(kp.counts.sum())
+        if k1_steps != int(res.steps.sparse):
+            raise AssertionError(f"Fig. 21 {name}: K1 executes {k1_steps} "
+                                 f"steps, mxu_steps counts "
+                                 f"{int(res.steps.sparse)}")
+        if k2_steps != int(pln.kcondensed_counts(col, row, sk).sum()):
+            raise AssertionError(f"Fig. 21 {name}: K2's schedule differs "
+                                 "from kcondensed_counts")
+        r = ref.spgemm_ref(a, b, out_dtype=torch.float32)
+        scale = r.abs().max().item()
+        errs = [(y.float() - r).abs().max().item() for y in (res.out, y2)]
+        if not max(errs) <= 2e-2 * max(scale, 1e-30):
+            raise AssertionError(f"Fig. 21 {name}: max |K1, K2 - ref| "
+                                 f"{errs} > 2e-2 x {scale:.3e}")
+        if name in ("A 0.0% B 0%", "block-structured"):
+            p1 = bsk.bitmap_spgemm_planned_plain(a, b, ks, counts, **geom)
+            p2 = bsk.bitmap_spgemm_kfused_planned_plain(a, b, kp.gk,
+                                                        kp.counts, **geom)
+            check_pair(torch, "K1", res.out, p1, "bfloat16", name)
+            check_pair(torch, "K2", y2, p2, "bfloat16", name)
+            log(f"paper: Fig. 21 {n}^3 {name}: K1 and K2 within 1e-2 of "
+                f"their plain walks, which take " + " / ".join(
+                    f"{cuda_ms(torch, fn, 1):.2f}" for fn in (
+                        lambda: bsk.bitmap_spgemm_planned_plain(
+                            a, b, ks, counts, **geom),
+                        lambda: bsk.bitmap_spgemm_kfused_planned_plain(
+                            a, b, kp.gk, kp.counts, **geom))) + " ms")
+        plan1 = host_ms(torch, lambda: bsk.plan_slices(a, b, bm, bn, sk))
+        plan2 = host_ms(torch, lambda: pln.plan_kcondensed(
+            pln.element_activity_lhs(a, bm), pln.element_activity_rhs(b, bn),
+            sk))
+        def k1():
+            return bsk.bitmap_spgemm_planned(a, b, ks, counts, **geom)
+
+        def k2():
+            return bsk.bitmap_spgemm_kfused_planned(a, b, kp.gk, kp.counts,
+                                                    **geom)
+        t1, t2 = device_ms(torch, k1, reps=5), device_ms(torch, k2, reps=5)
+        # and CUDA events around 5 calls back to back: at these
+        # millisecond kernels the host's launch hides behind the device
+        e1, e2 = (cuda_ms(torch, lambda: [k() for _ in range(5)], 3) / 5
+                  for k in (k1, k2))
+        if mm_ms is None:
+            mm_ms = device_ms(torch, lambda: a @ b, reps=5)
+            mm_ev = cuda_ms(torch, lambda: [a @ b for _ in range(5)], 3) / 5
+        bounds = []
+        for sched, c, kf in ((ks, counts, False), (kp, kp.counts, True)):
+            nb, fl, _ = needed_work(
+                torch, a[None], b[None], torch.bfloat16, geom,
+                type(sched)(*(t[None] for t in sched)) if kf else sched[None],
+                c[None], kf)
+            bounds.append(max(nb / HBM_BYTES_PER_S,
+                              fl / PEAK_FLOPS["bfloat16"]) * 1e3)
+        log(f"paper: Fig. 21 {n}^3 {name}: K1 {k1_steps} / K2 {k2_steps} "
+            f"of {steps_dense} steps (K2 skips "
+            f"{1 - k2_steps / steps_dense:.4f}); device K1 {fmt_ms(t1)} / "
+            f"K2 {fmt_ms(t2)} ms, torch.matmul {fmt_ms(mm_ms)}; events "
+            f"{e1:.4f} / {e2:.4f} / {mm_ev:.4f} ms; bounds "
+            f"{bounds[0]:.4f} / {bounds[1]:.4f} ms; planning {plan1:.2f} / "
+            f"{plan2:.2f} ms; max |y - ref| {errs[0]:.3e} / {errs[1]:.3e}")
+
+
+CONV_KERNELS = {"K5": ("encode_",), "K6": ("feature_runs_kernel",
+                                          "im2col_kernel"),
+                "K7": ("feature_rows_kernel", "lowered_rows_kernel"),
+                "K1/K2": K1K2_KERNELS}
+
+
+def conv_split(torch, x, w, stride, condense, sk):
+    """One dual (``condense=None``) or dual+kc conv in bf16 at
+    ``CONV_BLOCKS``, timed: CUDA events around the call, the device time
+    by kernel (K5, K6/K7, K1/K2 and the rest: the glue's and planning's
+    PyTorch ops), the dispatch's planning (synchronized), the lowering
+    glue alone (row-packed → flat bitmap → activation) and ``F.conv2d``
+    in bf16; the conv's bound from the bytes of x, w and y and the flops
+    of the schedule, and K5's and K6/K7's from the bytes each moves.
+    Returns (ms by part, the conv's output)."""
+    from repro_torch.core import im2col as i2c
+    from repro_torch.core import spconv
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparse_im2col as k67
+    from repro_torch.sparse import conv as spc
+    from repro_torch.sparse import dispatch as dsp
+    from repro_torch.sparse import plan as pln
+    bm, bn, _ = CONV_BLOCKS
+    kh, kw, _, f = w.shape
+    ow = i2c.out_size(x.shape[2], kw, stride)
+
+    def call():
+        return spc.conv2d(x, w, stride, mode="dual", block_m=bm,
+                          block_n=bn, slice_k=sk, use_kernel=True,
+                          condense=condense)
+    y, _ = call()
+    t = dict(total=cuda_ms(torch, call, 3))
+    per = device_ms_by_kernel(torch, call, reps=3) or {}
+    for part, names in CONV_KERNELS.items():
+        t[part] = sum(ms for k, ms in per.items()
+                      if any(nm in k for nm in names))
+    t["device_rest"] = sum(per.values()) - sum(t[p] for p in CONV_KERNELS)
+    t["planning"], _ = planning_ms(torch, call)
+    bits, cond = k5.bitmap_encode(x.permute(0, 3, 1, 2))
+    if stride == 1:
+        lowb, lowv = k67.sparse_im2col(cond, bits, kh=kh, kw=kw)
+    else:
+        lowb, lowv = k67.sparse_im2col_strided(cond, bits, kh=kh, kw=kw,
+                                               stride=stride)
+
+    t["K5 bound"], t["K6 bound"] = (
+        nb / HBM_BYTES_PER_S * 1e3
+        for nb in conv_kernel_bytes(torch, x, bits, cond, lowb, lowv))
+
+    def glue():
+        lb = kops.rowpacked_to_flat(lowb, lowv, ow, lowv.shape[-1])
+        a = spc.lowered_to_activation(lb, sk).flatten_leading()
+        return a, a.values.contiguous()
+    t["glue"] = cuda_ms(torch, glue, 3)
+    t["F.conv2d"] = cuda_ms(torch, lambda: spconv.conv2d_ref(x, w, stride),
+                            3)
+    t["F.conv2d device"] = device_ms(torch, lambda: spconv.conv2d_ref(
+        x, w, stride), reps=3)
+    act, av = glue()
+    w2 = w.reshape(-1, f)
+    m, k = av.shape
+    bm_, bn_, sk_ = pln.clamp_geometry(m, f, k, bm, bn, sk)
+    geom = dict(block_m=bm_, block_n=bn_, slice_k=sk_)
+    sched, counts = dsp.schedule(act, w2, mode="dual", condense=condense,
+                                 **geom)
+    kf = condense == "k"
+    _, fl, _ = needed_work(
+        torch, av[None], w2[None], x.dtype, geom,
+        type(sched)(*(s[None] for s in sched)) if kf else sched[None],
+        counts[None], kf)
+    nbytes = (x.numel() + w.numel() + m * f) * x.element_size()
+    t["bound"] = max(nbytes / HBM_BYTES_PER_S,
+                     fl / PEAK_FLOPS["bfloat16"]) * 1e3
+    return t, y
+
+
+def hold_conv_to_plain(torch, x, w, what):
+    """K5 and K6 bit-equal to their plain versions on x (``conv_check``),
+    then K1 and K2 on the lowered GEMM within ``RTOL`` of x's dtype x
+    max|plain|, at ``CONV_BLOCKS``."""
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.kernels import ops as kops
+    from repro_torch.sparse import conv as spc
+    from repro_torch.sparse import dispatch as dsp
+    from repro_torch.sparse import plan as pln
+    kh, kw, _, f = w.shape
+    dtype = str(x.dtype).removeprefix("torch.")
+    res = conv_check(torch, x, kh, kw, 1, what)
+    bm, bn, sk = CONV_BLOCKS
+    act = spc.lowered_to_activation(kops.sparse_im2col(x, kh, kw, 1),
+                                    sk).flatten_leading()
+    av, w2 = act.values.contiguous(), w.reshape(-1, f)
+    m, k = av.shape
+    bm, bn, sk = pln.clamp_geometry(m, f, k, bm, bn, sk)
+    geom = dict(block_m=bm, block_n=bn, slice_k=sk)
+    errs, plain_ms = [], []
+    for kern, plain, condense in (
+            (bsk.bitmap_spgemm_planned, bsk.bitmap_spgemm_planned_plain,
+             None),
+            (bsk.bitmap_spgemm_kfused_planned,
+             bsk.bitmap_spgemm_kfused_planned_plain, "k")):
+        sched, counts = dsp.schedule(act, w2, mode="dual",
+                                     condense=condense, **geom)
+        ks = sched.gk if condense else sched
+        errs.append(check_pair(
+            torch, "K2" if condense else "K1", kern(av, w2, ks, counts,
+                                                   **geom),
+            plain(av, w2, ks, counts, **geom), dtype, what))
+        plain_ms.append(cuda_ms(torch, lambda: plain(av, w2, ks, counts,
+                                                     **geom), 1))
+    k6_plain = cuda_ms(torch, res["k67_plain"], 1)
+    log(f"paper: {what}: K5 and K6 bit-equal to plain (K6's plain "
+        f"{k6_plain:.2f} ms); K1 / K2 against their plain walks at {m} x "
+        f"{k} @ {k} x {f}, blocks {bm}/{bn}/{sk}: max |kernel - plain| "
+        f"{errs[0]:.3e} / {errs[1]:.3e}, the walks {plain_ms[0]:.2f} / "
+        f"{plain_ms[1]:.2f} ms ({dtype})")
+
+
+def fig22_convs(torch, layers, blocks=CONV_BLOCKS):
+    """``bench_models.run_conv`` on the card: every layer of ``layers``
+    from one ``default_rng(0)`` in its order, dense / dual / dual+kc
+    through ``sparse.conv.conv2d`` with the kernels, float32.  Each run's
+    launches exact (dual: K5, K6, K1 once; dual+kc: K5, K6, K2 once), its
+    tape executing what it counts, its output within 1e-4 x max of
+    ``conv2d_ref`` (``F.conv2d``); the kernels of the layers in
+    :data:`CONV_HELD` held to their plain versions in float32 and in
+    bf16; then each layer in bf16 (the tensor-core route), timed by part
+    (:func:`conv_split`), its output within 2e-2 x max of ``conv2d_ref``
+    on the same bf16 operands taken to float32.  Then run_conv's own stride-2 check through
+    ``core.spconv.conv2d_dual_sparse`` (K5 → K7 → K1), from the same
+    generator.  Returns {(model, layer): scheduled steps dense / dual /
+    dual+kc}."""
+    import numpy as np
+    from repro_torch.configs import paper_models as pm
+    from repro_torch.core import spconv
+    from repro_torch.sparse import tape
+    counters = kernel_counters()
+    rng = np.random.default_rng(0)
+    steps = {}
+    for model, layer in layers:
+        x, w = conv_inputs(torch, "cuda", rng, layer)
+        what = f"{model} {layer.name}"
+        runs = conv_modes(torch, x, w, layer.stride, blocks, counters)
+        ref = spconv.conv2d_ref(x, w, layer.stride)
+        scale = ref.abs().max().item()
+        errs = {}
+        for mode, (y, sc, rows, launches) in runs.items():
+            expect_launches(f"{what} {mode}", counters, launches,
+                            CONV_LAUNCHES[mode])
+            if any(r[2] != r[3] for r in rows):
+                raise AssertionError(f"{what} {mode}: executed != counted: "
+                                     f"{rows}")
+            errs[mode] = (y - ref).abs().max().item()
+            if not errs[mode] <= 1e-4 * scale:
+                raise AssertionError(f"{what} {mode}: max |y - F.conv2d| "
+                                     f"{errs[mode]:.3e} > 1e-4 x {scale:.3e}")
+        steps[(model, layer.name)] = tuple(int(runs[m][1].sparse)
+                                           for m in CONV_MODES)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        if (model, layer.name) in CONV_HELD:
+            hold_conv_to_plain(torch, x, w, what)
+            hold_conv_to_plain(torch, xb, wb, what)
+        refb = spconv.conv2d_ref(xb.float(), wb.float(), layer.stride)
+        scaleb = refb.abs().max().item()
+        for mode in ("dual", "dual+kc"):
+            t, yb = conv_split(torch, xb, wb, layer.stride,
+                               CONV_MODES[mode][1], blocks[2])
+            errb = (yb.float() - refb).abs().max().item()
+            if not errb <= 2e-2 * scaleb:
+                raise AssertionError(f"{what} {mode} bf16: max |y - F.conv2d|"
+                                     f" {errb:.3e} > 2e-2 x {scaleb:.3e}")
+            kn = "K2" if mode == "dual+kc" else "K1"
+            log(f"paper: Fig. 22 conv {what} {mode}: steps "
+                f"{steps[(model, layer.name)]} (dense/dual/dual+kc), float32 "
+                f"max |y - F.conv2d| {errs[mode]:.2e}; bf16 "
+                f"max |y - F.conv2d| {errb:.2e} ({errb / scaleb:.1e} of "
+                f"max), {t['total']:.3f} ms "
+                f"(events) = device K5 "
+                f"{fmt_ms(t['K5'])} (bound {t['K5 bound']:.4f}) + K6 "
+                f"{fmt_ms(t['K6'])} (bound {t['K6 bound']:.4f}) + {kn} "
+                f"{fmt_ms(t['K1/K2'])} + other ops {fmt_ms(t['device_rest'])}"
+                f"; planning {t['planning']:.3f}, lowering glue "
+                f"{t['glue']:.3f} (events); F.conv2d bf16 "
+                f"{t['F.conv2d']:.3f} (device {fmt_ms(t['F.conv2d device'])})"
+                f"; bound {t['bound']:.4f} ms")
+    # run_conv's kernel check: stride 2, so K7
+    layer = pm.RESNET18[3]._replace(h=10, w=10, cin=8, cout=16, stride=2)
+    x = torch.from_numpy(bench_sparse(rng, (2, layer.h, layer.w, layer.cin),
+                                      layer.a_sparsity)).cuda()
+    w = magnitude_pruned(torch, rng.normal(size=(
+        layer.k, layer.k, layer.cin, layer.cout)).astype(np.float32),
+        layer.w_sparsity, "cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    with tape.collect() as entries:
+        res = spconv.conv2d_dual_sparse(x, w, layer.stride, block_m=16,
+                                        block_n=16, block_k=16,
+                                        use_kernel=True)
+    expect_launches("stride-2 check", counters,
+                    {kn: fn.launches for kn, fn in counters.items()},
+                    {"K5": 1, "K7": 1, "K1": 1})
+    [row] = tape_rows(tape, entries)
+    err = (res.out - spconv.conv2d_ref(x, w, layer.stride)).abs().max().item()
+    if row[2] != row[3] or not err <= 1e-4:
+        raise AssertionError(f"stride-2 check: executed {row[3]} vs counted "
+                             f"{row[2]}, max |y - conv2d_ref| {err:.3e}")
+    log(f"paper: run_conv's stride-2 check through conv2d_dual_sparse "
+        f"(2 x 10 x 10 x 8 -> 16, K5 -> K7 -> K1): executed == counted "
+        f"{row[3]} of {row[1]}, max |y - conv2d_ref| {err:.2e}")
+    return steps
+
+
+def fig22_gemms(torch, gemms):
+    """The Fig. 22 GEMM layers (BERT-base, RNN) through ``core.layers``:
+    the masked weights cached with ``plan_sparse_linear``, dense, weight
+    and dual (K1) in float32, agreeing within 1e-4 x max|dense|; dual
+    launches K1 once and executes what it counts.  Logs each mode's time
+    (CUDA events) beside ``torch.matmul``."""
+    from repro_torch.core import layers as cl
+    from repro_torch.sparse import tape
+    counters = kernel_counters()
+    for (model, name), (act, w) in gemms.items():
+        ys, line = {}, []
+        for mode in ("dense", "weight", "dual"):
+            cfg = cl.SparseLinearConfig(
+                in_features=w.shape[0], out_features=w.shape[1], mode=mode,
+                use_kernel=mode == "dual", collect_stats=True)
+            params = cl.plan_sparse_linear({"w": w, "mask": w != 0}, cfg)
+            for fn in counters.values():
+                fn.launches = 0
+            with tape.collect() as entries:
+                ys[mode], sc = cl.apply_sparse_linear(params, act, cfg)
+            expect_launches(f"{model} {name} {mode}", counters,
+                            {kn: fn.launches for kn, fn in counters.items()},
+                            {"K1": 1} if mode == "dual" else {})
+            [row] = tape_rows(tape, entries)
+            if mode == "dual" and row[2] != row[3]:
+                raise AssertionError(f"{model} {name}: executed != counted "
+                                     f"{row}")
+            ms = cuda_ms(torch, lambda: cl.apply_sparse_linear(params, act,
+                                                               cfg), 5)
+            line.append(f"{mode} {row[2]}/{row[1]} steps {ms:.3f} ms")
+        scale = ys["dense"].abs().max().item()
+        errs = [(ys[m] - ys["dense"]).abs().max().item()
+                for m in ("weight", "dual")]
+        if not max(errs) <= 1e-4 * scale:
+            raise AssertionError(f"{model} {name}: weight / dual against "
+                                 f"dense {errs} > 1e-4 x {scale:.3e}")
+        mm = cuda_ms(torch, lambda: act @ w, 5)
+        log(f"paper: Fig. 22 {model} {name} ({act.shape[0]} x {w.shape[0]} "
+            f"@ {w.shape[0]} x {w.shape[1]}, float32) through core.layers: "
+            + ", ".join(line) + f"; torch.matmul {mm:.3f} ms; max |y - "
+            f"dense| {errs[0]:.2e} / {errs[1]:.2e}")
+
+
+def phase_paper(torch):
+    """Phase 13: the paper's evaluation at its published shapes (see the
+    module docstring)."""
+    t0 = time.perf_counter()
+    got = fig21_step_models(torch, "cuda")
+    check_ints("Fig. 21 step models", got, FIG21_REF)
+    for sb in FIG21_B:
+        log(f"paper: Fig. 21 models at B {sb:.0%}, A "
+            + ", ".join(f"{sa:.1%}: OHMMA {oh[0] / max(oh[1], 1):.2f}x, "
+                        f"block-skip {mx[0] / max(mx[1], 1):.2f}x"
+                        for (sa, b_), (oh, mx) in got.items() if b_ == sb)
+            + " (step counts equal to the JAX package's)")
+    t1 = time.perf_counter()
+    fig21_kernels(torch)
+    t2 = time.perf_counter()
+    steps, gemms = fig22_step_models(torch, "cuda", fig22_layers())
+    check_ints("Fig. 22 step models", steps, FIG22_REF)
+    means = {}
+    for (model, name), (dual, single) in steps.items():
+        means.setdefault(model, []).append((dual[0] / max(dual[1], 1),
+                                            single[0] / max(single[1], 1)))
+    for model, sp in means.items():
+        log(f"paper: Fig. 22 {model}: dual / single "
+            + ", ".join(f"{d:.2f}/{s:.2f}" for d, s in sp)
+            + f"; mean {statistics.mean(d for d, _ in sp):.2f} / "
+            f"{statistics.mean(s for _, s in sp):.2f} (step counts equal to "
+            "the JAX package's)")
+    t3 = time.perf_counter()
+    conv_steps = fig22_convs(torch, fig22_layers(conv_only=True))
+    check_ints("Fig. 22 conv schedules", conv_steps, CONV_REF)
+    t4 = time.perf_counter()
+    fig22_gemms(torch, gemms)
+    del gemms
+    torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    log("paper: launches on the phase's main-path runs: " + ", ".join(
+        f"{kn} {n}" for kn, n in sorted(PAPER_LAUNCHES.items())))
+    log(f"paper: phase {t5 - t0:.1f} s (Fig. 21 models {t1 - t0:.1f}, "
+        f"kernels {t2 - t1:.1f}; Fig. 22 models {t3 - t2:.1f}, convs "
+        f"{t4 - t3:.1f}, GEMM layers {t5 - t4:.1f})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2671,6 +3385,8 @@ def main() -> int:
                  W_NEW, {"dense": {}, "dual": {"K1": n1, **conv},
                          "dual+kc": {"K2": n1, **conv}})
     del wmodel
+    torch.cuda.empty_cache()
+    phase_paper(torch)
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "

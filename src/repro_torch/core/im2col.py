@@ -1,11 +1,16 @@
-"""The bitmap implicit im2col's reference (paper §IV, Fig. 11).
+"""im2col variants (paper §IV): dense, outer-product-friendly, CSR and
+bitmap-sparse.
 
 Conventions as in the JAX package's ``core/im2col.py``: feature maps are
 NHWC; for a (KH, KW) kernel at stride S with VALID padding, lowered row
 ``k = (dy, dx, c)`` (``(dy·KW + dx)·C + c``) is channel c sampled at
-offset (dy, dx) over the P = OH·OW output positions.  The lowered map is
-carried as a :class:`LoweredBitmap` — packed bitmap, row-condensed values
-and counts — and never exists dense.  :func:`im2col_bitmap` is the plain
+offset (dy, dx) over the P = OH·OW output positions.
+:func:`im2col_dense` is the inner-product layout (P, KH·KW·C) and
+:func:`im2col_outer` its transpose L^T, the outer-product layout (paper
+Fig. 10b); :func:`im2col_csr` lowers through a CSR encoding, the
+comparison baseline of paper Table III.  The bitmap lowering is carried
+as a :class:`LoweredBitmap` — packed bitmap, row-condensed values and
+counts — and never exists dense.  :func:`im2col_bitmap` is the plain
 reference of the whole encode → im2col chain (the JAX package's
 ``im2col_bitmap``), over an optional leading image axis;
 :func:`lower_rows` is its lowering step, which the plain versions of the
@@ -13,7 +18,7 @@ im2col kernels K6/K7 share.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -23,6 +28,43 @@ from repro_torch.core import bitmap as bm
 def out_size(h: int, k: int, s: int) -> int:
     return (h - k) // s + 1
 
+
+# ---------------------------------------------------------------------------
+# dense im2col (inner- and outer-product layouts)
+# ---------------------------------------------------------------------------
+
+def extract_patches(x: torch.Tensor, kh: int, kw: int,
+                    stride: int) -> torch.Tensor:
+    """x (H, W, C) → patches (OH, OW, KH, KW, C), VALID padding."""
+    h, w, _ = x.shape
+    oh, ow = out_size(h, kh, stride), out_size(w, kw, stride)
+    ar = lambda n: torch.arange(n, device=x.device)  # noqa: E731
+    rows = ar(oh)[:, None] * stride + ar(kh)[None, :]
+    cols = ar(ow)[:, None] * stride + ar(kw)[None, :]
+    return x[rows[:, None, :, None], cols[None, :, None, :], :]
+
+
+def im2col_dense(x: torch.Tensor, kh: int, kw: int,
+                 stride: int) -> torch.Tensor:
+    """Inner-product layout of the lowered map: (P, KH·KW·C)."""
+    p = extract_patches(x, kh, kw, stride)
+    oh, ow, _, _, c = p.shape
+    return p.reshape(oh * ow, kh * kw * c)
+
+
+def im2col_outer(x: torch.Tensor, kh: int, kw: int,
+                 stride: int) -> torch.Tensor:
+    """Outer-product layout L^T (KH·KW·C, P): row (dy, dx, c) is channel c
+    sampled at offset (dy, dx) over every output position — the order the
+    column-at-a-time zig-zag of paper Fig. 10b lands rows in."""
+    p = extract_patches(x, kh, kw, stride)
+    oh, ow, _, _, c = p.shape
+    return p.permute(2, 3, 4, 0, 1).reshape(kh * kw * c, oh * ow)
+
+
+# ---------------------------------------------------------------------------
+# bitmap sparse im2col (paper Fig. 11)
+# ---------------------------------------------------------------------------
 
 class LoweredBitmap(NamedTuple):
     """Lowered feature map in condensed bitmap encoding.
@@ -90,3 +132,45 @@ def im2col_bitmap(x: torch.Tensor, kh: int, kw: int, stride: int
         bitmap=bm.pack_bits_padded(flat, axis=-1),
         values=vals.reshape(flat.shape),
         counts=flat.sum(-1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# CSR im2col (comparison baseline of paper Table III)
+# ---------------------------------------------------------------------------
+
+class CSRMatrix(NamedTuple):
+    data: torch.Tensor      # (R*C,) non-zeros first, zero tail
+    indices: torch.Tensor   # (R*C,) int32 column of each non-zero
+    indptr: torch.Tensor    # (R+1,) int32
+    shape: Tuple[int, int]
+
+
+def csr_encode(x: torch.Tensor) -> CSRMatrix:
+    """Dense (R, C) → CSR at capacity R·C (the JAX package's static
+    shapes): the non-zeros in row-major order, then a zero tail."""
+    r, c = x.shape
+    flat = x.reshape(-1)
+    nz = torch.nonzero(flat != 0).reshape(-1)
+    data = torch.zeros_like(flat)
+    data[:nz.numel()] = flat[nz]
+    indices = torch.zeros(r * c, dtype=torch.int32, device=x.device)
+    indices[:nz.numel()] = (nz % c).to(torch.int32)
+    indptr = torch.zeros(r + 1, dtype=torch.int32, device=x.device)
+    indptr[1:] = torch.cumsum((x != 0).sum(1), 0)
+    return CSRMatrix(data=data, indices=indices, indptr=indptr, shape=(r, c))
+
+
+def im2col_csr(x: torch.Tensor, kh: int, kw: int,
+               stride: int) -> torch.Tensor:
+    """CSR im2col: rebuild each row of x (H, W, C) through indptr/indices
+    (two data-dependent reads a non-zero, the cost Table III counts), then
+    lower; returns the dense L^T."""
+    h, w, c = x.shape
+    csr = csr_encode(x.reshape(h, w * c))
+    nnz = int(csr.indptr[-1])
+    rows = torch.searchsorted(
+        csr.indptr, torch.arange(nnz, dtype=torch.int32, device=x.device),
+        right=True) - 1
+    dense = torch.zeros((h, w * c), dtype=x.dtype, device=x.device)
+    dense[rows, csr.indices[:nnz].to(torch.int64)] = csr.data[:nnz]
+    return im2col_outer(dense.reshape(h, w, c), kh, kw, stride)

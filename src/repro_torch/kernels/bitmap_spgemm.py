@@ -25,6 +25,12 @@ split order.  float32 operands run on the SIMT kernel
 walk ``t < counts[i, j]`` only — skipped slices are bytes never read —
 and mask the edges instead of padding.
 
+:func:`bitmap_spgemm` and :func:`bitmap_spgemm_kfused` are the
+on-the-fly entries: they plan the schedule from the operands (the JAX
+package's ``plan_slices`` / element planning), then launch K1 / K2;
+:func:`bitmap_spgemm_kcondensed` is the dense :func:`kcondense` pre-pass
+before K1, the reference the fused K2 is held against.
+
 The wrapper takes ``device=None``, meaning the card.  For CPU tensors
 (``device="cpu"``) it runs the plain version; for CUDA tensors it launches
 the kernel or raises — there is no fallback.  ``launches`` on each wrapper
@@ -45,6 +51,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import device as devmod
 from repro_torch.kernels import build
+from repro_torch.sparse import plan as pln
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 # the kernel a call runs on, the first launch word
@@ -353,3 +360,97 @@ def bitmap_spgemm_kfused_planned(a: torch.Tensor, b: torch.Tensor,
 
 bitmap_spgemm_planned.launches = 0
 bitmap_spgemm_kfused_planned.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# on-the-fly entries: plan from the operands, then launch
+# ---------------------------------------------------------------------------
+
+def plan_slices(a: torch.Tensor, b: torch.Tensor, block_m: int,
+                block_n: int, slice_k: int = pln.SLICE_K
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's schedule of ``a (M, K) @ b (K, N)`` from the operands' non-zero
+    masks: (ks (Mt, Nt, S), counts (Mt, Nt)) int32, front-packed with a
+    repeat-last tail (:func:`repro_torch.sparse.plan.plan_operands`)."""
+    return pln.plan_operands(a, b, block_m, block_n, slice_k)
+
+
+def _on_the_fly(a, b, block_m, block_n, slice_k, device):
+    """Resolve the device, check the operands lie on it and clamp the
+    blocks: (device, (block_m, block_n, slice_k))."""
+    dev = devmod.resolve(device)
+    devmod.check_all_on(dev, a=a, b=b)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad operand shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    return dev, pln.clamp_geometry(a.shape[0], b.shape[1], a.shape[1],
+                                   block_m, block_n, slice_k)
+
+
+def bitmap_spgemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
+                  block_n: int = 256, block_k: int = 256,
+                  slice_k: int = pln.SLICE_K,
+                  out_dtype: Optional[torch.dtype] = None,
+                  device=None) -> torch.Tensor:
+    """Dual-side sparse ``a @ b`` with on-the-fly planning, then K1.
+
+    ``block_k`` is kept for the JAX signature (k-slices are the unit).
+    Blocks clamp to small problems by one rule on every device
+    (:func:`repro_torch.sparse.plan.clamp_geometry`), never below 8.  The
+    JAX entry keeps block_n at 128 or more when compiled for the TPU (its
+    lane width) and clamps to 8 only in interpret mode; the port does not
+    widen it: K1 masks its edges instead of padding to a lane width, so a
+    narrow block is legal on the card, and one rule keeps CPU and card
+    schedules equal to each other and to the JAX CPU schedules.
+    ``device=None`` means the card.
+    """
+    del block_k
+    dev, (bm, bn, sk) = _on_the_fly(a, b, block_m, block_n, slice_k,
+                                    device)
+    ks, counts = plan_slices(a, b, bm, bn, sk)
+    return bitmap_spgemm_planned(a.contiguous(), b.contiguous(), ks, counts,
+                                 block_m=bm, block_n=bn, slice_k=sk,
+                                 out_dtype=out_dtype, device=dev)
+
+
+def kcondense(a: torch.Tensor, b: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Condense the contraction at element granularity: k is active iff
+    column k of A and row k of B both hold a non-zero (the paper's
+    condensing AND, Fig. 4c); active k's are stably front-packed.
+    Returns (a_cond, b_cond, n_active); buffers keep capacity K, and the
+    product of the condensed operands is ``a @ b``.  A dense pre-pass (two
+    gathered copies), kept as the reference of the fused K2."""
+    act = (a != 0).any(0) & (b != 0).any(1)
+    order, nact = pln.stable_partition(act)
+    order = order.to(torch.int64)
+    return a[:, order], b[order], nact
+
+
+def bitmap_spgemm_kcondensed(a: torch.Tensor, b: torch.Tensor, *,
+                             block_m: int = 256, block_n: int = 256,
+                             slice_k: int = pln.SLICE_K,
+                             out_dtype: Optional[torch.dtype] = None,
+                             device=None) -> torch.Tensor:
+    """:func:`kcondense`, then :func:`bitmap_spgemm` (K1) on the condensed
+    operands."""
+    a_c, b_c, _ = kcondense(a, b)
+    return bitmap_spgemm(a_c, b_c, block_m=block_m, block_n=block_n,
+                         slice_k=slice_k, out_dtype=out_dtype, device=device)
+
+
+def bitmap_spgemm_kfused(a: torch.Tensor, b: torch.Tensor, *,
+                         block_m: int = 256, block_n: int = 256,
+                         slice_k: int = pln.SLICE_K,
+                         out_dtype: Optional[torch.dtype] = None,
+                         device=None) -> torch.Tensor:
+    """Fused-K-condensed ``a @ b``: element planning
+    (:func:`repro_torch.sparse.plan.plan_kcondensed`), then K2.  Blocks
+    clamp as in :func:`bitmap_spgemm`.  ``device=None`` means the card."""
+    dev, (bm, bn, sk) = _on_the_fly(a, b, block_m, block_n, slice_k,
+                                    device)
+    kp = pln.plan_kcondensed(pln.element_activity_lhs(a, bm),
+                             pln.element_activity_rhs(b, bn), sk)
+    return bitmap_spgemm_kfused_planned(
+        a.contiguous(), b.contiguous(), kp.gk, kp.counts, block_m=bm,
+        block_n=bn, slice_k=sk, out_dtype=out_dtype, device=dev)

@@ -1,22 +1,44 @@
-"""The implicit bitmap im2col chain over the kernels K5 → K6/K7.
+"""Public entries of the kernels, as the JAX package's ``kernels/ops.py``.
 
-The JAX package's ``kernels/ops.py`` conv half: :func:`sparse_im2col`
-lowers an NHWC batch by encoding it (K5) and lowering at stride 1 (K6) or
-stride ≥ 2 (K7); :func:`rowpacked_to_flat` turns the kernels' row-packed
-bits into the flat-P :class:`~repro_torch.core.im2col.LoweredBitmap` the
-planner reads.  The conversion is plain PyTorch, as it is jnp outside
-Pallas in the JAX package.
+* :func:`bitmap_encode` encodes one (C, H, W) feature map with K5;
+* :func:`sparse_im2col` lowers an NHWC batch by encoding it (K5) and
+  lowering at stride 1 (K6) or stride ≥ 2 (K7);
+  :func:`rowpacked_to_flat` turns the kernels' row-packed bits into the
+  flat-P :class:`~repro_torch.core.im2col.LoweredBitmap` the planner reads
+  (plain PyTorch, as it is jnp outside Pallas in the JAX package);
+* the SpGEMM entries of :mod:`repro_torch.kernels.bitmap_spgemm` (K1, K2
+  and their on-the-fly planning) are re-exported under their names.
+
+K5-K7 are held here under their own names (``_k5``, ``_k6``, ``_k7``),
+which a caller may wrap.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.core import bitmap as bm
 from repro_torch.core import device as devmod
 from repro_torch.core import im2col as i2c
-from repro_torch.kernels.bitmap_encode import bitmap_encode
+from repro_torch.kernels.bitmap_encode import bitmap_encode as _k5
+from repro_torch.kernels.bitmap_spgemm import (  # noqa: F401 (re-exports)
+    bitmap_spgemm, bitmap_spgemm_kcondensed, bitmap_spgemm_kfused,
+    bitmap_spgemm_kfused_planned, bitmap_spgemm_planned, kcondense,
+    plan_slices)
 from repro_torch.kernels.sparse_im2col import (sparse_im2col as _k6,
                                                sparse_im2col_strided as _k7)
+
+
+def bitmap_encode(x: torch.Tensor, *, device=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 on one feature map x (C, H, W) → (bits (C, H, ceil(W/32)) int32,
+    row-condensed values (C, H, W)).  ``device=None`` means the card."""
+    if x.ndim != 3:
+        raise ValueError(f"bitmap_encode takes (C, H, W), got "
+                         f"{tuple(x.shape)}")
+    bits, cond = _k5(x[None], device=device)
+    return bits[0], cond[0]
 
 
 def rowpacked_to_flat(low_bits: torch.Tensor, low_vals: torch.Tensor,
@@ -43,7 +65,7 @@ def sparse_im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1, *,
     xb = x[None] if single else x
     _, h, w, _ = xb.shape
     oh, ow = i2c.out_size(h, kh, stride), i2c.out_size(w, kw, stride)
-    bits, cond = bitmap_encode(xb.permute(0, 3, 1, 2), device=dev)
+    bits, cond = _k5(xb.permute(0, 3, 1, 2), device=dev)
     if stride == 1:
         low_bits, low_vals = _k6(cond, bits, kh=kh, kw=kw, device=dev)
     else:

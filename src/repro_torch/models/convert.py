@@ -1,4 +1,6 @@
-"""Load the JAX package's ``init_model`` parameters into the port.
+"""Load the JAX package's parameters into the port: ``init_model``
+trees (:func:`from_jax_params`) and ``init_sparse_linear`` dicts
+(:func:`sparse_linear_from_jax`).
 
 The JAX pytree is layer-stacked: ``params["layers"]["pos0"][...]`` (and
 an encoder-decoder's ``params["enc_layers"]["pos0"][...]``) has a leading
@@ -57,3 +59,20 @@ def from_jax_params(tree, cfg: ModelConfig, device=None,
             for key in ("conv1", "b1", "conv2", "b2"):
                 put(getattr(model.frontend, key), tree["frontend"][key])
     return model
+
+
+def sparse_linear_from_jax(params, device=None,
+                           dtype=torch.float32) -> dict:
+    """The port's ``DualSparseLinear`` params from a JAX
+    ``init_sparse_linear`` dict of numpy-convertible leaves (``w``,
+    ``mask``, optional ``b``): ``w``/``b`` cast to ``dtype``, ``mask``
+    bool, all on ``device`` (None: the card)."""
+    dev = devmod.resolve(device)
+    out = {"w": torch.from_numpy(np.asarray(params["w"], np.float32).copy()
+                                 ).to(dev, dtype),
+           "mask": torch.from_numpy(np.asarray(params["mask"], bool).copy()
+                                    ).to(dev)}
+    if "b" in params:
+        out["b"] = torch.from_numpy(np.asarray(params["b"], np.float32).copy()
+                                    ).to(dev, dtype)
+    return out

@@ -151,6 +151,17 @@ def counts_from_activity(col: torch.Tensor, row: torch.Tensor
     return _and(col, row).sum(-1, dtype=torch.int32)
 
 
+def plan_operands(a: torch.Tensor, b: torch.Tensor, block_m: int,
+                  block_n: int, slice_k: int = SLICE_K
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K1 schedule straight from dense operands a (..., M, K) and
+    b (..., K, N): the same schedule as planning from cached activation
+    and weight activities at this geometry."""
+    col = block_reduce_lhs(slice_activity_lhs(a, slice_k), block_m)
+    row = block_reduce_rhs(slice_activity_rhs(b, slice_k), block_n)
+    return plan_from_activity(col, row)
+
+
 # ---------------------------------------------------------------------------
 # element-granular K-condensation schedules
 # ---------------------------------------------------------------------------

@@ -589,3 +589,77 @@ def test_engine_matches_cpu(cuda, kc):
     assert engines[0].stats() == engines[1].stats()
     st = engines[1].stats()
     assert st["pages_free"] == st["pages_total"]
+
+
+# the paper-evaluation entries (phase 13 of chip_smoke.py): on-the-fly
+# planning then K1/K2, at a ragged shape and at a conv GEMM's block_n = 64
+# (Cout = 64 clamps 128 to 64) with tens of thousands of rows
+ON_THE_FLY = [  # (M, K, N, block_m, block_n, slice_k)
+    (300, 520, 200, 256, 256, 128),
+    (49284, 576, 64, 64, 128, 128),
+]
+
+
+@pytest.mark.parametrize("shape", ON_THE_FLY)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_the_fly_entries_match_plain(cuda, shape, dtype):
+    from repro_torch.core import spgemm as csp
+    m, k, n, bm, bn, sk = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(m, k, device=cuda, generator=g).clamp(min=0)
+    a[: m // 3] = 0                                   # empty row blocks
+    b = torch.randn(k, n, device=cuda, generator=g)
+    b[torch.rand(k, n, device=cuda, generator=g) < 0.5] = 0
+    b[: k // 4] = 0                                   # dead k rows
+    a, b = a.to(dtype), b.to(dtype)
+    geom = dict(zip(("block_m", "block_n", "slice_k"),
+                    pln.clamp_geometry(m, n, k, bm, bn, sk)))
+    ks, counts = bsk.plan_slices(a, b, **geom)
+    kp = pln.plan_kcondensed(pln.element_activity_lhs(a, geom["block_m"]),
+                             pln.element_activity_rhs(b, geom["block_n"]),
+                             geom["slice_k"])
+    n1 = bsk.bitmap_spgemm_planned.launches
+    n2 = bsk.bitmap_spgemm_kfused_planned.launches
+    y1 = bsk.bitmap_spgemm(a, b, block_m=bm, block_n=bn, slice_k=sk)
+    y2 = bsk.bitmap_spgemm_kfused(a, b, block_m=bm, block_n=bn, slice_k=sk)
+    torch.cuda.synchronize()
+    assert bsk.bitmap_spgemm_planned.launches == n1 + 1
+    assert bsk.bitmap_spgemm_kfused_planned.launches == n2 + 1
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2
+    for y, p in ((y1, bsk.bitmap_spgemm_planned_plain(a, b, ks, counts,
+                                                      **geom)),
+                 (y2, bsk.bitmap_spgemm_kfused_planned_plain(
+                     a, b, kp.gk, kp.counts, **geom))):
+        assert y.dtype == p.dtype == dtype
+        scale = p.float().abs().max().item()
+        assert (y.float() - p.float()).abs().max().item() <= rtol * scale
+    res = csp.spgemm(a, b, block_m=bm, block_n=bn, block_k=256)
+    if geom["block_m"] == bm and geom["block_n"] == bn:
+        assert int(res.steps.sparse) == int(counts.sum())
+
+
+def test_conv2d_dual_sparse_matches_conv2d_ref(cuda, monkeypatch):
+    """VGG-16 conv4_3's channels and kernel (512 → 512, 3 x 3) on a
+    12 x 12 map (the published 28 x 28 cut in depth only).  The oracle
+    is cuDNN's float32 conv with TF32 off, as chip_smoke.py runs it."""
+    from repro_torch.core import spconv
+    from repro_torch.sparse import tape
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(1, 12, 12, 512, device=cuda, generator=g)
+    x[..., torch.rand(512, device=cuda, generator=g) < 0.7] = 0
+    x[:, :8] = 0                      # output positions 0-59 see only zeros
+    w = torch.randn(3, 3, 512, 512, device=cuda, generator=g)
+    w[torch.rand(w.shape, device=cuda, generator=g) < 0.7] = 0
+    n5, n6 = k5.bitmap_encode.launches, k67.sparse_im2col.launches
+    n1 = bsk.bitmap_spgemm_planned.launches
+    with tape.collect() as entries:
+        res = spconv.conv2d_dual_sparse(x, w, 1, block_m=32, block_n=128,
+                                        block_k=128, use_kernel=True)
+    torch.cuda.synchronize()
+    assert (k5.bitmap_encode.launches, k67.sparse_im2col.launches,
+            bsk.bitmap_spgemm_planned.launches) == (n5 + 1, n6 + 1, n1 + 1)
+    [e] = tape.summarize(entries)
+    assert e["executed_steps"] == e["sparse_steps"] < e["dense_steps"]
+    ref = spconv.conv2d_ref(x, w, 1)
+    assert (res.out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

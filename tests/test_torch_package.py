@@ -61,3 +61,24 @@ def test_entry_points_default_to_the_card():
                                                             dtype=torch.long)},
                               cfg, max_new_tokens=2, device="cpu")
     assert tuple(out.shape) == (1, 2)
+
+
+def test_every_module_imports_first():
+    """Each module of the port imports in a process where no other module
+    of the port is loaded yet (a circular import shows only in some
+    orders)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    for k in [k for k in sys.modules if k.startswith('repro_torch')]:\n"
+        "        del sys.modules[k]\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 40
