@@ -93,7 +93,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    plain walk on the same inputs at phases 3-4's tolerances, and the next
    decode tick's ``attn.score``/``attn.value`` steps against the blocks
    each slot's query sees, worked out on the host from the slot's
-   position and the window; ``profile_sparsity`` executes what it counts.
+   position and the window, and one more such tick's K1/K2 and K3/K4
+   launches replayed on their inputs for their device time beside their
+   bound; ``profile_sparsity`` executes what it counts.
    Reports tokens/s (a path smoke: 128 tokens, no throughput meaning),
    ticks, calls, the decode-tick median, prefill ms a call, one decode
    tick split into the ``paged_read`` gather, planning, K1/K2, K3/K4 and
@@ -123,6 +125,33 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    check through ``core.spconv.conv2d_dual_sparse`` (K7); the BERT-base
    and RNN GEMM layers through ``core.layers`` in dense / weight / dual
    (K1), agreeing within 1e-4.
+14. MoE serving, traffic E — first the MoE smoke models (mixtral-8x7b's,
+   12 prompt tokens and 8 new past its 16-token window, and
+   qwen3-moe-235b-a22b's) on the card against the CPU plain path in
+   float32, dense / dual / dual+kc: logits within 1e-4 x max, the
+   auxiliary loss within 1e-5, greedy tokens equal.  Then full-width
+   ``mixtral-8x7b`` cut to 2 layers (random bf16 weights from a seed),
+   2 prompts of 32 tokens, 8 new: dense, dual (K1 + K3) and dual+kc (K2 +
+   K4), each through ``generate`` (per-call plans) and the phase-10 loop
+   on cached plans; then full-width ``qwen3-moe-235b-a22b`` cut to 2
+   layers in dense and dual on cached plans.  Each sparse run launches
+   exactly (4 x layers + 1) x 8 = 72 K1 (K2) and 3 x layers x 8 = 48 K3
+   (K4), executes what it counts on every tape entry, and reports the
+   ``moe.*`` steps of the prefill and of the decode steps (the decode
+   must execute fewer than dense: experts no token picked are never
+   read).  Against dense, the routing of every MoE call is compared token
+   by token: a token whose set of experts differs must be a near-tie
+   (k-th and (k+1)-th gates within ``GATE_MARGIN`` in one run) unless an
+   earlier flip of its row reaches it; prefill logits within
+   ``SERVE_RTOL`` x max|dense| on the tokens that kept their experts;
+   greedy tokens part from dense only at a top-2 tie or after a flip in
+   their row.  Every kernel launch of one prefill and one decode held to
+   its plain walk (E = 8 and E = 128 for K3).  Numbers: tokens/s, one
+   prefill, the decode-step median, planning a generate, peak memory;
+   and one cached-plan generate's K1-K4 launches replayed on their
+   inputs: CUDA events, the profiler's device time, the bound from the
+   schedules, the plain walks, and ``torch.bmm`` over every expert (what
+   the JAX dense einsum computes).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -2285,52 +2314,60 @@ def batch1_stream(torch, model, c, prompt, force=None):
     return torch.stack(toks, 1).int().cpu(), steps
 
 
-def held_to_plain(torch, eng, fn):
-    """``fn()`` with every kernel launch of a decode or a packed prefill
-    (``eng``'s prefill calls of more than one row) held against its plain
-    walk on the same inputs, run right after the launch (before anything
-    can write them), at the tolerance of its output type (``RTOL``, as in
-    phases 3 and 4); one-row prefills run unchecked.  Launches are seen at
+def held_to_plain(torch, eng, fn, stage="decode"):
+    """``fn()`` with every kernel launch held against its plain walk on
+    the same inputs, run right after the launch (before anything can write
+    them), at the tolerance of its output type (``RTOL``, as in phases 3
+    and 4).  With an engine ``eng``, launches are labelled by its calls:
+    its prefill calls of more than one row (packed) are checked, one-row
+    prefills run unchecked, the rest are ``stage``; without one, every
+    launch is checked and labelled ``stage``.  Launches are seen at
     ``bitmap_spgemm.run``, which all four wrappers call; the plain walk is
     not a launch and is not counted.  Returns {source: dict(n, err,
     shapes)}, ``shapes`` the set of (stage, E, M, least, most scheduled
     steps of a problem)."""
     from repro_torch.kernels import bitmap_spgemm as bsk
-    real_run, real_prefill = bsk.run, eng._prefill_impl
-    stage, seen = ["decode"], {}
+    real_run = bsk.run
+    label, seen = [stage], {}
 
     def run(src, plain, a, b, sched, counts, *, block_m, block_n, slice_k,
             out_dtype, **kw):
         geom = dict(block_m=block_m, block_n=block_n, slice_k=slice_k)
         y = real_run(src, plain, a, b, sched, counts, out_dtype=out_dtype,
                      **geom, **kw)
-        if stage[0] == "prefill 1":
+        if label[0] == "prefill 1":
             return y
         p = plain(a, b, sched, counts, out_dtype=out_dtype, **geom)
         (e, m, k), n = a.shape, b.shape[-1]
         err = check_pair(torch, src, y, p, str(y.dtype).split(".")[-1],
-                         f"engine {stage[0]} E={e} M={m} K={k} N={n}")
+                         f"{'engine ' if eng else ''}{label[0]} E={e} "
+                         f"M={m} K={k} N={n}")
         steps = counts.reshape(e, -1).sum(1)
         got = seen.setdefault(src, dict(n=0, err=0.0, shapes=set()))
         got["n"] += 1
         got["err"] = max(got["err"], err)
-        got["shapes"].add((stage[0], e, m, int(steps.min()),
+        got["shapes"].add((label[0], e, m, int(steps.min()),
                            int(steps.max())))
         return y
 
-    def prefill(tokens, *args):
-        stage[0] = f"prefill {tokens.shape[0]}" + (
-            f"x{tokens.shape[1]}" if tokens.shape[0] > 1 else "")
-        try:
-            return real_prefill(tokens, *args)
-        finally:
-            stage[0] = "decode"
-    bsk.run, eng._prefill_impl = run, prefill
+    bsk.run = run
+    if eng is not None:
+        real_prefill = eng._prefill_impl
+
+        def prefill(tokens, *args):
+            label[0] = f"prefill {tokens.shape[0]}" + (
+                f"x{tokens.shape[1]}" if tokens.shape[0] > 1 else "")
+            try:
+                return real_prefill(tokens, *args)
+            finally:
+                label[0] = stage
+        eng._prefill_impl = prefill
     try:
         fn()
     finally:
         bsk.run = real_run
-        del eng._prefill_impl
+        if eng is not None:
+            del eng._prefill_impl
     return seen
 
 
@@ -2546,6 +2583,20 @@ def phase_engine(torch, cfg, model, smi):
                             f"slots' own blocks {want[k]}"
                             for k in want)
                 + f" (query positions {qpos})")
+            # one more such tick, its launches replayed: device time and
+            # bound of K1/K2 and K3/K4 in a 4-slot decode tick
+            launches = record_launches(torch, eng.step)
+            for src, ls in sorted(launches.items()):
+                t = replayed_numbers(torch, src, ls)
+                log(f"engine: {mode}: one {D_SLOTS}-slot decode tick's "
+                    f"{src}: {t['n']} launches, {t['ms']:.3f} ms events, "
+                    f"device {fmt_ms(t['device_ms'])}, bound "
+                    f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+                    f"({t['nbytes'] / 1e6:.2f} MB), plain "
+                    f"{t['plain_ms']:.1f} ms, torch.bmm over the same "
+                    f"operands (every slot, for K3/K4) {t['library_ms']:.3f}"
+                    f" ms (device {fmt_ms(t['library_device_ms'])}); {smi}")
+            del launches
         t = tick_split(torch, eng)
         log(f"engine: {mode}: one decode tick, {D_SLOTS} slots busy, "
             f"{t['total']:.2f} ms = paged_read gather {t['paged_read']:.2f} "
@@ -3341,6 +3392,559 @@ def phase_paper(torch):
         f"{t4 - t3:.1f}, GEMM layers {t5 - t4:.1f})")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: MoE serving, traffic E
+# ---------------------------------------------------------------------------
+
+# the MoE families and their full-width cuts: mixtral-8x7b (8 experts,
+# top-2) serves traffic E in dense, dual and dual+kc through generate and
+# on cached plans; qwen3-moe-235b-a22b (128 experts, top-8) in dense and
+# dual on cached plans
+MIXTRAL, QWEN3_MOE = "mixtral-8x7b", "qwen3-moe-235b-a22b"
+MOE_LAYERS = 2
+# the smoke reference: 12 prompt tokens and 8 new pass mixtral-smoke's
+# 16-token sliding window
+MOE_SMOKE_PROMPT, MOE_SMOKE_NEW = 12, 8
+# a routing flip between two runs (a token whose set of picked experts
+# differs) is put down to a near-tie when its k-th and (k+1)-th gates lie
+# within GATE_MARGIN of each other in one of the runs: the two runs feed
+# the router hidden states that differ by bf16 roundings (K1 against
+# torch.matmul in attention), which move a gate by about 1e-3 of its
+# value at most
+GATE_MARGIN = 1e-2
+MOE_SOURCES = {"K1": "bitmap_spgemm.cu", "K2": "bitmap_spgemm_kfused.cu",
+               "K3": "grouped_spgemm.cu", "K4": "grouped_spgemm_kfused.cu"}
+
+
+def moe_launches(cfg, forwards):
+    """(K1 or K2, K3 or K4) launches of ``forwards`` forwards of a MoE
+    stack: q/k/v/o a layer and the head; the experts' up, gate and down a
+    layer."""
+    return ((4 * cfg.n_layers + 1) * forwards,
+            (3 if cfg.mlp_type == "swiglu" else 2) * cfg.n_layers * forwards)
+
+
+def phase_reference_moe(torch):
+    """The MoE smoke models in float32: the card (K1/K2 in attention and
+    the head, K3/K4 over the experts, ``torch.bmm`` in dense mode) against
+    the CPU plain path, same weights and tokens: logits within 1e-4 x max,
+    the auxiliary loss within 1e-5, greedy tokens equal, in dense, dual and
+    dual+kc."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    rc = RunConfig(act_dtype="float32")
+    for arch in (MIXTRAL, QWEN3_MOE):
+        cfg = smoke_config(arch)
+        cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", dtype=torch.float32)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (2, MOE_SMOKE_PROMPT),
+                               generator=torch.Generator().manual_seed(1))
+        for mode, knobs in MODES.items():
+            c = dataclasses.replace(cfg, **knobs)
+            want = cpu({"tokens": tokens}, c, rc=rc)
+            got = gpu({"tokens": tokens.cuda()}, c, rc=rc)
+            err = (got.logits.cpu() - want.logits).abs().max().item()
+            if not err <= 1e-4 * want.logits.abs().max().item():
+                raise AssertionError(f"{arch}-smoke {mode}: card vs CPU "
+                                     f"logits {err}")
+            aux_err = abs(got.aux_loss.item() - want.aux_loss.item())
+            if not aux_err <= 1e-5:
+                raise AssertionError(f"{arch}-smoke {mode}: card vs CPU "
+                                     f"aux loss {aux_err}")
+            tc = serve_loop.generate(cpu, {"tokens": tokens}, c,
+                                     max_new_tokens=MOE_SMOKE_NEW, rc=rc,
+                                     device="cpu")
+            tg = serve_loop.generate(gpu, {"tokens": tokens}, c,
+                                     max_new_tokens=MOE_SMOKE_NEW, rc=rc)
+            if not torch.equal(tc, tg.cpu()):
+                raise AssertionError(f"{arch}-smoke {mode}: tokens differ")
+            log(f"reference: {arch}-smoke {mode} on the card == CPU plain "
+                f"path (logits max err {err:.2e}, aux loss err "
+                f"{aux_err:.1e}, {MOE_SMOKE_NEW} greedy tokens equal, "
+                f"{MOE_SMOKE_PROMPT + MOE_SMOKE_NEW} positions"
+                + (f" past the {cfg.sliding_window}-token window"
+                   if cfg.sliding_window else "") + ")")
+
+
+def record_launches(torch, fn):
+    """``fn()`` with every K1-K4 launch's inputs kept, the kernels still
+    running: {source: [(plain, a, b, sched, counts, kfused, out_dtype,
+    geom, kplan), ...]} in launch order, ``kplan`` the K2/K4 launch's
+    :class:`~repro_torch.sparse.plan.KPlan` (its ``nnz`` is the bound's
+    input) as the dispatch planned it.  Seen at ``bitmap_spgemm.run``,
+    which all four wrappers call, and ``dispatch.schedule``."""
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.sparse import dispatch as dsp
+    real_run, real_schedule = bsk.run, dsp.schedule
+    seen, kplans = {}, {}
+
+    def schedule(*args, **kwargs):
+        sched, counts = real_schedule(*args, **kwargs)
+        if hasattr(sched, "nnz"):
+            kplans[sched.gk.data_ptr()] = sched
+        return sched, counts
+
+    def run(src, plain, a, b, sched, counts, *, kfused, out_dtype, **kw):
+        geom = {k: kw[k] for k in ("block_m", "block_n", "slice_k")}
+        kp = kplans.pop(sched.data_ptr()) if kfused else None
+        seen.setdefault(src, []).append(
+            (plain, a, b, sched, counts, kfused, out_dtype, geom, kp))
+        return real_run(src, plain, a, b, sched, counts, kfused=kfused,
+                        out_dtype=out_dtype, **kw)
+    bsk.run, dsp.schedule = run, schedule
+    try:
+        fn()
+    finally:
+        bsk.run, dsp.schedule = real_run, real_schedule
+    return seen
+
+
+def replayed_numbers(torch, src, launches):
+    """One generate's launches of the kernel in ``csrc/<src>`` replayed on
+    the inputs they had: CUDA events and the profiler's device time of
+    all of them, their plain walks, the PyTorch yardstick over the same
+    operands (``torch.bmm`` over every problem: every expert, for K3/K4)
+    and the bound (:func:`needed_work` on each launch's schedule, a K2/K4
+    launch's on its ``KPlan``).  Times in ms, for the whole generate;
+    ``shapes`` counts the launches by (E, M, K, N, route, splits),
+    ``sched_mb`` is the schedules' size."""
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    nbytes = flops = b_bytes = sched_bytes = op_s = 0.0
+    shapes, lib_ops = {}, []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for _, a, b, sched, counts, kfused, out_dtype, geom, kp in launches:
+        dims = bsk.check_problem(a, b, sched, counts, kfused=kfused, **geom)
+        kind = bsk.route(src, a.dtype, b.dtype, dims[2], dims[3])
+        key = (dims[0], dims[1], dims[3], dims[2], kind, bsk.route_splits(
+            kind, dims, geom["block_m"], geom["block_n"], sms))
+        shapes[key] = shapes.get(key, 0) + 1
+        sched_bytes += sched.numel() * sched.element_size()
+        odt = out_dtype or torch.promote_types(a.dtype, b.dtype)
+        if kfused:          # K2 launches the plan's gk with a problem axis
+            lead = tuple(sched.shape[:sched.ndim - kp.gk.ndim])
+            kp = type(kp)(*(t.reshape(lead + tuple(t.shape)) for t in kp))
+        nb, fl, bb = needed_work(torch, a, b, odt, geom,
+                                 kp if kfused else sched, counts, kfused)
+        nbytes, flops, b_bytes = nbytes + nb, flops + fl, b_bytes + bb
+        # each product's operations at its own type's peak
+        op_s += fl / PEAK_FLOPS["bfloat16" if a.dtype == b.dtype ==
+                                torch.bfloat16 else "float32"]
+        # torch.bmm takes one type: a float32 copy of a bf16 B (the decode
+        # value's V), made here, which the kernel does not need
+        lib_ops.append((a, b if b.dtype == a.dtype else b.to(a.dtype)))
+
+    def kernels():
+        for plain, a, b, sched, counts, kfused, odt, geom, _ in launches:
+            bsk.run(src, plain, a, b, sched, counts, kfused=kfused,
+                    out_dtype=odt, device=None, **geom)
+
+    def plains():
+        for plain, a, b, sched, counts, kfused, odt, geom, _ in launches:
+            plain(a, b, sched, counts, out_dtype=odt, **geom)
+
+    def library():
+        for a, b in lib_ops:
+            torch.bmm(a, b)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, op_s
+    return dict(n=len(launches), shapes=shapes, sched_mb=sched_bytes / 1e6,
+                ms=cuda_ms(torch, kernels, 3),
+                device_ms=device_ms(torch, kernels, 3),
+                plain_ms=cuda_ms(torch, plains, 1),
+                library_ms=cuda_ms(torch, library, 3),
+                library_device_ms=device_ms(torch, library, 3),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                nbytes=nbytes, b_bytes=b_bytes, flops=flops)
+
+
+def record_routing(fn):
+    """``fn()`` with every MoE layer call's gates and picks kept on the
+    host, in call order: [(gates (T, E) float32, top_i (T, k))].  Seen at
+    ``models.moe._dispatch_local``, which ``moe_forward`` looks up at each
+    call."""
+    from repro_torch.models import moe as moem
+    real, calls = moem._dispatch_local, []
+
+    def dispatch(xt, gates, e, k, cap):
+        out = real(xt, gates, e, k, cap)
+        calls.append((gates.cpu(), out[5].cpu()))
+        return out
+    moem._dispatch_local = dispatch
+    try:
+        out = fn()
+    finally:
+        moem._dispatch_local = real
+    return out, calls
+
+
+def routing_flips(torch, cfg, b, s, base, other, parted):
+    """Compare two runs' routings, call by call (``cfg.n_layers`` calls a
+    forward, the prefill's B x S tokens first, then B a decode), token by
+    token: the set of picked experts.  A row's decode calls are compared
+    while its inputs are equal (forward f reads the token of forward f-1:
+    up to ``parted[row]``, the first step where the rows' tokens differ).
+    A flip that no earlier flip of its row reaches (an earlier forward's,
+    through the caches; an earlier layer's at a position at or before it,
+    through attention) must be a near-tie: its k-th and (k+1)-th gates
+    within :data:`GATE_MARGIN` in one of the runs.  Returns (flips, {row:
+    first forward with a flip}, {(row, pos): prefill tokens that flipped
+    in some layer}); each flip a (forward, layer, row, pos, gap in base,
+    gap in other, reached) tuple."""
+    k, n_layers = cfg.n_experts_active, cfg.n_layers
+    flips, first, prefill_flipped = [], {}, set()
+
+    def gap(g, t):
+        top = torch.topk(g[t], k + 1).values
+        return float(top[k - 1] - top[k])
+    for i, ((gb, ib), (go, io)) in enumerate(zip(base, other)):
+        fwd, layer = divmod(i, n_layers)
+        for t in range(ib.shape[0]):
+            row, pos = (divmod(t, s) if fwd == 0 else (t, s + fwd - 1))
+            if fwd > parted[row]:
+                continue
+            if set(ib[t].tolist()) == set(io[t].tolist()):
+                continue
+            reached = any(f[2] == row and (f[0] < fwd or (
+                f[1] < layer and f[3] <= pos)) for f in flips)
+            g_b, g_o = gap(gb, t), gap(go, t)
+            if not reached and not min(g_b, g_o) <= GATE_MARGIN:
+                raise AssertionError(
+                    f"{cfg.name}: forward {fwd} layer {layer} row {row} "
+                    f"position {pos} changes experts {sorted(ib[t].tolist())}"
+                    f" -> {sorted(io[t].tolist())} with k-th/(k+1)-th gate "
+                    f"gaps {g_b:.2e} / {g_o:.2e} > {GATE_MARGIN}")
+            flips.append((fwd, layer, row, pos, g_b, g_o, reached))
+            first.setdefault(row, fwd)
+            if fwd == 0:
+                prefill_flipped.add((row, pos))
+    return flips, first, prefill_flipped
+
+
+def moe_parting(torch, what, toks, base_toks, base_steps, tol, first_flip):
+    """Greedy tokens may part from the baseline only where the baseline's
+    top-2 logits are within ``tol``, or at or after a step whose routing
+    flipped in that row (``first_flip[row]``, a forward index: forward f
+    makes token f)."""
+    agree = []
+    for r in range(toks.shape[0]):
+        diff = (toks[r] != base_toks[r]).nonzero()
+        if len(diff) == 0:
+            agree.append(f"row {r}: all {toks.shape[1]} equal")
+            continue
+        t = int(diff[0])
+        top2 = torch.topk(base_steps[t][r], 2).values
+        gap = float(top2[0] - top2[1])
+        flip = first_flip.get(r)
+        if not (gap <= tol or (flip is not None and flip <= t)):
+            raise AssertionError(
+                f"{what}: row {r} parts from the baseline at step {t} where "
+                f"its top-2 gap {gap:.3f} > {tol:.3f} and no routing flip "
+                "came before")
+        agree.append(f"row {r}: parts at step {t} (baseline top-2 gap "
+                     f"{gap:.3f}" + (f", routing flipped at forward {flip}"
+                                     if flip is not None else "") + ")")
+    return agree
+
+
+def parted_at(toks, base_toks):
+    """{row: first step where the rows' tokens differ, or their length}."""
+    out = {}
+    for r in range(toks.shape[0]):
+        diff = (toks[r] != base_toks[r]).nonzero()
+        out[r] = int(diff[0]) if len(diff) else toks.shape[1]
+    return out
+
+
+def moe_steps(tape, entries, per_forward):
+    """moe.* (dense, executed) steps of the prefill and of the decode
+    steps, from one run's tape (``per_forward`` entries a forward)."""
+    out = {}
+    for part, chunk in (("prefill", entries[:per_forward]),
+                        ("decode", entries[per_forward:])):
+        sites = site_steps(tape, chunk)
+        moe = [v for name, v in sites.items() if name.startswith("moe.")]
+        out[part] = (sum(v[0] for v in moe), sum(v[2] for v in moe),
+                     {name: (v[0], v[2]) for name, v in sites.items()
+                      if name.startswith("moe.")})
+    return out
+
+
+def hold_one_step(torch, model, c, batch, plans):
+    """One prefill and one decode forward on cached ``plans``, every kernel
+    launch held to its plain walk (:func:`held_to_plain`).  Returns
+    {stage: {source: dict(n, err, shapes)}}."""
+    from repro_torch.models import transformer as tfm
+    b, s = batch["tokens"].shape
+    caches = tfm.init_caches(c, b, s + 2)
+    out = {}
+
+    def prefill():
+        out["p"] = model(batch, c, caches=caches,
+                         positions=torch.arange(s, device="cuda"),
+                         weight_plans=plans)
+    held = {"prefill": held_to_plain(torch, None, prefill, "prefill")}
+    nxt = out["p"].logits[:, -1:].argmax(-1)
+
+    def decode():
+        model({"tokens": nxt}, c, caches=out["p"].caches,
+              positions=torch.tensor([s], device="cuda"), weight_plans=plans)
+    held["decode"] = held_to_plain(torch, None, decode, "decode")
+    return held
+
+
+def serve_moe(torch, cfg, model, modes, smi, with_generate):
+    """Traffic E on one MoE model: each mode through ``generate`` (per-call
+    plans, when ``with_generate``) and through :func:`serve_with_plans` on
+    cached plans, then the checks and numbers of phase 14.  Returns
+    {mode: {K-name: replayed numbers}} of the cached runs' kernels."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.sparse import tape
+    counters = kernel_counters()
+    batch = traffic_a_batch(torch, cfg)
+    b, s = batch["tokens"].shape
+    per_forward = 4 * cfg.n_layers + 1 + (
+        3 if cfg.mlp_type == "swiglu" else 2) * cfg.n_layers
+    n1, n3 = moe_launches(cfg, NEW_TOKENS)
+    runs, kernel_numbers = {}, {}
+
+    def check_run(key, mode, entries):
+        got = {kn: fn.launches for kn, fn in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        if mode == "dual":
+            want.update(K1=n1, K3=n3)
+        elif mode == "dual+kc":
+            want.update(K2=n1, K4=n3)
+        if got != want:
+            raise AssertionError(f"{key}: launches {got}, expected {want}")
+        rows = tape_rows(tape, entries)
+        bad = [row for row in rows if mode != "dense" and row[2] != row[3]]
+        if bad:
+            raise AssertionError(f"{key}: executed != counted at {bad[:3]}")
+        if mode != "dense" and len(rows) != per_forward * NEW_TOKENS:
+            raise AssertionError(f"{key}: {len(rows)} tape entries")
+        return got, rows
+
+    # untimed: each mode's first products at these shapes (library
+    # handles, allocator growth) before any timed run
+    for mode in modes:
+        c = dataclasses.replace(cfg, **MODES[mode])
+        serve_with_plans(torch, model, c, batch, 2,
+                         tfm.plan_weight_activities(model, c))
+    for mode in modes:
+        c = dataclasses.replace(cfg, **MODES[mode])
+        r = runs[mode] = {}
+        if with_generate:
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with tape.collect() as entries:
+                toks = serve_loop.generate(model, batch, c,
+                                           max_new_tokens=NEW_TOKENS)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            got, rows = check_run(f"{cfg.name} {mode} generate", mode,
+                                  entries)
+            r.update(gen_wall=wall, gen_rows=rows, gen_tokens=toks.cpu())
+            log(f"moe: {cfg.name} {mode} generate (per-call plans): "
+                f"{b * NEW_TOKENS / wall * 1e3:.2f} tokens/s ({wall:.0f} ms,"
+                f" stats tape on), launches "
+                f"{ {k: v for k, v in got.items() if v} }; {smi}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plans = tfm.plan_weight_activities(model, c)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            out = serve_with_plans(torch, model, c, batch, NEW_TOKENS, plans)
+        wall = (time.perf_counter() - t0) * 1e3
+        got, rows = check_run(f"{cfg.name} {mode} cached plans", mode,
+                              entries)
+        if with_generate and mode != "dense" and rows != r["gen_rows"]:
+            raise AssertionError(f"{cfg.name} {mode}: the cached plans' tape"
+                                 " != generate's")
+        if with_generate and not torch.equal(out["tokens"], r["gen_tokens"]):
+            raise AssertionError(f"{cfg.name} {mode}: cached-plan tokens != "
+                                 "generate's")
+        if not all(torch.isfinite(st).all() for st in out["steps"]):
+            raise AssertionError(f"{cfg.name} {mode}: non-finite logits")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        r.update(out, wall=wall, rows=rows, build_ms=build_ms, peak=peak)
+        r["steps_split"] = (moe_steps(tape, entries, per_forward)
+                            if mode != "dense" else None)
+        # the dispatch's planning, per-call and cached (a second pass each)
+        r["plan_ms"] = planning_ms(torch, lambda: serve_with_plans(
+            torch, model, c, batch, NEW_TOKENS, plans))
+        if with_generate:
+            r["plan_ms_per_call"] = planning_ms(
+                torch, lambda: serve_with_plans(torch, model, c, batch,
+                                                NEW_TOKENS, None))
+        # a third pass: the routing on the host, every kernel launch kept
+        launches = {}
+
+        def third():
+            launches.update(record_launches(torch, lambda: serve_with_plans(
+                torch, model, c, batch, NEW_TOKENS, plans)))
+        _, r["routing"] = record_routing(third)
+        if mode != "dense":
+            # the counted run's launches, which the replayed pass repeats
+            kernel_numbers[mode] = {}
+            for kn, src in MOE_SOURCES.items():
+                if not got[kn]:
+                    continue
+                if len(launches.get(src, ())) != got[kn]:
+                    raise AssertionError(
+                        f"{cfg.name} {mode}: {len(launches.get(src, ()))} "
+                        f"{kn} launches replayed, {got[kn]} counted")
+                kernel_numbers[mode][kn] = dict(
+                    replayed_numbers(torch, src, launches[src]),
+                    launches=got[kn])
+        del launches
+        t = out["times"]
+        split = r["steps_split"]
+        log(f"moe: {cfg.name} {mode} cached plans: "
+            f"{b * NEW_TOKENS / wall * 1e3:.2f} tokens/s ({wall:.0f} ms, "
+            f"stats tape on), one prefill {t[0]:.1f} ms, decode steps median "
+            f"{statistics.median(t[1:]):.1f} ms, planning "
+            f"{r['plan_ms'][0]:.1f} ms in {r['plan_ms'][1]} dispatches"
+            + (f" ({r['plan_ms_per_call'][0]:.1f} ms on per-call plans)"
+               if with_generate else "")
+            + f", plans built once in {build_ms:.0f} ms, peak memory "
+            f"{peak:.1f} GB; launches { {k: v for k, v in got.items() if v} }"
+            + ("" if split is None else "; moe.* dense/executed steps: "
+               + "; ".join(f"{part} {d}/{x} ({1 - x / d:.1%} skipped: "
+                           + ", ".join(f"{n} {sd}/{sx}"
+                                       for n, (sd, sx) in per.items()) + ")"
+                           for part, (d, x, per) in split.items()))
+            + f"; {smi}")
+        if split is not None and not split["decode"][1] < split["decode"][0]:
+            raise AssertionError(f"{cfg.name} {mode}: decode executes "
+                                 f"{split['decode'][1]} of "
+                                 f"{split['decode'][0]} moe.* steps")
+
+    # against dense: prefill logits, routing flips, greedy tokens
+    dense = runs["dense"]
+    scale = dense["prefill"].abs().max().item()
+    tol = SERVE_RTOL * scale
+    for mode in modes[1:]:
+        r = runs[mode]
+        parted = parted_at(r["tokens"], dense["tokens"])
+        flips, first, flipped = routing_flips(
+            torch, cfg, b, s, dense["routing"], r["routing"], parted)
+        keep = torch.ones(b, s, dtype=torch.bool)
+        for row, pos in flipped:
+            keep[row, pos] = False
+        diff = (r["prefill"] - dense["prefill"]).abs().amax(-1).cpu()
+        err = diff[keep].max().item()
+        if not err <= tol:
+            raise AssertionError(f"{cfg.name} {mode}: prefill logits differ "
+                                 f"from dense by {err:.4f} > {tol:.4f} on "
+                                 "tokens routed as dense")
+        agree = moe_parting(torch, f"{cfg.name} {mode}", r["tokens"],
+                            dense["tokens"], dense["steps"], tol, first)
+        near = [f for f in flips if not f[6]]
+        log(f"moe: {cfg.name} {mode} vs dense: {len(flips)} routing flips "
+            f"({len(near)} near-ties, k-th/(k+1)-th gate gaps "
+            + (", ".join(f"{min(f[4], f[5]):.1e}" for f in near) or "none")
+            + f" <= {GATE_MARGIN}; {len(flips) - len(near)} reached by an "
+            f"earlier flip), {len(flipped)} of {b * s} prefill tokens "
+            f"flipped in some layer; prefill logits max |diff| on the others "
+            f"{err:.4f} <= {tol:.4f} ({SERVE_RTOL} x max|dense| "
+            f"{scale:.2f}), on the flipped "
+            + (f"{diff[~keep].max().item():.4f}" if flipped else "none")
+            + "; " + "; ".join(agree))
+    return runs, kernel_numbers
+
+
+def check_held(what, held, grouped_src, e_want, stages):
+    """Every held stage ran the grouped kernel at ``e_want`` problems."""
+    for stage in stages:
+        got = held[stage].get(grouped_src)
+        if got is None or not any(e == e_want for _, e, *_ in got["shapes"]):
+            raise AssertionError(f"{what}: no {grouped_src} launch at E = "
+                                 f"{e_want} in the {stage}")
+    return "; ".join(
+        f"{stage} " + ", ".join(
+            f"{src} {v['n']} launches (max err {v['err']:.2e}, problems "
+            + ", ".join(f"E={e} M={m} steps {lo}-{hi}"
+                        for _, e, m, lo, hi in sorted(v["shapes"])) + ")"
+            for src, v in sorted(held[stage].items()))
+        for stage in stages)
+
+
+def phase_moe(torch, smi):
+    """Phase 14: MoE serving (see the module docstring).  Returns
+    {K-name: numbers} of mixtral's kernels on the MoE path, dual's K1/K3
+    and dual+kc's K2/K4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MIXTRAL), n_layers=MOE_LAYERS)
+    model = make_model(torch, cfg)
+    runs, numbers = serve_moe(torch, cfg, model, list(MODES), smi, True)
+    errs = {}
+    for mode in ("dual", "dual+kc"):
+        c = dataclasses.replace(cfg, **MODES[mode])
+        held = hold_one_step(torch, model, c, traffic_a_batch(torch, cfg),
+                             tfm.plan_weight_activities(model, c))
+        src = MOE_SOURCES["K4" if mode == "dual+kc" else "K3"]
+        for kn, sname in MOE_SOURCES.items():
+            for stage in held.values():
+                if sname in stage:
+                    errs[kn] = max(errs.get(kn, 0.0), stage[sname]["err"])
+        log(f"moe: {cfg.name} {mode}: every kernel launch of one prefill "
+            f"and one decode held to its plain walk: "
+            + check_held(f"{cfg.name} {mode}", held, src, cfg.n_experts,
+                         ("prefill", "decode")))
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    qcfg = dataclasses.replace(get_config(QWEN3_MOE), n_layers=MOE_LAYERS)
+    qmodel = make_model(torch, qcfg)
+    qruns, qnumbers = serve_moe(torch, qcfg, qmodel, ["dense", "dual"], smi,
+                                False)
+    c = dataclasses.replace(qcfg, **MODES["dual"])
+    held = hold_one_step(torch, qmodel, c, traffic_a_batch(torch, qcfg),
+                         tfm.plan_weight_activities(qmodel, c))
+    log(f"moe: {qcfg.name} dual: every kernel launch of one prefill and one "
+        "decode held to its plain walk: "
+        + check_held(f"{qcfg.name} dual", held, MOE_SOURCES["K3"],
+                     qcfg.n_experts, ("prefill", "decode")))
+    del qmodel
+    torch.cuda.empty_cache()
+    out = {}
+    for arch, nums in ((cfg.name, numbers), (qcfg.name, qnumbers)):
+        for mode, per in nums.items():
+            for kn, t in per.items():
+                log(f"moe: {arch} {mode} {kn}: {t['launches']} launches a "
+                    f"generate (cached plans), {t['ms']:.3f} ms events, "
+                    f"device "
+                    f"{fmt_ms(t['device_ms'])}, bound {t['bound_ms']:.4f} ms "
+                    f"by {t['bound_by']} ({t['nbytes'] / 1e9:.4f} GB, B "
+                    f"{t['b_bytes'] / 1e9:.4f} GB), plain "
+                    f"{t['plain_ms']:.1f} ms, torch.bmm over every "
+                    f"{'expert' if kn in ('K3', 'K4') else 'problem'} "
+                    f"{t['library_ms']:.3f} ms (device "
+                    f"{fmt_ms(t['library_device_ms'])}); schedules "
+                    f"{t['sched_mb']:.1f} MB; launches by (E, M, K, N, "
+                    f"route, splits): " + ", ".join(
+                        f"{k} x{n}" for k, n in sorted(t["shapes"].items()))
+                    + f"; {smi}")
+                if arch == cfg.name:
+                    out[kn] = dict(t, max_abs_err=errs[kn])
+    log(f"moe: phase {time.perf_counter() - t0:.0f} s (mixtral "
+        f"{t1 - t0:.0f} s)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3387,6 +3991,8 @@ def main() -> int:
     del wmodel
     torch.cuda.empty_cache()
     phase_paper(torch)
+    phase_reference_moe(torch)
+    moe = phase_moe(torch, smi)
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -3459,6 +4065,15 @@ def main() -> int:
             # no PyTorch call encodes a bitmap (K5); F.unfold lowers
             # densely, the same values without the bitmap (K6/K7)
             "library_ms": None if kn == "K5" else t["library_ms"]})
+        if kn in moe:
+            # the same numbers on the MoE path (phase 14): traffic E on
+            # mixtral-8x7b, one cached-plan generate's launches
+            m = moe[kn]
+            rows[-1]["moe"] = {
+                "launches": m["launches"], "max_abs_err": m["max_abs_err"],
+                "ms": m["ms"], "device_ms": m["device_ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
     log(f"kernels line: ms, plain_ms, bound_ms and library_ms are summed "
         f"over one generate's launches at the served types: K1/K2 bf16 over "
         f"{13 * NEW_TOKENS} dispatches (1 prefill of {PROMPTS * PROMPT_LEN} "
@@ -3470,7 +4085,10 @@ def main() -> int:
         f"one whisper generate's stem ({W_SEGMENTS} segments: K5 on both "
         f"stem convs, K6 on conv1, K7 on conv2), ms and library_ms "
         f"(F.unfold) the profiler's device time, bound_ms from the bytes "
-        f"each must move; total "
+        f"each must move; under \"moe\", K1-K4 over one cached-plan "
+        f"generate of traffic E on {MIXTRAL} (dual: K1 + K3, dual+kc: K2 + "
+        f"K4), replayed on the launches' inputs, ms CUDA events, library_ms "
+        f"torch.bmm over every expert (K3/K4) or the product (K1/K2); total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,8 @@ def smoke_config(name: str) -> ModelConfig:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import nemotron_4_340b, whisper_base  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        mixtral_8x7b, nemotron_4_340b, qwen3_moe_235b_a22b, whisper_base)
 
 
 __all__ = ["ModelConfig", "RunConfig", "ServeConfig", "get_config",

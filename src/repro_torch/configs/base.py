@@ -1,10 +1,10 @@
 """Config dataclasses: model architecture and run knobs.
 
 A copy of the JAX package's ``configs/base.py`` cut to the families this
-package serves: the decoder-only dense family and the audio
-encoder-decoder with its conv stem.  Field names, defaults and the
-frontend and dense-mode checks are the same, so one configuration means
-the same model in both packages.
+package serves: the decoder-only dense family, the decoder-only
+mixture-of-experts family and the audio encoder-decoder with its conv
+stem.  Field names, defaults and the frontend and dense-mode checks are
+the same, so one configuration means the same model in both packages.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import warnings
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | audio (the ported families)
+    family: str                    # dense | moe | audio (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,7 +30,11 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int = 0        # 0 = full attention
     # mlp
-    mlp_type: str = "swiglu"       # relu2 | relu | gelu ported; swiglu not
+    mlp_type: str = "swiglu"       # swiglu | relu2 | gelu | relu
+    # moe
+    n_experts: int = 0
+    n_experts_active: int = 0
+    capacity_factor: float = 1.25
     # enc-dec / audio frontend: with frontend_conv the model consumes raw
     # mel frames through the two-conv stem (repro_torch.models.frontend),
     # routed through repro_torch.sparse.conv
@@ -98,9 +102,15 @@ class ModelConfig:
         """Layer type at position ``pos`` within the layer period."""
         return "attn"
 
+    def layer_is_moe(self, pos: int) -> bool:
+        """Whether the layer at ``pos`` holds a MoE: every layer of a MoE
+        family (the ported families interleave no dense layers)."""
+        return bool(self.n_experts)
+
     @property
     def period(self) -> int:
-        """Length of the repeating layer pattern (1 for dense stacks)."""
+        """Length of the repeating layer pattern (1 for the ported
+        families)."""
         return 1
 
     @property

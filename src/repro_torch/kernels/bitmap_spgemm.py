@@ -375,15 +375,18 @@ def plan_slices(a: torch.Tensor, b: torch.Tensor, block_m: int,
     return pln.plan_operands(a, b, block_m, block_n, slice_k)
 
 
-def _on_the_fly(a, b, block_m, block_n, slice_k, device):
-    """Resolve the device, check the operands lie on it and clamp the
-    blocks: (device, (block_m, block_n, slice_k))."""
+def on_the_fly(a, b, block_m, block_n, slice_k, device, ndim=2):
+    """Resolve the device, check the operands lie on it and are an
+    ``ndim``-D product ((M, K) @ (K, N), or (E, C, K) @ (E, K, N) for the
+    grouped entries) and clamp the blocks: (device, (block_m, block_n,
+    slice_k))."""
     dev = devmod.resolve(device)
     devmod.check_all_on(dev, a=a, b=b)
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+    if (a.ndim != ndim or b.ndim != ndim or a.shape[:-2] != b.shape[:-2]
+            or a.shape[-1] != b.shape[-2]):
         raise ValueError(f"bad operand shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    return dev, pln.clamp_geometry(a.shape[0], b.shape[1], a.shape[1],
+    return dev, pln.clamp_geometry(a.shape[-2], b.shape[-1], a.shape[-1],
                                    block_m, block_n, slice_k)
 
 
@@ -405,7 +408,7 @@ def bitmap_spgemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
     ``device=None`` means the card.
     """
     del block_k
-    dev, (bm, bn, sk) = _on_the_fly(a, b, block_m, block_n, slice_k,
+    dev, (bm, bn, sk) = on_the_fly(a, b, block_m, block_n, slice_k,
                                     device)
     ks, counts = plan_slices(a, b, bm, bn, sk)
     return bitmap_spgemm_planned(a.contiguous(), b.contiguous(), ks, counts,
@@ -447,7 +450,7 @@ def bitmap_spgemm_kfused(a: torch.Tensor, b: torch.Tensor, *,
     """Fused-K-condensed ``a @ b``: element planning
     (:func:`repro_torch.sparse.plan.plan_kcondensed`), then K2.  Blocks
     clamp as in :func:`bitmap_spgemm`.  ``device=None`` means the card."""
-    dev, (bm, bn, sk) = _on_the_fly(a, b, block_m, block_n, slice_k,
+    dev, (bm, bn, sk) = on_the_fly(a, b, block_m, block_n, slice_k,
                                     device)
     kp = pln.plan_kcondensed(pln.element_activity_lhs(a, bm),
                              pln.element_activity_rhs(b, bn), sk)

@@ -29,17 +29,29 @@ tensor-core kernel (``csrc/spgemm_mma.cuh``, split schedules), and
 float32 ones the SIMT tile kernel (``csrc/spgemm_tile.cuh``), each with
 the problem index folded into its grid.
 
+The MoE expert FFNs (``models/moe.py``) are the other caller: E experts'
+capacity buffers (C rows each, 8-24 at decode) against the stacked expert
+weights.  An expert no token was routed to has an all-zero buffer, so all
+its blocks have ``counts == 0`` and its weights are never read — the
+ragged skip the gating makes without any pruning.  Those bf16 products
+(N = 1536-14336) take the tensor-core route.
+
+:func:`grouped_spgemm` and :func:`grouped_spgemm_kfused` are the
+on-the-fly entries: they plan the per-problem schedules from the operands
+(:func:`plan_grouped`, or element planning), then launch K3 / K4.
+
 ``device=None`` means the card; CPU tensors run the plain versions, CUDA
 tensors launch the kernel or raise.  ``launches`` on each wrapper counts
 kernel launches.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import bitmap_spgemm as bsk
+from repro_torch.sparse import plan as pln
 
 
 def grouped_spgemm_planned_plain(a, b, ks, counts, **kw) -> torch.Tensor:
@@ -91,3 +103,50 @@ def grouped_spgemm_kfused_planned(a: torch.Tensor, b: torch.Tensor,
 
 grouped_spgemm_planned.launches = 0
 grouped_spgemm_kfused_planned.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# on-the-fly entries: plan from the operands, then launch
+# ---------------------------------------------------------------------------
+
+def plan_grouped(a: torch.Tensor, b: torch.Tensor, block_m: int,
+                 block_n: int, slice_k: int = pln.SLICE_K
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's per-problem schedule of ``a (E, C, K) @ b (E, K, N)`` from the
+    operands' non-zero masks: (ks (E, Mt, Nt, S), counts (E, Mt, Nt))
+    int32, front-packed with repeat-last tails."""
+    return pln.plan_operands(a, b, block_m, block_n, slice_k)
+
+
+def grouped_spgemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
+                   block_n: int = 128, slice_k: int = pln.SLICE_K,
+                   out_dtype: Optional[torch.dtype] = None,
+                   device=None) -> torch.Tensor:
+    """Ragged grouped SpGEMM with on-the-fly per-problem planning, then
+    K3.  Blocks clamp by the one rule of
+    :func:`repro_torch.sparse.plan.clamp_geometry` (as
+    :func:`~repro_torch.kernels.bitmap_spgemm.bitmap_spgemm` does).
+    ``device=None`` means the card."""
+    dev, (bm, bn, sk) = bsk.on_the_fly(a, b, block_m, block_n, slice_k,
+                                        device, ndim=3)
+    ks, counts = plan_grouped(a, b, bm, bn, sk)
+    return grouped_spgemm_planned(a.contiguous(), b.contiguous(), ks, counts,
+                                  block_m=bm, block_n=bn, slice_k=sk,
+                                  out_dtype=out_dtype, device=dev)
+
+
+def grouped_spgemm_kfused(a: torch.Tensor, b: torch.Tensor, *,
+                          block_m: int = 128, block_n: int = 128,
+                          slice_k: int = pln.SLICE_K,
+                          out_dtype: Optional[torch.dtype] = None,
+                          device=None) -> torch.Tensor:
+    """Fused-K-condensed grouped SpGEMM: per-problem element planning
+    (:func:`repro_torch.sparse.plan.plan_grouped_kcondensed`), then K4.
+    ``device=None`` means the card."""
+    dev, (bm, bn, sk) = bsk.on_the_fly(a, b, block_m, block_n, slice_k,
+                                        device, ndim=3)
+    kp = pln.plan_grouped_kcondensed(pln.element_activity_lhs(a, bm),
+                                     pln.element_activity_rhs(b, bn), sk)
+    return grouped_spgemm_kfused_planned(
+        a.contiguous(), b.contiguous(), kp.gk, kp.counts, block_m=bm,
+        block_n=bn, slice_k=sk, out_dtype=out_dtype, device=dev)

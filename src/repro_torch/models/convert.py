@@ -5,7 +5,8 @@ trees (:func:`from_jax_params`) and ``init_sparse_linear`` dicts
 The JAX pytree is layer-stacked: ``params["layers"]["pos0"][...]`` (and
 an encoder-decoder's ``params["enc_layers"]["pos0"][...]``) has a leading
 layer axis (the period is 1 for the ported families), which is unstacked
-here into the port's per-layer modules.  Layouts are the
+here into the port's per-layer modules: a MoE layer's ``moe`` leaves
+(router, stacked expert weights) as its ``mlp`` leaves are.  Layouts are the
 same on both sides, so each leaf is a plain copy.
 """
 from __future__ import annotations
@@ -42,8 +43,11 @@ def from_jax_params(tree, cfg: ModelConfig, device=None,
                 for key in ("wq", "wk", "wv", "wo"):
                     put(getattr(getattr(layer, blk), key),
                         stack[blk][key][i])
-            for key in ("w_up", "w_down"):
-                put(getattr(layer.mlp, key), stack["mlp"][key][i])
+            ffn = layer.ffn_key
+            keys = tuple(layer.ffn.weights()) + (("router",) if ffn == "moe"
+                                                 else ())
+            for key in keys:
+                put(getattr(layer.ffn, key), stack[ffn][key][i])
 
     with torch.no_grad():
         put(model.embed, tree["embed"])

@@ -1,8 +1,10 @@
-"""MLP blocks: squared-ReLU / ReLU / GeLU (+ the dual-sparse path).
+"""MLP blocks: SwiGLU / squared-ReLU / ReLU / GeLU (+ the dual-sparse path).
 
 Squared-ReLU (nemotron) produces genuine activation zeros, which is where
 dual-side SpGEMM applies at inference; GeLU (whisper, the tanh form of
-``jax.nn.gelu``) is dense, and its down projection plans from the values.
+``jax.nn.gelu``) and SwiGLU (``silu(x @ w_gate) * (x @ w_up)``, the MoE
+families' experts and MLPs) are dense, and their down projections plan
+from the values.
 With ``cfg.sparse_mode != "dense"`` both projections route through
 :mod:`repro_torch.sparse`: a ReLU-family activation is a
 :class:`~repro_torch.sparse.activation.SparseActivation` whose bitmap is
@@ -22,18 +24,25 @@ from repro_torch.sparse import plan as pln
 from repro_torch.sparse import site
 from repro_torch.sparse.weights import planned_or_array
 
-_KINDS = ("relu", "relu2", "gelu")
+_KINDS = ("swiglu", "relu", "relu2", "gelu")
 
 
-def _activate(h: torch.Tensor, kind: str) -> torch.Tensor:
+def _activate(h: torch.Tensor, gate: Optional[torch.Tensor],
+              kind: str) -> torch.Tensor:
+    """The dense-path activation (the JAX package's ``_activate``)."""
+    if kind == "swiglu":
+        return torch.nn.functional.silu(gate) * h
     if kind == "gelu":
         return act.gelu(h)
+    if kind not in ("relu", "relu2"):
+        raise ValueError(kind)
     r = torch.clamp(h, min=0)
     return r * r if kind == "relu2" else r
 
 
 class MLP(nn.Module):
-    """w_up (d, f) and w_down (f, d), the JAX layouts."""
+    """w_up (d, f), w_down (f, d) and, for SwiGLU, w_gate (d, f): the JAX
+    layouts."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
@@ -46,29 +55,47 @@ class MLP(nn.Module):
         self.w_down = nn.Parameter(torch.empty(f, d, device=device,
                                                dtype=dtype),
                                    requires_grad=False)
+        self.w_gate = (nn.Parameter(torch.empty(d, f, device=device,
+                                                dtype=dtype),
+                                    requires_grad=False)
+                       if cfg.mlp_type == "swiglu" else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         d, f = self.w_up.shape
         self.w_up.normal_(0.0, d ** -0.5, generator=generator)
         self.w_down.normal_(0.0, f ** -0.5, generator=generator)
+        if self.w_gate is not None:
+            self.w_gate.normal_(0.0, d ** -0.5, generator=generator)
+
+    def weights(self) -> Dict[str, torch.Tensor]:
+        """The projection weights by their JAX keys."""
+        w = {"w_up": self.w_up, "w_down": self.w_down}
+        if self.w_gate is not None:
+            w["w_gate"] = self.w_gate
+        return w
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 plans: Optional[Dict] = None) -> torch.Tensor:
         if cfg.sparse_mode == "dense":
-            h = _activate(x @ self.w_up.to(x.dtype), cfg.mlp_type)
-            return h @ self.w_down.to(x.dtype)
+            h = x @ self.w_up.to(x.dtype)
+            gate = (x @ self.w_gate.to(x.dtype)
+                    if self.w_gate is not None else None)
+            return _activate(h, gate, cfg.mlp_type) @ self.w_down.to(x.dtype)
         # element-granular plans ("@elem") attach only under kcondense
         ebn = cfg.sparse_block_n if cfg.sparse_kcondense else 0
-        up = site.make("matmul", "mlp.up", axes=("embed", "mlp"))
-        down = site.make("matmul", "mlp.down", axes=("mlp", "embed"))
-        h, _ = site.matmul(
-            x, planned_or_array(self.w_up, plans, "w_up", x.dtype,
-                                cfg.sparse_slice_k, block_n=ebn, site=up),
-            up, cfg)
+
+        def project(h, key, name, axes):
+            st = site.make("matmul", name, axes=axes)
+            y, _ = site.matmul(
+                h, planned_or_array(getattr(self, key), plans, key, x.dtype,
+                                    cfg.sparse_slice_k, block_n=ebn,
+                                    site=st),
+                st, cfg)
+            return y
+
+        h = project(x, "w_up", "mlp.up", ("embed", "mlp"))
+        gate = (project(x, "w_gate", "mlp.gate", ("embed", "mlp"))
+                if self.w_gate is not None else None)
         h = act.activate(h, cfg.mlp_type, slice_k=pln.effective_slice_k(
-            h.shape[-1], cfg.sparse_slice_k))
-        y, _ = site.matmul(
-            h, planned_or_array(self.w_down, plans, "w_down", x.dtype,
-                                cfg.sparse_slice_k, block_n=ebn, site=down),
-            down, cfg)
-        return y
+            h.shape[-1], cfg.sparse_slice_k), gate=gate)
+        return project(h, "w_down", "mlp.down", ("mlp", "embed"))

@@ -1,10 +1,13 @@
-"""The transformer: decoder-only dense, and the audio encoder-decoder.
+"""The transformer: decoder-only dense and MoE, and the audio
+encoder-decoder.
 
 The JAX package stacks each period position's parameters over periods
 and scans over them; here the layers are an ``nn.ModuleList`` walked by a
 Python loop, with one cache entry per decoder layer.
 ``Transformer.forward`` is the JAX package's ``forward`` and
-``DecoderLayer.forward`` its ``_apply_layer``.
+``DecoderLayer.forward`` its ``_apply_layer``.  A MoE family's decoder
+layers hold a :class:`~repro_torch.models.moe.MoE` where the JAX package
+puts its ``"moe"`` block, and the forward sums their auxiliary losses.
 
 The encoder-decoder (whisper) runs the conv frontend over ``batch["mel"]``
 and the encoder stack (non-causal, no cache) at prefill only; its decoder
@@ -24,6 +27,7 @@ from repro_torch.models import cache as kvc
 from repro_torch.models import frontend as fem
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.nn import apply_norm, init_norm, sinusoidal_positions
 from repro_torch.sparse import kvcache as skvc
 from repro_torch.sparse import plan as pln
@@ -34,21 +38,26 @@ from repro_torch.sparse import weights as spw
 class ModelOutputs(NamedTuple):
     logits: torch.Tensor
     caches: Optional[List[Any]]
+    aux_loss: torch.Tensor      # float32 (), the MoE layers' sum; 0 without
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    dense = cfg.family == "dense" and not cfg.is_encoder_decoder
+    decoder_only = (cfg.family in ("dense", "moe")
+                    and not cfg.is_encoder_decoder)
     audio = (cfg.family == "audio" and cfg.is_encoder_decoder
              and cfg.frontend == "audio" and cfg.frontend_conv)
-    if cfg.period != 1 or not (dense or audio) or cfg.tie_embeddings:
-        raise ValueError(f"{cfg.name}: only the decoder-only dense family "
-                         "and the audio encoder-decoder with its conv stem "
-                         "(untied heads) are ported")
+    if cfg.period != 1 or not (decoder_only or audio) or cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name}: only the decoder-only dense and MoE "
+                         "families (MoE in every layer) and the audio "
+                         "encoder-decoder with its conv stem (untied heads) "
+                         "are ported")
 
 
 class DecoderLayer(nn.Module):
-    """norm1 + attn, [norm_cross + cross_attn,] norm2 + mlp.  Encoder
-    layers are the same module without ``cross``, run non-causal."""
+    """norm1 + attn, [norm_cross + cross_attn,] norm2 + mlp (or moe, where
+    ``cfg.layer_is_moe``: the ported families have period 1, so every
+    layer is period position 0).  Encoder layers are the same module
+    without ``cross``, run non-causal."""
 
     def __init__(self, cfg: ModelConfig, *, cross: bool = False,
                  device=None, dtype=None):
@@ -61,13 +70,22 @@ class DecoderLayer(nn.Module):
             self.norm_cross = init_norm(d, kind, device=device, dtype=dtype)
             self.cross_attn = Attention(cfg, device=device, dtype=dtype)
         self.norm2 = init_norm(d, kind, device=device, dtype=dtype)
-        self.mlp = MLP(cfg, device=device, dtype=dtype)
+        # "moe" or "mlp": the block's attribute, and its key in the JAX
+        # parameter tree and in the weight plans
+        self.ffn_key = "moe" if cfg.layer_is_moe(0) else "mlp"
+        self.add_module(self.ffn_key, (MoE if self.ffn_key == "moe" else MLP)(
+            cfg, device=device, dtype=dtype))
+
+    @property
+    def ffn(self):
+        """The layer's feed-forward block: its MoE or its MLP."""
+        return getattr(self, self.ffn_key)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.attn.reset_parameters(generator)
         if self.cross:
             self.cross_attn.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        self.ffn.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, cache=None,
@@ -76,7 +94,8 @@ class DecoderLayer(nn.Module):
                 causal: bool = True):
         """``cache``: a KVCache (decoder-only), an EncDecCache (a cross
         layer) or None; ``memory``: the encoder output at prefill, None
-        at decode.  Returns (x, the updated cache)."""
+        at decode.  Returns (x, the updated cache, the MoE's float32
+        auxiliary loss or None)."""
         plans = plans or {}
         kv, cross_kv = (cache if isinstance(cache, kvc.EncDecCache)
                         else (cache, None))
@@ -92,10 +111,12 @@ class DecoderLayer(nn.Module):
                 is_cross=True, update_cache=memory is not None)
             x = x + y
         h = apply_norm(self.norm2, x, cfg.norm_eps)
-        x = x + self.mlp(h, cfg, plans=plans.get("mlp"))
+        y = self.ffn(h, cfg, plans=plans.get(self.ffn_key))
+        y, aux = y if self.ffn_key == "moe" else (y, None)
+        x = x + y
         if isinstance(cache, kvc.EncDecCache):
-            return x, kvc.EncDecCache(kv=kv, cross_kv=cross_kv)
-        return x, kv
+            return x, kvc.EncDecCache(kv=kv, cross_kv=cross_kv), aux
+        return x, kv, aux
 
 
 class Transformer(nn.Module):
@@ -147,7 +168,7 @@ class Transformer(nn.Module):
                                           memory.dtype)[None]
         plans = wp.get("enc_layers") or [None] * len(self.enc_layers)
         for layer, lp in zip(self.enc_layers, plans):
-            x, _ = layer(x, cfg, positions=pos, plans=lp, causal=False)
+            x, _, _ = layer(x, cfg, positions=pos, plans=lp, causal=False)
         return apply_norm(self.enc_final_norm, x, cfg.norm_eps)
 
     def forward(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -161,7 +182,8 @@ class Transformer(nn.Module):
         in the cross caches), or (B, 1) positions, one per row, over the
         serving engine's paged caches.  ``weight_plans`` are cached weight
         activities from :func:`plan_weight_activities` (optional: without
-        them the sparse modes plan the weights per call)."""
+        them the sparse modes plan the weights per call).  ``aux_loss`` is
+        the sum of the MoE layers' load-balancing losses."""
         tokens = batch["tokens"]
         s = tokens.shape[1]
         act_dtype = (torch.bfloat16 if rc is None
@@ -183,10 +205,13 @@ class Transformer(nn.Module):
         layer_plans = (weight_plans["layers"] if weight_plans
                        else [None] * len(self.layers))
         new_caches = [] if caches is not None else None
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
-            x, c = layer(x, cfg, positions=positions,
-                         cache=caches[i] if caches is not None else None,
-                         plans=layer_plans[i], memory=memory)
+            x, c, aux = layer(x, cfg, positions=positions,
+                              cache=caches[i] if caches is not None else None,
+                              plans=layer_plans[i], memory=memory)
+            if aux is not None:
+                aux_total = aux_total + aux
             if new_caches is not None:
                 new_caches.append(c)
         x = apply_norm(self.final_norm, x, cfg.norm_eps)
@@ -199,7 +224,8 @@ class Transformer(nn.Module):
                                         x.dtype, cfg.sparse_slice_k,
                                         site=head_site),
                 head_site, cfg)
-        return ModelOutputs(logits=logits, caches=new_caches)
+        return ModelOutputs(logits=logits, caches=new_caches,
+                            aux_loss=aux_total)
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -219,10 +245,11 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
                            ) -> Optional[Dict]:
     """Weight-side slice activities for every dispatch-routed projection
     (built once at load; None in dense mode): ``{"layers": [{"attn":
-    {wq, wk, wv, wo}, ["cross_attn": {...},] "mlp": {w_up, w_down[,
-    @elem]}}, ...], "lm_head": ...}``, the attention weights flattened to
-    their 2-D dispatch shapes; an encoder-decoder adds ``"enc_layers"``
-    and the stem convs' ``"frontend"``.
+    {wq, wk, wv, wo}, ["cross_attn": {...},] "mlp" or "moe": {w_up,
+    w_down[, w_gate][, @elem]}}, ...], "lm_head": ...}``, the attention
+    weights flattened to their 2-D dispatch shapes, a MoE's over its
+    stacked (E, K, N) expert weights; an encoder-decoder adds
+    ``"enc_layers"`` and the stem convs' ``"frontend"``.
     """
     if cfg.sparse_mode == "dense":
         return None
@@ -241,9 +268,8 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
     def layer_plans(layer: DecoderLayer) -> Dict[str, Any]:
         out: Dict[str, Any] = {
             "attn": attn_plans(layer.attn),
-            "mlp": spw.plan_layer_weights(
-                {"w_up": layer.mlp.w_up, "w_down": layer.mlp.w_down},
-                slice_k=sk,
+            layer.ffn_key: spw.plan_layer_weights(
+                layer.ffn.weights(), slice_k=sk,
                 block_n=cfg.sparse_block_n if cfg.sparse_kcondense else None),
         }
         if layer.cross:

@@ -82,16 +82,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-def activate(h: torch.Tensor, kind: str, slice_k: int = pln.SLICE_K):
+def activate(h: torch.Tensor, kind: str, slice_k: int = pln.SLICE_K, *,
+             gate: Optional[torch.Tensor] = None):
     """The sparse-path MLP activation for the ported MLP kinds: relu and
-    relu2 make genuine zeros and return a :class:`SparseActivation`; gelu
-    is dense almost surely and returns a plain tensor, which the
-    dispatch plans from its values."""
+    relu2 make genuine zeros and return a :class:`SparseActivation`;
+    swiglu (``silu(gate) * h``, ``gate`` the gate projection) and gelu are
+    dense almost surely and return a plain tensor, which the dispatch
+    plans from its values."""
     if kind == "relu":
         return relu(h, slice_k)
     if kind == "relu2":
         return relu2(h, slice_k)
+    if kind == "swiglu":
+        if gate is None:
+            raise ValueError("swiglu needs the gate projection (gate=...)")
+        return torch.nn.functional.silu(gate) * h
     if kind == "gelu":
         return gelu(h)
-    raise ValueError(f"mlp_type {kind!r} is not ported (relu, relu2, gelu "
-                     "are)")
+    raise ValueError(f"mlp_type {kind!r} is not ported (relu, relu2, gelu, "
+                     "swiglu are)")

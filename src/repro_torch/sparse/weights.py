@@ -70,12 +70,13 @@ def plan_weight(w: torch.Tensor, mask: Optional[torch.Tensor] = None,
         elem_block_n=block_n or 0)
 
 
-def plan_layer_weights(params, keys=("w_up", "w_down"),
+def plan_layer_weights(params, keys=("w_up", "w_down", "w_gate"),
                        slice_k: int = pln.SLICE_K,
                        block_n: Optional[int] = None) -> dict:
-    """The plans dict for one layer's weights: slice activities at the
-    granularity the dispatch clamps to, keyed like the weights, plus
-    ``"<key>@elem"`` element activities when ``block_n`` is given."""
+    """The plans dict for one layer's weights (2-D, or an MoE layer's
+    stacked (E, K, N)): slice activities at the granularity the dispatch
+    clamps to, keyed like the weights, plus ``"<key>@elem"`` element
+    activities when ``block_n`` is given."""
     plans = {
         k: pln.slice_activity_rhs(
             params[k], pln.effective_slice_k(params[k].shape[-2], slice_k))

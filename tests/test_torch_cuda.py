@@ -1,5 +1,5 @@
-"""K1-K7, the sparse-KV decode, the whisper path and block pruning on the
-card against their plain versions and the CPU (needs an NVIDIA GPU with
+"""K1-K7, the sparse-KV decode, the whisper path, block pruning and the
+MoE expert products on the card against their plain versions and the CPU (needs an NVIDIA GPU with
 nvcc; skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
@@ -332,6 +332,91 @@ def test_grouped_kernels_empty_grids(cuda):
                                        slice_k=8)
         torch.cuda.synchronize()
         assert tuple(y.shape) == (e, c, 8)
+
+
+# the MoE path's expert products (bf16, unpruned weights): E experts'
+# capacity buffers (C rows) against their stacked (K, N) weights, every
+# other expert given no token (all its blocks counts == 0)
+MOE_EXPERTS = [  # (E, C, K, N)
+    (8, 24, 14336, 4096),     # mixtral-8x7b down, prefill capacity
+    (8, 8, 4096, 14336),      # mixtral-8x7b up / gate, decode
+    (128, 8, 4096, 1536),     # qwen3-moe-235b-a22b up / gate, decode
+]
+
+
+def _moe_case(dev, e, c, k, n):
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randn(e, c, k, device=dev, generator=g)
+    fill = torch.randint(1, c + 1, (e,), device=dev, generator=g)
+    fill[::2] = 0
+    a[torch.arange(c, device=dev)[None, :] >= fill[:, None]] = 0
+    b = torch.randn(e, k, n, device=dev, generator=g) * k ** -0.5
+    return a.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", MOE_EXPERTS)
+def test_grouped_moe_shapes_match_plain(cuda, shape):
+    """K3 and K4 at the served expert shapes, on the tensor-core route:
+    the empty experts write zeros, the rest agree with the plain walks."""
+    a, b = _moe_case(cuda, *shape)
+    e, c, k = a.shape
+    geom = dict(zip(("block_m", "block_n", "slice_k"),
+                    pln.clamp_geometry(c, b.shape[2], k, 128, 128, 128)))
+    ks, counts = gsk.plan_grouped(a, b, **geom)
+    kp = pln.plan_grouped_kcondensed(
+        pln.element_activity_lhs(a, geom["block_m"]),
+        pln.element_activity_rhs(b, geom["block_n"]), geom["slice_k"])
+    assert (counts[::2] == 0).all() and (counts[1::2] > 0).all()
+    assert _route(a, b, geom)[0] == "mma"
+    pairs = _grouped_pairs(a, b, ks, counts, kp, geom, None)
+    for y, _ in pairs:
+        assert not y[::2].any()
+    _assert_close(pairs, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_on_the_fly_entries_match_plain(cuda, dtype):
+    """``grouped_spgemm`` / ``grouped_spgemm_kfused``: planning, then one
+    K3 / K4 launch, equal to the plain walks of the same schedules."""
+    a, b, ks, counts, kp, geom = _grouped_case(cuda, 5, 37, 200, 50, 16,
+                                               16, 32, dtype)
+    n3 = gsk.grouped_spgemm_planned.launches
+    n4 = gsk.grouped_spgemm_kfused_planned.launches
+    y3 = gsk.grouped_spgemm(a, b, **geom)
+    y4 = gsk.grouped_spgemm_kfused(a, b, **geom)
+    torch.cuda.synchronize()
+    assert gsk.grouped_spgemm_planned.launches == n3 + 1
+    assert gsk.grouped_spgemm_kfused_planned.launches == n4 + 1
+    _assert_close([
+        (y3, gsk.grouped_spgemm_planned_plain(a, b, ks, counts, **geom)),
+        (y4, gsk.grouped_spgemm_kfused_planned_plain(a, b, kp.gk, kp.counts,
+                                                     **geom))], dtype)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b"])
+def test_moe_generate_matches_cpu(cuda, arch):
+    """The MoE smoke models on the card (K1 + K3, K2 + K4) emit the CPU
+    plain path's tokens, in float32, past mixtral-smoke's window."""
+    cfg = smoke_config(arch)
+    cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu",
+                         dtype=torch.float32)
+    gpu = tfm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu",
+                         dtype=torch.float32).to(cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    rc = RunConfig(act_dtype="float32")
+    for kc in (False, True):
+        c = dataclasses.replace(cfg, sparse_mode="dual",
+                                sparse_use_kernel=True, sparse_kcondense=kc)
+        n = gsk.grouped_spgemm_planned.launches + \
+            gsk.grouped_spgemm_kfused_planned.launches
+        want = serve_loop.generate(cpu, {"tokens": tokens}, c,
+                                   max_new_tokens=8, rc=rc, device="cpu")
+        got = serve_loop.generate(gpu, {"tokens": tokens}, c,
+                                  max_new_tokens=8, rc=rc)
+        assert torch.equal(want, got.cpu())
+        assert gsk.grouped_spgemm_planned.launches + \
+            gsk.grouped_spgemm_kfused_planned.launches == n + 3 * 2 * 8
 
 
 def test_sparse_kv_generate_matches_cpu(cuda):
