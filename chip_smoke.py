@@ -28,7 +28,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    types; each shape's route, splits, CUDA events and device time (the
    host's share between them) beside the bound, the bytes of B read, the
    plain version and ``torch.bmm`` over the whole capacity; the wrapper's
-   host time at the served shapes, by part;
+   host time at the served shapes, by part; then the dense GQA families'
+   first decode over a 32768-slot cache holding 3000 tokens (yi-34b G = 7,
+   qwen1.5-110b G = 8, chatglm3-6b G = 16): the score on the narrow route
+   at N = G and the value on the mixed route, K3 and K4 against their
+   plain walks, with route, splits, steps and times;
 5. conv kernels — K5, K6 and K7 bit-equal to their plain versions in bf16
    and float32 at whisper-base's stem shapes (4 segments, conv1 k=1x3 s=1
    over 80 mel bins, conv2 s=2 over 512 channels), the vision patch shape
@@ -152,6 +156,29 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    inputs: CUDA events, the profiler's device time, the bound from the
    schedules, the plain walks, and ``torch.bmm`` over every expert (what
    the JAX dense einsum computes).
+15. dense GQA families, traffic F — first the smoke models of yi-34b,
+   qwen1.5-110b and chatglm3-6b (random qkv biases) on the card against
+   the CPU plain path in float32: logits within 1e-4 x max and greedy
+   tokens equal in dense, dual and dual+kc, tokens equal in dual+kv on
+   int8 caches.  Then full-width ``qwen1.5-110b`` cut to 2 layers (random
+   bf16 weights and qkv biases from a seed) under the run table's
+   ``decode_32k`` config (int8 KV, KV chunks of 2048): 2 prompts of 3000
+   tokens into 32768-slot caches, 16 new tokens, on cached weight plans:
+   dense on int8 plain caches, dual (K1) and dual+kv (K1 + K3 on an int8
+   ``SparseKVCache``).  Each launches exactly 15 x 16 = 240 K1 and 2 x
+   layers x 15 = 60 K3 where it runs them, executes what it counts, and
+   dual+kv's scheduled share of cache-block steps equals the occupancy
+   reckoned from the positions; sparse logits within ``SERVE_RTOL`` x
+   max|dense| (prefill, and decode while the tokens agree), tokens
+   parting from dense only at top-2 ties.  Then dense on a bf16 cache
+   against the int8 one (reported), dual+kv through ``generate`` (its
+   tokens equal the cached-plan run's), and the ``Engine`` on an int8 pool
+   of 2 slots x 32768 in dual+kv (exact launches, the pool drains, tokens
+   against dense as above).  Last, the cached-plan dual+kv run's K1 and
+   K3 launches kept and every one held to its plain walk, then replayed:
+   CUDA events, device time, the bound, the plain walks' time and
+   ``torch.matmul`` / ``torch.bmm`` over every slot.  Numbers: tokens/s,
+   prefill ms, the decode-step median and peak memory per mode.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -248,6 +275,17 @@ CONV_RAGGED = [(1, 7, 9, 3, 3, 3, 1), (2, 9, 10, 2, 3, 3, 2),
                # stride 1 (K6, 43 output rows of a 56-row map)
                (1, 1, 70000, 2, 1, 3, 1), (1, 1, 5000, 2, 1, 4100, 1),
                (1, 56, 56, 3, 14, 14, 1)]
+
+
+# traffic F, a long-context decode on an int8 cache: full-width
+# qwen1.5-110b cut to F_LAYERS layers under its decode_32k run config, 2
+# prompts of 3000 tokens into 32768-slot caches, 16 new tokens
+DENSE_GQA = ("yi-34b", "qwen1.5-110b", "chatglm3-6b")
+QWEN15 = "qwen1.5-110b"
+F_LAYERS = 2
+F_PROMPTS, F_PROMPT_LEN, F_NEW, F_CAPACITY = 2, 3000, 16, 32768
+F_MODES = {"dense": MODES["dense"], "dual": MODES["dual"],
+           "dual+kv": dict(MODES["dual"], sparse_kv=True)}
 
 
 def whisper_k1_launches(cfg) -> int:
@@ -759,8 +797,8 @@ def site_geometry(cfg, op, c, n, k):
     return dict(block_m=bm, block_n=bn, slice_k=sk)
 
 
-def attention_products(torch, cfg, written, g):
-    """The decode attention's two grouped products over a CAPACITY-slot
+def attention_products(torch, cfg, written, g, capacity=CAPACITY):
+    """The decode attention's two grouped products over a ``capacity``-slot
     cache whose first ``written`` slots hold tokens, as
     ``attend_sparse`` builds them: E = prompts x KV heads problems, the
     schedule = the written slots.  Returns {site: (x, w)} in float32,
@@ -770,18 +808,18 @@ def attention_products(torch, cfg, written, g):
     dev = torch.device("cuda")
     e, grp, hd = KV_PROMPTS * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
         cfg.hd
-    sched = torch.arange(CAPACITY, device=dev) < written
-    k_e = torch.randn(e, CAPACITY, hd, device=dev, generator=g) \
+    sched = torch.arange(capacity, device=dev) < written
+    k_e = torch.randn(e, capacity, hd, device=dev, generator=g) \
         * sched[:, None]
     q_e = torch.randn(e, hd, grp, device=dev, generator=g)
-    p = torch.rand(e, grp, CAPACITY, device=dev, generator=g) * sched
-    v_e = torch.randn(e, CAPACITY, hd, device=dev, generator=g) \
+    p = torch.rand(e, grp, capacity, device=dev, generator=g) * sched
+    v_e = torch.randn(e, capacity, hd, device=dev, generator=g) \
         * sched[:, None]
     x_k = skvc.score_operand(
         k_e, sched, pln.effective_slice_k(hd, cfg.sparse_slice_k))
     x_p, w_v = skvc.value_operands(
         sched, p, v_e, sched,
-        pln.effective_slice_k(CAPACITY, cfg.sparse_block_t))
+        pln.effective_slice_k(capacity, cfg.sparse_block_t))
     return {"attn.score": (x_k, q_e), "attn.value": (x_p, w_v)}
 
 
@@ -1032,6 +1070,50 @@ def phase_grouped(torch, cfg):
         f"{tuple(geom.values())}, problem 2 empty: K3 and K4 agree with "
         "their plain versions (bf16, float32 and float32 x bf16 in; "
         "default/float32/bf16 out)")
+
+    # the dense GQA families' first decode over a 32768-slot cache that
+    # holds the 3000-token prompts: the score on the narrow route at N = G
+    # (7, 8, 16), the value on the mixed route, at the served types
+    from repro_torch.configs import get_config
+    for arch in DENSE_GQA:
+        fcfg = dataclasses.replace(get_config(arch), **KV_MODES["dual+kv"])
+        written = F_PROMPT_LEN + 1
+        ops = attention_products(torch, fcfg, written, g, F_CAPACITY)
+        for op, (x32, w32) in ops.items():
+            a32, b32 = operand_arrays(x32, w32)
+            e_, c, k, n = a32.shape[0], a32.shape[1], a32.shape[2], \
+                b32.shape[2]
+            geom = site_geometry(fcfg, op, c, n, k)
+            at, bt = (getattr(torch, t)
+                      for t in GROUPED_TYPES[served[op]])
+            x, w = as_dtype(x32, w32, at, bt)
+            line = [f"{arch} {op} E={e_} M={c} K={k} N={n} "
+                    f"{served[op]} in, {written} of {F_CAPACITY} slots "
+                    f"written, blocks {tuple(geom.values())}"]
+            for kn, (_, _, condense, src) in kernels.items():
+                y, p, kfn, _, a, b, sched, counts = pair(
+                    kn, x, w, geom, torch.float32)
+                e = check_pair(torch, kn, y, p, "float32", line[0])
+                err[kn] = max(err[kn], e)
+                kind = bsk.route(src, a.dtype, b.dtype, n, k)
+                want = "narrow" if op == "attn.score" else "mixed"
+                if kind != want:
+                    raise AssertionError(f"{line[0]}: {kn} on route {kind}, "
+                                         f"expected {want}")
+                dims = (e_, c, n, k, pln._cdiv(c, geom["block_m"]),
+                        pln._cdiv(n, geom["block_n"]),
+                        pln._cdiv(k, geom["slice_k"]))
+                splits = bsk.route_splits(kind, dims, geom["block_m"],
+                                          geom["block_n"], sms)
+                s = counts.numel() * (
+                    sched.gk.shape[-2] if condense else sched.shape[-1])
+                line.append(f"{kn} route {kind}, splits {splits}, steps "
+                            f"{int(counts.sum())} of {s}, err {e:.2e}, "
+                            f"{cuda_ms(torch, kfn, 10):.4f} ms events, "
+                            f"device {fmt_ms(device_ms(torch, kfn, 10))}")
+            log("grouped: " + "; ".join(line))
+        del ops
+        torch.cuda.empty_cache()
     return err, totals
 
 
@@ -1913,22 +1995,26 @@ PRUNE_SPARSITY = 0.5
 K1K2_KERNELS = ("spgemm_mma_kernel", "spgemm_tile_kernel", "split_sum_kernel")
 
 
-def serve_with_plans(torch, model, c, batch, new, plans):
+def serve_with_plans(torch, model, c, batch, new, plans, rc=None,
+                     capacity=None):
     """``serve_loop.generate``'s prefill and greedy decode steps over
     ``Transformer.forward``, every forward given ``plans`` (the cached
     weight plans, or None: each dispatch plans its weight per call), as
-    the JAX engine passes its plans to every prefill and decode.  Each
-    step ends in a synchronize.  Returns the tokens (B, new) on the host,
-    the prefill logits, the last position's logits of every step and the
-    ms of every step."""
+    the JAX engine passes its plans to every prefill and decode; caches of
+    ``capacity`` slots (default: the prompt and the new tokens), int8
+    under ``rc.kv_quant``.  Each step ends in a synchronize.  Returns the
+    tokens (B, new) on the host, the prefill logits, the last position's
+    logits of every step and the ms of every step."""
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import serve_loop
     b, s = batch["tokens"].shape
-    caches = tfm.init_caches(c, b, s + new)
+    caches = tfm.init_caches(c, b, capacity or s + new,
+                             quantized=bool(rc and rc.kv_quant))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = model(batch, c, caches=caches,
-                positions=torch.arange(s, device="cuda"), weight_plans=plans)
+                positions=torch.arange(s, device="cuda"), rc=rc,
+                weight_plans=plans)
     state = serve_loop.DecodeState(caches=out.caches,
                                    last_token=out.logits[:, -1:].argmax(-1),
                                    pos=s)
@@ -1940,7 +2026,7 @@ def serve_with_plans(torch, model, c, batch, new, plans):
         t0 = time.perf_counter()
         out = model({"tokens": state.last_token}, c, caches=state.caches,
                     positions=torch.tensor([state.pos], device="cuda"),
-                    weight_plans=plans)
+                    rc=rc, weight_plans=plans)
         lg = out.logits[:, 0]
         state = serve_loop.DecodeState(caches=out.caches,
                                        last_token=lg.argmax(-1)[:, None],
@@ -2324,8 +2410,9 @@ def held_to_plain(torch, eng, fn, stage="decode"):
     launch is checked and labelled ``stage``.  Launches are seen at
     ``bitmap_spgemm.run``, which all four wrappers call; the plain walk is
     not a launch and is not counted.  Returns {source: dict(n, err,
-    shapes)}, ``shapes`` the set of (stage, E, M, least, most scheduled
-    steps of a problem)."""
+    shapes, plain_ms)}, ``shapes`` the set of (stage, E, M, least, most
+    scheduled steps of a problem), ``plain_ms`` the plain walks' time by
+    CUDA events."""
     from repro_torch.kernels import bitmap_spgemm as bsk
     real_run = bsk.run
     label, seen = [stage], {}
@@ -2337,14 +2424,21 @@ def held_to_plain(torch, eng, fn, stage="decode"):
                      **geom, **kw)
         if label[0] == "prefill 1":
             return y
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         p = plain(a, b, sched, counts, out_dtype=out_dtype, **geom)
+        end.record()
+        end.synchronize()
         (e, m, k), n = a.shape, b.shape[-1]
         err = check_pair(torch, src, y, p, str(y.dtype).split(".")[-1],
                          f"{'engine ' if eng else ''}{label[0]} E={e} "
                          f"M={m} K={k} N={n}")
         steps = counts.reshape(e, -1).sum(1)
-        got = seen.setdefault(src, dict(n=0, err=0.0, shapes=set()))
+        got = seen.setdefault(src, dict(n=0, err=0.0, shapes=set(),
+                                        plain_ms=0.0))
         got["n"] += 1
+        got["plain_ms"] += start.elapsed_time(end)
         got["err"] = max(got["err"], err)
         got["shapes"].add((label[0], e, m, int(steps.min()),
                            int(steps.max())))
@@ -3424,24 +3518,41 @@ def moe_launches(cfg, forwards):
             (3 if cfg.mlp_type == "swiglu" else 2) * cfg.n_layers * forwards)
 
 
-def phase_reference_moe(torch):
-    """The MoE smoke models in float32: the card (K1/K2 in attention and
-    the head, K3/K4 over the experts, ``torch.bmm`` in dense mode) against
-    the CPU plain path, same weights and tokens: logits within 1e-4 x max,
-    the auxiliary loss within 1e-5, greedy tokens equal, in dense, dual and
-    dual+kc."""
+def seed_biases(torch, model, g):
+    """Random qkv biases from ``g`` (std 0.5) in every self-attention that
+    has them: ``init_model`` starts them at zero, as the JAX package does,
+    which would leave their path unexercised."""
+    with torch.no_grad():
+        for layer in model.layers:
+            if layer.attn.bias:
+                for b in (layer.attn.bq, layer.attn.bk, layer.attn.bv):
+                    b.copy_(0.5 * torch.randn(b.shape, generator=g,
+                                              device=g.device))
+
+
+def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False):
+    """The smoke models of ``archs`` in float32 (random qkv biases where
+    they have them): the card (K1/K2 in every projection, K3/K4 over MoE
+    experts and in the sparse-KV decode, ``torch.matmul`` / ``torch.bmm``
+    in dense mode) against the CPU plain path, same weights and ``2 x
+    prompt_len`` tokens: logits within 1e-4 x max, the auxiliary loss
+    within 1e-5 and ``new`` greedy tokens equal in dense, dual and
+    dual+kc; with ``int8_kv``, dual+kv on int8 caches (``rc.kv_quant``, a
+    48-slot context in 8-slot blocks), 7 tokens equal."""
     from repro_torch.configs import smoke_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import serve_loop
     rc = RunConfig(act_dtype="float32")
-    for arch in (MIXTRAL, QWEN3_MOE):
+    for arch in archs:
         cfg = smoke_config(arch)
         cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
                              device="cpu", dtype=torch.float32)
+        seed_biases(torch, cpu, torch.Generator().manual_seed(4))
         gpu = copy.deepcopy(cpu).to("cuda")
-        tokens = torch.randint(0, cfg.vocab_size, (2, MOE_SMOKE_PROMPT),
+        tokens = torch.randint(0, cfg.vocab_size, (2, prompt_len),
                                generator=torch.Generator().manual_seed(1))
+        errs = []
         for mode, knobs in MODES.items():
             c = dataclasses.replace(cfg, **knobs)
             want = cpu({"tokens": tokens}, c, rc=rc)
@@ -3454,19 +3565,35 @@ def phase_reference_moe(torch):
             if not aux_err <= 1e-5:
                 raise AssertionError(f"{arch}-smoke {mode}: card vs CPU "
                                      f"aux loss {aux_err}")
+            errs.append(f"{mode} {err:.2e}" + (f" (aux loss {aux_err:.1e})"
+                                               if cfg.n_experts else ""))
             tc = serve_loop.generate(cpu, {"tokens": tokens}, c,
-                                     max_new_tokens=MOE_SMOKE_NEW, rc=rc,
-                                     device="cpu")
+                                     max_new_tokens=new, rc=rc, device="cpu")
             tg = serve_loop.generate(gpu, {"tokens": tokens}, c,
-                                     max_new_tokens=MOE_SMOKE_NEW, rc=rc)
+                                     max_new_tokens=new, rc=rc)
             if not torch.equal(tc, tg.cpu()):
                 raise AssertionError(f"{arch}-smoke {mode}: tokens differ")
-            log(f"reference: {arch}-smoke {mode} on the card == CPU plain "
-                f"path (logits max err {err:.2e}, aux loss err "
-                f"{aux_err:.1e}, {MOE_SMOKE_NEW} greedy tokens equal, "
-                f"{MOE_SMOKE_PROMPT + MOE_SMOKE_NEW} positions"
-                + (f" past the {cfg.sliding_window}-token window"
-                   if cfg.sliding_window else "") + ")")
+        if int8_kv:
+            c = dataclasses.replace(cfg, sparse_block_t=8,
+                                    **KV_MODES["dual+kv"])
+            rc8 = dataclasses.replace(rc, kv_quant=True)
+            tc = serve_loop.generate(cpu, {"tokens": tokens}, c,
+                                     max_new_tokens=7, capacity=48, rc=rc8,
+                                     device="cpu")
+            tg = serve_loop.generate(gpu, {"tokens": tokens}, c,
+                                     max_new_tokens=7, capacity=48, rc=rc8)
+            if not torch.equal(tc, tg.cpu()):
+                raise AssertionError(f"{arch}-smoke dual+kv int8: tokens "
+                                     "differ")
+        log(f"reference: {arch}-smoke (G = {cfg.n_heads // cfg.n_kv_heads}"
+            f", qkv bias {cfg.qkv_bias}, rope {cfg.rope_style}) on the card "
+            f"== CPU plain path: logits max err " + ", ".join(errs)
+            + f"; {new} greedy tokens equal in each, "
+            f"{prompt_len + new} positions"
+            + (f" past the {cfg.sliding_window}-token window"
+               if cfg.sliding_window else "")
+            + ("; dual+kv on int8 caches, 7 tokens equal" if int8_kv
+               else ""))
 
 
 def record_launches(torch, fn):
@@ -3502,7 +3629,7 @@ def record_launches(torch, fn):
     return seen
 
 
-def replayed_numbers(torch, src, launches):
+def replayed_numbers(torch, src, launches, plain=True):
     """One generate's launches of the kernel in ``csrc/<src>`` replayed on
     the inputs they had: CUDA events and the profiler's device time of
     all of them, their plain walks, the PyTorch yardstick over the same
@@ -3510,7 +3637,8 @@ def replayed_numbers(torch, src, launches):
     and the bound (:func:`needed_work` on each launch's schedule, a K2/K4
     launch's on its ``KPlan``).  Times in ms, for the whole generate;
     ``shapes`` counts the launches by (E, M, K, N, route, splits),
-    ``sched_mb`` is the schedules' size."""
+    ``sched_mb`` is the schedules' size.  ``plain=False`` leaves the plain
+    walks out (``plain_ms`` None)."""
     from repro_torch.kernels import bitmap_spgemm as bsk
     nbytes = flops = b_bytes = sched_bytes = op_s = 0.0
     shapes, lib_ops = {}, []
@@ -3552,7 +3680,7 @@ def replayed_numbers(torch, src, launches):
     return dict(n=len(launches), shapes=shapes, sched_mb=sched_bytes / 1e6,
                 ms=cuda_ms(torch, kernels, 3),
                 device_ms=device_ms(torch, kernels, 3),
-                plain_ms=cuda_ms(torch, plains, 1),
+                plain_ms=cuda_ms(torch, plains, 1) if plain else None,
                 library_ms=cuda_ms(torch, library, 3),
                 library_device_ms=device_ms(torch, library, 3),
                 bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -3945,6 +4073,256 @@ def phase_moe(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dense GQA families, traffic F
+# ---------------------------------------------------------------------------
+
+def f_attention_share(tape, entries, cfg, s):
+    """The scheduled share of cache-block steps of the decode's attention
+    products on the tape, against the share reckoned from the positions:
+    decode step t (1 .. F_NEW - 1) attends the s + t slots written, in
+    ceil((s + t) / block_t) of the F_CAPACITY / block_t blocks.  Returns
+    {site: (counted, dense)}; raises unless counted / dense equals it."""
+    bt = cfg.sparse_block_t
+    live = sum(-(-(s + t) // bt) for t in range(1, F_NEW))
+    total = (F_NEW - 1) * (F_CAPACITY // bt)
+    sites = site_steps(tape, entries)
+    out = {}
+    for name in ("attn.score", "attn.value"):
+        dense, counted, executed = sites[name]
+        if not (counted * total == dense * live and executed == counted):
+            raise AssertionError(
+                f"traffic F {name}: {counted} of {dense} steps scheduled "
+                f"({executed} executed), the positions reckon {live} of "
+                f"{total} blocks")
+        out[name] = (counted, dense)
+    return out, live / total
+
+
+def phase_dense_gqa(torch, smi):
+    """Phase 15, traffic F (see the module docstring).  Returns {K-name:
+    numbers} of the cached-plan dual+kv run's K1 and K3 launches."""
+    from repro_torch.configs import get_config, get_run_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.sparse import tape
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(QWEN15), n_layers=F_LAYERS)
+    rc = get_run_config(QWEN15, "decode_32k")
+    if not (rc.kv_quant and rc.attn_chunk == 2048):
+        raise AssertionError(f"{QWEN15} decode_32k run config {rc}")
+    model = make_model(torch, cfg)
+    seed_biases(torch, model, torch.Generator(device="cuda").manual_seed(4))
+    prompts = torch.randint(0, cfg.vocab_size, (F_PROMPTS, F_PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(6))
+    batch = {"tokens": prompts.cuda()}
+    b, s = prompts.shape
+    counters = kernel_counters()
+    per_forward = 7 * cfg.n_layers + 1     # q/k/v/o, up/gate/down; head
+    n1 = per_forward * F_NEW
+    n3 = 2 * cfg.n_layers * (F_NEW - 1)
+    expect = {"dense": {}, "dual": {"K1": n1},
+              "dual+kv": {"K1": n1, "K3": n3}}
+
+    def launches_of(what, want):
+        got = {kn: fn.launches for kn, fn in counters.items()}
+        want = {kn: want.get(kn, 0) for kn in counters}
+        if got != want:
+            raise AssertionError(f"traffic F {what}: launches {got}, "
+                                 f"expected {want}")
+        return {k: v for k, v in got.items() if v}
+
+    # untimed: each mode's first products at these shapes, a short prompt
+    warm = {"tokens": batch["tokens"][:, :64]}
+    plans = {}
+    for mode, knobs in F_MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        plans[mode] = tfm.plan_weight_activities(model, c)
+        serve_with_plans(torch, model, c, warm, 2, plans[mode], rc=rc,
+                         capacity=F_CAPACITY)
+    runs = {}
+    for mode, knobs in F_MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            out = serve_with_plans(torch, model, c, batch, F_NEW,
+                                   plans[mode], rc=rc, capacity=F_CAPACITY)
+        wall = (time.perf_counter() - t0) * 1e3
+        got = launches_of(f"{mode} run", expect[mode])
+        rows = tape_rows(tape, entries)
+        if mode != "dense":
+            bad = [row for row in rows if row[2] != row[3]]
+            if bad:
+                raise AssertionError(f"traffic F {mode}: executed != counted"
+                                     f" at {bad[:3]}")
+        if not (torch.isfinite(out["prefill"]).all()
+                and all(torch.isfinite(st).all() for st in out["steps"])):
+            raise AssertionError(f"traffic F {mode}: non-finite logits")
+        share = None
+        if mode == "dual+kv":
+            share = f_attention_share(tape, entries, c, s)
+        r = runs[mode] = dict(out, wall=wall,
+                              peak=torch.cuda.max_memory_allocated() / 1e9)
+        t = out["times"]
+        log(f"traffic F: {cfg.name} ({cfg.n_layers} layers) {mode} on int8 "
+            f"{F_CAPACITY}-slot caches, cached plans: "
+            f"{b * F_NEW / wall * 1e3:.2f} tokens/s ({wall:.0f} ms, stats "
+            f"tape on), prefill {t[0]:.1f} ms, decode steps median "
+            f"{statistics.median(t[1:]):.2f} ms, peak memory "
+            f"{r['peak']:.1f} GB, launches {got}"
+            + ("" if share is None else
+               f"; scheduled share of cache-block steps {share[1]:.4f} "
+               "(= the positions' occupancy): " + ", ".join(
+                   f"{k} {v[0]}/{v[1]}" for k, v in share[0].items()))
+            + f"; {smi}")
+        if mode != "dense":
+            # against dense on the same int8 caches: prefill logits, the
+            # decode logits while the rows' tokens agree, the parting
+            dense = runs["dense"]
+            tol = SERVE_RTOL * dense["prefill"].abs().max().item()
+            pre_err = max((r["prefill"][i] - dense["prefill"][i]).abs()
+                          .max().item() for i in range(b))
+            parted = parted_at(r["tokens"], dense["tokens"])
+            dec_err = max([(r["steps"][t][i] - dense["steps"][t][i]).abs()
+                           .max().item() for t in range(1, F_NEW)
+                           for i in range(b) if t <= parted[i]] or [0.0])
+            if not (pre_err <= tol and dec_err <= tol):
+                raise AssertionError(
+                    f"traffic F {mode}: logits differ from dense by "
+                    f"{pre_err:.4f} (prefill) / {dec_err:.4f} (decode) > "
+                    f"{tol:.4f}")
+            agree = parting_report(torch, f"traffic F {mode}", r["tokens"],
+                                   dense["tokens"], dense["steps"], tol)
+            log(f"traffic F: {mode} vs dense: max |diff| {pre_err:.4f} "
+                f"(prefill), {dec_err:.4f} (decodes while the tokens agree) "
+                f"<= {tol:.4f} ({SERVE_RTOL} x max|dense|); "
+                + "; ".join(agree))
+            del r["prefill"]
+    del runs["dense"]["prefill"]
+
+    # the same dense run on a bf16 cache, reported against the int8 one
+    c = dataclasses.replace(cfg, **F_MODES["dense"])
+    rc16 = dataclasses.replace(rc, kv_quant=False)
+    bf = serve_with_plans(torch, model, c, batch, F_NEW, None, rc=rc16,
+                          capacity=F_CAPACITY)
+    dense = runs["dense"]
+    parted = parted_at(bf["tokens"], dense["tokens"])
+    diff = max([(bf["steps"][t][i] - dense["steps"][t][i]).abs().max().item()
+                for t in range(F_NEW) for i in range(b) if t <= parted[i]])
+    same = (bf["tokens"] == dense["tokens"]).float().mean().item()
+    log(f"traffic F: dense on a bf16 cache against the int8 one (not "
+        f"gated): max |logit diff| {diff:.4f} over the steps while the "
+        f"tokens agree (max|logit| "
+        f"{max(st.abs().max().item() for st in dense['steps']):.2f}), "
+        f"{same:.1%} of the {b * F_NEW} tokens equal, rows part at "
+        f"{[parted[i] for i in range(b)]}; decode median "
+        f"{statistics.median(bf['times'][1:]):.2f} ms against "
+        f"{statistics.median(dense['times'][1:]):.2f}")
+    del bf
+
+    # serve_loop.generate (per-call plans) builds the int8 caches itself
+    c = dataclasses.replace(cfg, **F_MODES["dual+kv"])
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve_loop.generate(model, batch, c, max_new_tokens=F_NEW,
+                               capacity=F_CAPACITY, rc=rc)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    got = launches_of("dual+kv generate", expect["dual+kv"])
+    if not torch.equal(toks.cpu(), runs["dual+kv"]["tokens"]):
+        raise AssertionError("traffic F: generate's tokens != the cached-plan"
+                             " run's")
+    log(f"traffic F: dual+kv through serve_loop.generate (per-call plans, "
+        f"rc {QWEN15} decode_32k): {b * F_NEW / wall * 1e3:.2f} tokens/s "
+        f"({wall:.0f} ms), launches {got}, tokens == the cached-plan run's")
+
+    # the paged engine on an int8 pool, 2 slots of F_CAPACITY
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, c, serve=ServeConfig(slots=F_PROMPTS,
+                                             capacity=F_CAPACITY), rc=rc)
+    if not all(cc.quantized for cc in eng.caches):
+        raise AssertionError("traffic F: the engine's pool is not int8")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid in range(b):
+        eng.submit(Request(uid=uid, prompt=prompts[uid].tolist(),
+                           max_new_tokens=F_NEW))
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    st = eng.stats()
+    got = launches_of("engine", {
+        "K1": per_forward * (st["prefill_calls"] + st["decode_calls"]),
+        "K3": 2 * cfg.n_layers * st["decode_calls"]})
+    etoks = torch.tensor([r.output for r in sorted(done,
+                                                   key=lambda r: r.uid)],
+                         dtype=torch.int32)
+    if tuple(etoks.shape) != (b, F_NEW) or st["pages_free"] != \
+            st["pages_total"]:
+        raise AssertionError(f"traffic F engine: tokens {etoks.shape}, "
+                             f"stats {st}")
+    tol = SERVE_RTOL * max(x.abs().max().item() for x in dense["steps"])
+    agree = parting_report(torch, "traffic F engine", etoks, dense["tokens"],
+                           dense["steps"], tol)
+    log(f"traffic F: Engine, dual+kv on an int8 pool of {eng.n_pages} "
+        f"pages x {eng.page} slots ({F_PROMPTS} slots x {F_CAPACITY}): "
+        f"{b * F_NEW / wall * 1e3:.2f} tokens/s ({wall:.0f} ms, "
+        f"{st['prefill_calls']} prefill and {st['decode_calls']} decode "
+        f"calls), launches {got}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; against dense: "
+        + "; ".join(agree))
+    del eng, done
+    torch.cuda.empty_cache()
+
+    # the cached-plan dual+kv run again, every K1 and K3 launch held to its
+    # plain walk as it runs and kept, then replayed for the device time
+    launches = {}
+
+    def recorded():
+        launches.update(record_launches(torch, lambda: serve_with_plans(
+            torch, model, c, batch, F_NEW, plans["dual+kv"], rc=rc,
+            capacity=F_CAPACITY)))
+    held = held_to_plain(torch, None, recorded, "traffic F")
+    numbers = {}
+    for kn, src in (("K1", "bitmap_spgemm.cu"), ("K3", "grouped_spgemm.cu")):
+        got = launches.get(src, [])
+        if not len(got) == held[src]["n"] == expect["dual+kv"][kn]:
+            raise AssertionError(f"traffic F: {len(got)} {kn} launches "
+                                 f"recorded, {held[src]['n']} held, "
+                                 f"{expect['dual+kv'][kn]} counted")
+        t = replayed_numbers(torch, src, got, plain=False)
+        numbers[kn] = dict(t, launches=len(got),
+                           max_abs_err=held[src]["err"],
+                           plain_ms=held[src]["plain_ms"])
+        log(f"traffic F: dual+kv {kn}: all {len(got)} launches of a "
+            f"generate held to their plain walks (max err "
+            f"{held[src]['err']:.2e}); {t['ms']:.3f} ms events, device "
+            f"{fmt_ms(t['device_ms'])}, bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']} ({t['nbytes'] / 1e9:.4f} GB, "
+            f"{t['flops'] / 1e12:.3f} TFLOP), plain "
+            f"{held[src]['plain_ms']:.1f} ms, "
+            + (f"torch.bmm over all {F_CAPACITY} slots" if kn == "K3"
+               else "torch.matmul") + f" {t['library_ms']:.3f} ms (device "
+            f"{fmt_ms(t['library_device_ms'])}); launches by (E, M, K, N, "
+            "route, splits): " + ", ".join(
+                f"{k} x{n}" for k, n in sorted(t["shapes"].items()))
+            + f"; {smi}")
+    del launches, model, plans
+    torch.cuda.empty_cache()
+    log(f"traffic F: phase {time.perf_counter() - t_phase:.0f} s")
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3991,8 +4369,11 @@ def main() -> int:
     del wmodel
     torch.cuda.empty_cache()
     phase_paper(torch)
-    phase_reference_moe(torch)
+    phase_reference_smoke(torch, (MIXTRAL, QWEN3_MOE), MOE_SMOKE_PROMPT,
+                          MOE_SMOKE_NEW)
     moe = phase_moe(torch, smi)
+    phase_reference_smoke(torch, DENSE_GQA, 9, 6, int8_kv=True)
+    dense_gqa = phase_dense_gqa(torch, smi)
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -4074,6 +4455,15 @@ def main() -> int:
                 "ms": m["ms"], "device_ms": m["device_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+        if kn in dense_gqa:
+            # traffic F (phase 15): qwen1.5-110b's cached-plan dual+kv
+            # generate on int8 32768-slot caches, its launches replayed
+            m = dense_gqa[kn]
+            rows[-1]["traffic_f"] = {
+                "launches": m["launches"], "max_abs_err": m["max_abs_err"],
+                "ms": m["ms"], "device_ms": m["device_ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
     log(f"kernels line: ms, plain_ms, bound_ms and library_ms are summed "
         f"over one generate's launches at the served types: K1/K2 bf16 over "
         f"{13 * NEW_TOKENS} dispatches (1 prefill of {PROMPTS * PROMPT_LEN} "
@@ -4088,7 +4478,12 @@ def main() -> int:
         f"each must move; under \"moe\", K1-K4 over one cached-plan "
         f"generate of traffic E on {MIXTRAL} (dual: K1 + K3, dual+kc: K2 + "
         f"K4), replayed on the launches' inputs, ms CUDA events, library_ms "
-        f"torch.bmm over every expert (K3/K4) or the product (K1/K2); total "
+        f"torch.bmm over every expert (K3/K4) or the product (K1/K2); under "
+        f"\"traffic_f\", K1 and K3 over one cached-plan dual+kv generate of "
+        f"traffic F on {QWEN15} ({F_PROMPTS} x {F_PROMPT_LEN} tokens, "
+        f"{F_NEW} new, int8 {F_CAPACITY}-slot caches), replayed alike, "
+        f"plain_ms the plain walks of the held replay, library_ms torch.bmm "
+        f"over every slot (K3) or the product (K1); total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,14 @@ A copy of the JAX package's ``configs/base.py`` cut to the families this
 package serves: the decoder-only dense family, the decoder-only
 mixture-of-experts family and the audio encoder-decoder with its conv
 stem.  Field names, defaults and the frontend and dense-mode checks are
-the same, so one configuration means the same model in both packages.
+the same, so one configuration means the same model in both packages;
+the shapes table and the run knobs likewise.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +30,7 @@ class ModelConfig:
     rope_style: str = "half"       # half | 2d (chatglm) | none
     abs_positions: bool = False    # sinusoidal absolute positions (whisper)
     rope_theta: float = 10000.0
+    qkv_bias: bool = False
     sliding_window: int = 0        # 0 = full attention
     # mlp
     mlp_type: str = "swiglu"       # swiglu | relu2 | gelu | relu
@@ -63,6 +66,8 @@ class ModelConfig:
     norm_kind: str = "rms"         # rms | layer
     norm_eps: float = 1e-5
     tie_embeddings: bool = False   # only untied heads are ported
+    # sub-quadratic capability (decides long_500k applicability)
+    subquadratic: bool = False
 
     def __post_init__(self):
         # conv-frontend geometry must be consistent at config time, not
@@ -122,9 +127,35 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (input-shape) cell."""
+    name: str                      # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                      # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Execution knobs this package reads."""
+    """Execution knobs per (arch x shape).  Serving reads ``act_dtype``,
+    ``kv_quant`` and ``attn_chunk``; the training fields are kept so that
+    the run table is the JAX package's, and nothing reads them yet."""
+    microbatches: int = 1          # gradient-accumulation steps
     act_dtype: str = "bfloat16"    # bfloat16 | float32
+    accum_dtype: str = "float32"   # gradient-accumulator dtype
+    optimizer: str = "adamw"       # adamw | adamw_bf16 | adafactor
+    kv_quant: bool = False         # int8 KV cache
+    attn_chunk: int = 2048         # KV-chunked attention threshold/size
 
 
 @dataclasses.dataclass(frozen=True)

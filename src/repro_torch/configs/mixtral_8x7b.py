@@ -2,11 +2,7 @@
 (arXiv:2401.04088).
 
 32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=32000; SWA window 4096
-makes the KV cache O(window).
-
-The JAX package's copy also registers per-run overrides (microbatches,
-optimizer) for its training runs; the port's registry has no run table,
-so they are left out.
+makes the KV cache O(window) → long_500k runnable.
 """
 from repro_torch.configs import register
 from repro_torch.configs.base import ModelConfig
@@ -27,7 +23,11 @@ CONFIG = register(
         rope_style="half",
         rope_theta=1_000_000.0,
         mlp_type="swiglu",
-    ))
+        subquadratic=True,     # SWA: long_500k decodes against the window
+    ),
+    run_overrides={
+        "train_4k": dict(microbatches=16, optimizer="adamw_bf16"),
+    })
 
 SMOKE = register(
     ModelConfig(
@@ -44,4 +44,5 @@ SMOKE = register(
         sliding_window=16,
         rope_style="half",
         mlp_type="swiglu",
+        subquadratic=True,
     ))

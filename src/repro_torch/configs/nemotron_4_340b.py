@@ -20,7 +20,12 @@ CONFIG = register(
         vocab_size=256000,
         rope_style="half",
         mlp_type="relu2",
-    ))
+    ),
+    run_overrides={
+        "train_4k": dict(microbatches=16, optimizer="adafactor",
+                         accum_dtype="bfloat16"),
+        "decode_32k": dict(kv_quant=True),
+    })
 
 SMOKE = register(
     ModelConfig(

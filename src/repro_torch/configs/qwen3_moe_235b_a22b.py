@@ -2,10 +2,6 @@
 (hf:Qwen/Qwen3-30B-A3B scaled family; head_dim=128 per HF config).
 
 94L d_model=4096 64H (GQA kv=4) per-expert d_ff=1536 vocab=151936.
-
-The JAX package's copy also registers per-run overrides (training
-microbatches, a quantized KV cache for its 32k decode run); the port's
-registry has no run table, so they are left out.
 """
 from repro_torch.configs import register
 from repro_torch.configs.base import ModelConfig
@@ -27,7 +23,12 @@ CONFIG = register(
         rope_style="half",
         rope_theta=1_000_000.0,
         mlp_type="swiglu",
-    ))
+    ),
+    run_overrides={
+        "train_4k": dict(microbatches=16, optimizer="adamw_bf16",
+                         accum_dtype="bfloat16"),
+        "decode_32k": dict(kv_quant=True),
+    })
 
 SMOKE = register(
     ModelConfig(

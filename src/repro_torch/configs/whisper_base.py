@@ -30,7 +30,10 @@ CONFIG = register(
         mlp_type="gelu",
         norm_kind="layer",
         norm_eps=1e-5,
-    ))
+    ),
+    run_overrides={
+        "train_4k": dict(microbatches=4),
+    })
 
 SMOKE = register(
     ModelConfig(

@@ -5,8 +5,11 @@
 
 Submits ``--requests`` short prompts to an :class:`~repro_torch.serving.
 engine.Engine`, drains it, and prints each request's tokens and the
-tokens per second.  The weights are random, drawn from seed 0.  It runs
-on the card unless ``--device cpu`` is given, and raises without one.
+tokens per second.  The weights are random, drawn from seed 0.  A smoke
+config runs on the default :class:`RunConfig`; a full config on the run
+table's ``decode_32k`` entry for its arch (``get_run_config``), which
+makes the KV pool int8 where the table sets ``kv_quant``.  It runs on the
+card unless ``--device cpu`` is given, and raises without one.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import get_config, get_run_config, smoke_config
+from repro_torch.configs.base import RunConfig
 from repro_torch.core import device as devmod
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.engine import Engine, Request
@@ -34,12 +38,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="torch device; default the card (cuda)")
     args = ap.parse_args(argv)
 
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.smoke:
+        cfg, rc = smoke_config(args.arch), RunConfig()
+    else:
+        cfg = get_config(args.arch)
+        rc = get_run_config(args.arch, "decode_32k")
     dev = devmod.resolve(args.device)
     model = tfm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     engine = Engine(model, cfg, slots=args.slots, capacity=args.capacity,
-                    device=dev)
+                    rc=rc, device=dev)
     t0 = time.perf_counter()
     for uid in range(args.requests):
         engine.submit(Request(uid=uid, prompt=[1 + uid, 2, 3],

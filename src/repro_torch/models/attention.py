@@ -3,9 +3,10 @@ encoder-decoder's non-causal self-attention and cross-attention.
 
 Grouped-query attention never materialises repeated KV heads (an explicit
 group dim), and the softmax runs in float32.  ``Attention.forward`` is the
-JAX package's ``attention_forward`` (no qkv bias, no int8 cache); its
-KV-chunked long-context path (``chunk``) is not ported — this
-:func:`attend` is the single-block path, the same function up to rounding.
+JAX package's ``attention_forward``, qkv biases and int8 caches included.
+Long KV runs chunked (:func:`attend`'s ``chunk``): a running log-sum-exp
+over KV chunks, a Python loop where the JAX package scans, which keeps the
+scores O(Sq·chunk) and dequantises an int8 cache one chunk at a time.
 Decode over a :class:`~repro_torch.sparse.kvcache.SparseKVCache`, or
 over the serving engine's paged pool, in a sparse mode runs
 :func:`attend_sparse`.
@@ -75,18 +76,21 @@ def _attend_block(q, k, v, qpos, kpos, window):
     """
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
                           k.to(torch.float32))
-    scores = scores * (q.shape[-1] ** -0.5)
+    scores.mul_(q.shape[-1] ** -0.5)
     kp = kpos[..., None, :]
     qp = qpos[..., :, None]
     valid = (kp >= 0) & (kp <= qp)
     if window is not None:
         valid &= kp > (qp - window)
-    # (1|B, 1, 1, Sq, Skv)
-    vb = valid[:, None, None] if valid.ndim == 3 else valid[None, None, None]
-    scores = torch.where(vb, scores, NEG_INF)
+    # (1|B, 1, 1, Sq, Skv); the score-sized temporaries are updated in
+    # place, so a long prefill's chunk holds two of them at most
+    hidden = ~(valid[:, None, None] if valid.ndim == 3
+               else valid[None, None, None])
+    scores.masked_fill_(hidden, NEG_INF)
     m = scores.amax(-1)                          # (B, KV, G, Sq)
-    e = torch.exp(scores - m[..., None])
-    e = torch.where(vb, e, 0.0)
+    e = torch.exp(scores.sub_(m[..., None]))
+    del scores
+    e.masked_fill_(hidden, 0.0)
     l = e.sum(-1)
     acc = torch.einsum("bkgqs,bskd->bqkgd", e, v.to(torch.float32))
     return acc, m.movedim(3, 1), l.movedim(3, 1)
@@ -94,12 +98,47 @@ def _attend_block(q, k, v, qpos, kpos, window):
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            qpos: torch.Tensor, kpos: torch.Tensor,
-           window: Optional[int] = None) -> torch.Tensor:
-    """Masked GQA attention.  q: (B,Sq,H,hd), k/v: (B,Skv,KVH,hd)."""
+           window: Optional[int] = None, chunk: int = 0,
+           k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked GQA attention.  q: (B,Sq,H,hd), k/v: (B,Skv,KVH,hd).
+
+    ``chunk`` > 0 with Skv > chunk and Skv a multiple of it runs a running
+    log-sum-exp over the KV chunks (scores O(Sq·chunk) instead of
+    O(Sq·Skv)); otherwise one block.  k/v may be int8 with per-(token,
+    head) ``k_scale``/``v_scale`` (B, Skv, KVH, 1): each chunk is then
+    dequantised on its own, so no full-precision copy of the cache is
+    made.
+    """
     b, sq, h, hd = q.shape
-    kvh = k.shape[2]
-    qg = q.reshape(b, sq, kvh, h // kvh, hd)
-    acc, _, l = _attend_block(qg, k, v, qpos, kpos, window)
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+
+    def block(lo, hi):
+        kb, vb = k[:, lo:hi], v[:, lo:hi]
+        if k_scale is not None:
+            kb = kvc.dequantize(kb, k_scale[:, lo:hi], q.dtype)
+            vb = kvc.dequantize(vb, v_scale[:, lo:hi], q.dtype)
+        return _attend_block(qg, kb, vb, qpos, kpos[..., lo:hi], window)
+
+    if chunk and skv > chunk and skv % chunk == 0:
+        acc = torch.zeros((b, sq, kvh, g, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for lo in range(0, skv, chunk):
+            a2, m2, l2 = block(lo, lo + chunk)
+            m_new = torch.maximum(m, m2)
+            c1 = torch.exp(m - m_new)
+            c2 = torch.exp(m2 - m_new)
+            acc = acc * c1[..., None] + a2 * c2[..., None]
+            l = l * c1 + l2 * c2
+            m = m_new
+            del a2
+    else:
+        acc, _, l = block(0, skv)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
@@ -140,11 +179,16 @@ def attend_sparse(q: torch.Tensor, cache, cfg: ModelConfig, *,
     g = h // kvh
     ne = b * kvh
 
+    # an int8 cache is dequantised as the dense decode branches do
     if isinstance(cache, skvc.PagedSparseKVCache):
         kd, vd = skvc.paged_read(cache, dtype=q.dtype)
         occ = skvc.paged_occupancy_mask(cache)           # (B, T)
     else:
-        kd, vd, _ = kvc.read(cache, dtype=q.dtype)
+        if cache.quantized:
+            kd = kvc.dequantize(cache.k, cache.k_scale, q.dtype)
+            vd = kvc.dequantize(cache.v, cache.v_scale, q.dtype)
+        else:
+            kd, vd, _ = kvc.read(cache, dtype=q.dtype)
         occ = skvc.occupancy_mask(cache)                 # (T,)
     k_e = kd.transpose(1, 2).reshape(ne, t, hd)
     v_e = vd.transpose(1, 2).reshape(ne, t, hd)
@@ -211,9 +255,11 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, name: str,
 
 class Attention(nn.Module):
     """Attention weights in the JAX layouts: wq (d, h, hd), wk/wv (d, kv,
-    hd), wo (h, hd, d)."""
+    hd), wo (h, hd, d); with ``cfg.qkv_bias`` a self-attention (not
+    ``cross``) adds biases bq (h, hd) and bk/bv (kv, hd)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, *, cross: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         hd, h, kv, d = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
 
@@ -224,11 +270,21 @@ class Attention(nn.Module):
         self.wk = param(d, kv, hd)
         self.wv = param(d, kv, hd)
         self.wo = param(h, hd, d)
+        self.bias = cfg.qkv_bias and not cross
+        if self.bias:
+            self.bq = param(h, hd)
+            self.bk = param(kv, hd)
+            self.bv = param(kv, hd)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
+        """Normal weights of stddev d^-0.5 and zero biases, as the JAX
+        package initialises them."""
         std = self.wq.shape[0] ** -0.5
         for w in (self.wq, self.wk, self.wv, self.wo):
             w.normal_(0.0, std, generator=generator)
+        if self.bias:
+            for b in (self.bq, self.bk, self.bv):
+                b.zero_()
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor,
@@ -237,7 +293,8 @@ class Attention(nn.Module):
                 kv_source: Optional[torch.Tensor] = None,
                 is_cross: bool = False,
                 causal: bool = True,
-                update_cache: bool = True
+                update_cache: bool = True,
+                chunk: int = 0
                 ) -> Tuple[torch.Tensor, Optional[kvc.KVCache]]:
         """Projections + attend (+ cache write) + output: the JAX
         package's ``attention_forward``.
@@ -250,7 +307,8 @@ class Attention(nn.Module):
         it projects no K/V and reads the cache.  x: (B, S, D); positions:
         (S,) absolute positions of x, or (B, S) per row (the paged decode
         over a :class:`~repro_torch.sparse.kvcache.PagedSparseKVCache`).
-        Returns (y (B, S, D), the updated cache or None).
+        ``chunk`` is :func:`attend`'s KV chunk.  Returns (y (B, S, D), the
+        updated cache or None).
         """
         if is_cross:
             causal = False
@@ -260,6 +318,8 @@ class Attention(nn.Module):
         plans = plans or {}
         q = _proj(x, self.wq.to(x.dtype), cfg, "attn.q",
                   plan_act=plans.get("wq"))
+        if self.bias:
+            q = q + self.bq.to(q.dtype)
         k = v = None
         if kv_source is not None or cache is None or update_cache:
             src = x if kv_source is None else kv_source
@@ -267,6 +327,9 @@ class Attention(nn.Module):
                       plan_act=plans.get("wk"))
             v = _proj(src, self.wv.to(x.dtype), cfg, "attn.v",
                       plan_act=plans.get("wv"))
+            if self.bias:
+                k = k + self.bk.to(k.dtype)
+                v = v + self.bv.to(v.dtype)
         if not is_cross:
             q = apply_rope(q, positions, cfg.rope_style, cfg.rope_theta)
             if k is not None:
@@ -290,21 +353,33 @@ class Attention(nn.Module):
                 # through the grouped dispatch
                 out = attend_sparse(q, cache, cfg, qpos=qpos, kpos=kpos,
                                     window=window)
-            elif paged:
+            elif paged and cache.quantized:
                 # dense-mode paged decode: the logical per-slot view under
-                # the shared masked attend (per-row positions)
+                # the shared masked attend (per-row positions); an int8
+                # pool's codes and scales go in raw, dequantised per chunk
+                kp_, vp_, ksp, vsp = skvc.paged_view(cache, scales=True)
+                out = attend(q, kp_, vp_, qpos=qpos, kpos=kpos,
+                             window=window, chunk=chunk, k_scale=ksp,
+                             v_scale=vsp)
+            elif paged:
                 kd, vd = skvc.paged_read(cache, dtype=x.dtype)
-                out = attend(q, kd, vd, qpos=qpos, kpos=kpos, window=window)
+                out = attend(q, kd, vd, qpos=qpos, kpos=kpos, window=window,
+                             chunk=chunk)
+            elif cache.quantized:
+                out = attend(q, cache.k, cache.v, qpos=qpos, kpos=kpos,
+                             window=window, chunk=chunk,
+                             k_scale=cache.k_scale, v_scale=cache.v_scale)
             else:
                 kd, vd, _ = kvc.read(cache, dtype=x.dtype)
-                out = attend(q, kd, vd, qpos=qpos, kpos=kpos, window=window)
+                out = attend(q, kd, vd, qpos=qpos, kpos=kpos, window=window,
+                             chunk=chunk)
         elif causal:
             out = attend(q, k, v, qpos=positions, kpos=positions,
-                         window=window)
+                         window=window, chunk=chunk)
         else:
             qpos = torch.full((x.shape[1],), NOT_CAUSAL, device=x.device)
             kpos = torch.arange(k.shape[1], device=x.device)
-            out = attend(q, k, v, qpos=qpos, kpos=kpos)
+            out = attend(q, k, v, qpos=qpos, kpos=kpos, chunk=chunk)
         y = _proj(out, self.wo.to(x.dtype), cfg, "attn.out", n_contract=2,
                   plan_act=plans.get("wo"))
         return y, cache

@@ -6,7 +6,8 @@ The JAX pytree is layer-stacked: ``params["layers"]["pos0"][...]`` (and
 an encoder-decoder's ``params["enc_layers"]["pos0"][...]``) has a leading
 layer axis (the period is 1 for the ported families), which is unstacked
 here into the port's per-layer modules: a MoE layer's ``moe`` leaves
-(router, stacked expert weights) as its ``mlp`` leaves are.  Layouts are the
+(router, stacked expert weights) as its ``mlp`` leaves are, and a
+self-attention's qkv biases ``bq``/``bk``/``bv`` beside its weights.  Layouts are the
 same on both sides, so each leaf is a plain copy.
 """
 from __future__ import annotations
@@ -40,9 +41,11 @@ def from_jax_params(tree, cfg: ModelConfig, device=None,
                 for key, p in getattr(layer, norm).items():
                     put(p, stack[norm][key][i])
             for blk in ("attn", "cross_attn") if layer.cross else ("attn",):
-                for key in ("wq", "wk", "wv", "wo"):
-                    put(getattr(getattr(layer, blk), key),
-                        stack[blk][key][i])
+                attn = getattr(layer, blk)
+                keys = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv")
+                                                   if attn.bias else ())
+                for key in keys:
+                    put(getattr(attn, key), stack[blk][key][i])
             ffn = layer.ffn_key
             keys = tuple(layer.ffn.weights()) + (("router",) if ffn == "moe"
                                                  else ())

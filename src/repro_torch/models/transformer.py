@@ -68,7 +68,8 @@ class DecoderLayer(nn.Module):
         self.cross = cross
         if cross:
             self.norm_cross = init_norm(d, kind, device=device, dtype=dtype)
-            self.cross_attn = Attention(cfg, device=device, dtype=dtype)
+            self.cross_attn = Attention(cfg, cross=True, device=device,
+                                        dtype=dtype)
         self.norm2 = init_norm(d, kind, device=device, dtype=dtype)
         # "moe" or "mlp": the block's attribute, and its key in the JAX
         # parameter tree and in the weight plans
@@ -91,24 +92,25 @@ class DecoderLayer(nn.Module):
                 positions: torch.Tensor, cache=None,
                 plans: Optional[Dict] = None,
                 memory: Optional[torch.Tensor] = None,
-                causal: bool = True):
+                causal: bool = True, chunk: int = 0):
         """``cache``: a KVCache (decoder-only), an EncDecCache (a cross
         layer) or None; ``memory``: the encoder output at prefill, None
-        at decode.  Returns (x, the updated cache, the MoE's float32
-        auxiliary loss or None)."""
+        at decode; ``chunk``: attention's KV chunk.  Returns (x, the
+        updated cache, the MoE's float32 auxiliary loss or None)."""
         plans = plans or {}
         kv, cross_kv = (cache if isinstance(cache, kvc.EncDecCache)
                         else (cache, None))
         h = apply_norm(self.norm1, x, cfg.norm_eps)
         y, kv = self.attn(h, cfg, positions=positions, cache=kv,
-                          plans=plans.get("attn"), causal=causal)
+                          plans=plans.get("attn"), causal=causal,
+                          chunk=chunk)
         x = x + y
         if self.cross:
             h = apply_norm(self.norm_cross, x, cfg.norm_eps)
             y, cross_kv = self.cross_attn(
                 h, cfg, positions=positions, cache=cross_kv,
                 plans=plans.get("cross_attn"), kv_source=memory,
-                is_cross=True, update_cache=memory is not None)
+                is_cross=True, update_cache=memory is not None, chunk=chunk)
             x = x + y
         h = apply_norm(self.norm2, x, cfg.norm_eps)
         y = self.ffn(h, cfg, plans=plans.get(self.ffn_key))
@@ -156,7 +158,8 @@ class Transformer(nn.Module):
                 layer.reset_parameters(generator)
 
     def encode(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               dtype, weight_plans: Optional[Dict] = None) -> torch.Tensor:
+               dtype, weight_plans: Optional[Dict] = None,
+               chunk: int = 0) -> torch.Tensor:
         """The encoder memory: conv frontend over ``batch["mel"]``,
         sinusoidal positions, the non-causal encoder stack, its norm."""
         wp = weight_plans or {}
@@ -168,7 +171,8 @@ class Transformer(nn.Module):
                                           memory.dtype)[None]
         plans = wp.get("enc_layers") or [None] * len(self.enc_layers)
         for layer, lp in zip(self.enc_layers, plans):
-            x, _, _ = layer(x, cfg, positions=pos, plans=lp, causal=False)
+            x, _, _ = layer(x, cfg, positions=pos, plans=lp, causal=False,
+                            chunk=chunk)
         return apply_norm(self.enc_final_norm, x, cfg.norm_eps)
 
     def forward(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -183,9 +187,11 @@ class Transformer(nn.Module):
         serving engine's paged caches.  ``weight_plans`` are cached weight
         activities from :func:`plan_weight_activities` (optional: without
         them the sparse modes plan the weights per call).  ``aux_loss`` is
-        the sum of the MoE layers' load-balancing losses."""
+        the sum of the MoE layers' load-balancing losses.  Attention runs
+        KV-chunked at ``rc.attn_chunk`` (2048 without ``rc``)."""
         tokens = batch["tokens"]
         s = tokens.shape[1]
+        chunk = rc.attn_chunk if rc else 2048
         act_dtype = (torch.bfloat16 if rc is None
                      or rc.act_dtype == "bfloat16" else torch.float32)
         x = self.embed[tokens].to(act_dtype)
@@ -194,7 +200,8 @@ class Transformer(nn.Module):
         memory = None
         if cfg.is_encoder_decoder:
             if "mel" in batch:
-                memory = self.encode(batch, cfg, act_dtype, weight_plans)
+                memory = self.encode(batch, cfg, act_dtype, weight_plans,
+                                     chunk)
             elif caches is None:
                 raise ValueError(f"{cfg.name}: forward needs batch['mel'] "
                                  "or filled cross caches")
@@ -209,7 +216,8 @@ class Transformer(nn.Module):
         for i, layer in enumerate(self.layers):
             x, c, aux = layer(x, cfg, positions=positions,
                               cache=caches[i] if caches is not None else None,
-                              plans=layer_plans[i], memory=memory)
+                              plans=layer_plans[i], memory=memory,
+                              chunk=chunk)
             if aux is not None:
                 aux_total = aux_total + aux
             if new_caches is not None:
@@ -287,10 +295,11 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
 
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
-                dtype=torch.bfloat16, sparse: Optional[bool] = None,
-                full_history: bool = False, device=None) -> List[Any]:
+                quantized: bool = False, dtype=torch.bfloat16,
+                sparse: Optional[bool] = None, full_history: bool = False,
+                device=None) -> List[Any]:
     """One cache per decoder layer, bf16 whatever the activation dtype, as
-    in the JAX package.
+    in the JAX package, or int8 with scales when ``quantized``.
 
     ``sparse`` (default: ``cfg.sparse_kv`` in a non-dense sparse mode)
     allocates :class:`~repro_torch.sparse.kvcache.SparseKVCache` s of the
@@ -303,7 +312,7 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
     ``insert_prefill`` can lift contiguous rows into pool pages.  An
     encoder-decoder's layers hold
     :class:`~repro_torch.models.cache.EncDecCache` s, each with a cross
-    cache of ``encoder_len`` slots.
+    cache of ``encoder_len`` slots (bf16 always, as in the JAX package).
     """
     dev = devmod.resolve(device)
     if sparse is None:
@@ -313,11 +322,13 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
         if sparse:
             return skvc.init_sparse_cache(
                 batch, capacity, cfg.n_kv_heads, cfg.hd, dtype=dtype,
-                window=capacity, block_t=cfg.sparse_block_t, device=dev)
+                quantized=quantized, window=capacity,
+                block_t=cfg.sparse_block_t, device=dev)
         ring = (capacity if full_history
                 else min(cfg.sliding_window or capacity, capacity))
         return kvc.init_cache(batch, ring, cfg.n_kv_heads, cfg.hd,
-                              dtype=dtype, window=ring, device=dev)
+                              dtype=dtype, quantized=quantized, window=ring,
+                              device=dev)
 
     if not cfg.is_encoder_decoder:
         return [self_cache() for _ in range(cfg.n_layers)]
@@ -331,11 +342,12 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
 
 def init_paged_caches(cfg: ModelConfig, slots: int, pages: int,
                       page_size: int, capacity: int, *,
-                      dtype=torch.bfloat16, device=None) -> List[Any]:
+                      quantized: bool = False, dtype=torch.bfloat16,
+                      device=None) -> List[Any]:
     """The continuous-batching engine's decode caches: one
     :class:`~repro_torch.sparse.kvcache.PagedSparseKVCache` per decoder
-    layer, each its own page pool of ``pages`` pages with per-slot block
-    tables.  Encoder-decoder stacks are not paged (their memory K/V are
+    layer, each its own page pool of ``pages`` pages (int8 with scales
+    when ``quantized``) with per-slot block tables.  Encoder-decoder stacks are not paged (their memory K/V are
     per request and fixed in size): they raise ``ValueError``, as in the
     JAX package."""
     if cfg.is_encoder_decoder:
@@ -344,5 +356,5 @@ def init_paged_caches(cfg: ModelConfig, slots: int, pages: int,
     dev = devmod.resolve(device)
     return [skvc.init_paged_cache(slots, pages, page_size, capacity,
                                   cfg.n_kv_heads, cfg.hd, dtype=dtype,
-                                  device=dev)
+                                  quantized=quantized, device=dev)
             for _ in range(cfg.n_layers)]

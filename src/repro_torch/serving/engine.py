@@ -34,8 +34,9 @@ unfinished requests rather than dropping in-flight work.
 
 Not ported yet: the invariant validators (``validate_state``), fault
 injection (the ``nan_logits`` poison operand and ``preemption_storm``),
-``autotune_keys``, int8 pools, and the legacy per-slot control plane of
+``autotune_keys``, and the legacy per-slot control plane of
 encoder-decoder stacks — an encoder-decoder config raises ``ValueError``.
+With ``rc.kv_quant`` the page pools and the prefill caches are int8.
 """
 from __future__ import annotations
 
@@ -125,6 +126,7 @@ class Engine:
         self.slots = serve.slots
         self.capacity = serve.capacity      # retire bound (user-visible)
         self.eos_id = serve.eos_id
+        self.quantized = bool(rc and rc.kv_quant)
 
         # page geometry: page size == the sparse planner's block_t, so a
         # page's occupied count is the schedule's block entry
@@ -171,7 +173,7 @@ class Engine:
         with torch.inference_mode():
             self.caches = tfm.init_paged_caches(
                 cfg, self.slots, self.n_pages, self.page, self.cap_pages,
-                device=self.dev)
+                quantized=self.quantized, device=self.dev)
         self.table_host = np.zeros((self.slots, self.n_blocks), np.int32)
         self._table_dirty = False
 
@@ -238,7 +240,7 @@ class Engine:
         if toks.ndim == 1:
             toks = toks[None]
         caches = tfm.init_caches(self.cfg, toks.shape[0], self.capacity,
-                                 device=self.dev)
+                                 quantized=self.quantized, device=self.dev)
         with tape.collect() as entries:
             out = self.model({"tokens": toks}, self.cfg, caches=caches,
                              positions=torch.arange(toks.shape[1],
@@ -270,6 +272,7 @@ class Engine:
             out.append({"name": f"kvcache.pos0.layer{i}",
                         "written_frac": rep["written_frac"],
                         "evicted_frac": rep["evicted_frac"],
+                        "quantized": rep["quantized"],
                         "capacity": rep["capacity"],
                         "block_t": rep["block_t"],
                         "n_blocks": rep["n_blocks"]})
@@ -541,7 +544,8 @@ class Engine:
                 lens[r_i] = len(p)
             # fresh per call: the port's caches are written in place
             pre = tfm.init_caches(self.cfg, n, lpad, sparse=False,
-                                  full_history=True, device=self.dev)
+                                  full_history=True,
+                                  quantized=self.quantized, device=self.dev)
             pre, nxt, ok = self._prefill_impl(
                 torch.as_tensor(toks, device=self.dev),
                 torch.as_tensor(lens, device=self.dev), pre)

@@ -60,8 +60,8 @@ def generate(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
     Returns exactly ``max_new_tokens`` int32 tokens per row (the
     prefill's argmax is the first).  ``batch``: {"tokens": (B, S)}, plus
     "mel" (B, T, n_mels) for an encoder-decoder, which only the prefill
-    sees.  ``device=None`` means the card; the model must live on
-    ``device``.
+    sees.  ``rc.kv_quant`` makes the caches int8.  ``device=None`` means
+    the card; the model must live on ``device``.
     """
     dev = devmod.resolve(device)
     devmod.check_on(model.embed, dev, "the model")
@@ -73,7 +73,7 @@ def generate(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
     if max_new_tokens <= 0:
         return torch.zeros((b, 0), dtype=torch.int32, device=dev)
     caches = tfm.init_caches(cfg, b, capacity or (s + max_new_tokens),
-                             device=dev)
+                             quantized=bool(rc and rc.kv_quant), device=dev)
     prefill = make_prefill_step(cfg, rc)
     decode = make_decode_step(cfg, rc)
     state, _ = prefill(model, first, caches)

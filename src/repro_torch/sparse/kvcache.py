@@ -25,7 +25,9 @@ KV-head stacked problems:
 
 The occupancy words are int32 bit patterns, as in
 :mod:`repro_torch.core.bitmap`.  One bitmap per layer serves every batch
-row: all rows share the cursor.
+row: all rows share the cursor.  Both caches, and the paged pool, may be
+int8 with per-(token, head) scales (``quantized=True``), as
+:mod:`repro_torch.models.cache` quantises them.
 """
 from __future__ import annotations
 
@@ -70,14 +72,16 @@ def occupancy_mask(cache: SparseKVCache) -> torch.Tensor:
 
 
 def init_sparse_cache(batch: int, capacity: int, n_kv: int, hd: int, *,
-                      dtype=torch.bfloat16, window: int = 0,
-                      block_t: int = 32, device=None) -> SparseKVCache:
+                      dtype=torch.bfloat16, quantized: bool = False,
+                      window: int = 0, block_t: int = 32,
+                      device=None) -> SparseKVCache:
     """A zero-occupancy sparse cache (the geometry of ``init_cache``)."""
     base = kvc.init_cache(batch, capacity, n_kv, hd, dtype=dtype,
-                          window=window, device=device)
+                          quantized=quantized, window=window, device=device)
     nb = -(-capacity // max(1, block_t))
     return SparseKVCache(
         k=base.k, v=base.v, pos=base.pos, window=base.window,
+        k_scale=base.k_scale, v_scale=base.v_scale,
         occ=bm.pack_bits_padded(torch.zeros(capacity, dtype=torch.bool,
                                             device=device)),
         blk=torch.zeros(nb, dtype=torch.int32, device=device))
@@ -122,6 +126,7 @@ def occupancy_report(cache: SparseKVCache,
         "written_frac": int(cache.blk.sum()) / cache.capacity,
         "evicted_frac": evicted / max(cache.pos, 1),
         "live_slots": live,
+        "quantized": cache.quantized,
         "capacity": cache.capacity,
         "block_t": cache.block_t,
         "n_blocks": cache.n_blocks,
@@ -187,10 +192,13 @@ class PagedSparseKVCache:
     of an inactive slot's) points at it, so the batched decode write of
     an idle slot lands somewhere harmless without per-slot control flow.
     The allocator (:mod:`repro_torch.serving.scheduler`) hands out pages
-    1..P.  Unlike the JAX package's pool there are no scales (no int8 KV)
-    and no stacked layer axis.
+    1..P.  Unlike the JAX package's pool there is no stacked layer axis.
 
-    k/v    : (P+1, page, KV, hd) physical pool, written in place
+    k/v    : (P+1, page, KV, hd) physical pool (bf16 or int8), written in
+             place
+    k_scale/
+    v_scale: (P+1, page, KV, 1) float32 scales of an int8 pool; None for
+             bf16
     pos    : (B,) int32 tokens written per slot
     window : logical ring size (== capacity: the engine retires a request
              before its cache wraps and applies a model window as a mask)
@@ -205,6 +213,12 @@ class PagedSparseKVCache:
     table: torch.Tensor
     occ: torch.Tensor
     blk: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     @property
     def page_size(self) -> int:
@@ -230,23 +244,29 @@ class PagedSparseKVCache:
 
 def init_paged_cache(slots: int, pages: int, page_size: int, capacity: int,
                      n_kv: int, hd: int, *, dtype=torch.bfloat16,
+                     quantized: bool = False,
                      device=None) -> PagedSparseKVCache:
-    """Zero pool of ``pages`` usable pages plus the trash page, empty
-    tables (every block → page 0).  ``capacity`` must be a page multiple
-    (the engine rounds it up)."""
+    """Zero pool of ``pages`` usable pages plus the trash page (int8 with
+    unit scales when ``quantized``), empty tables (every block → page 0).
+    ``capacity`` must be a page multiple (the engine rounds it up)."""
     if capacity % page_size:
         raise ValueError(f"capacity {capacity} is not a multiple of the "
                          f"page size {page_size}")
     nb = capacity // page_size
     shape = (pages + 1, page_size, n_kv, hd)
+    kv_dtype = torch.int8 if quantized else dtype
 
     def zeros(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
+    scales = ({} if not quantized else {
+        name: torch.ones((*shape[:-1], 1), dtype=torch.float32,
+                         device=device)
+        for name in ("k_scale", "v_scale")})
     return PagedSparseKVCache(
-        k=zeros(*shape, dtype=dtype), v=zeros(*shape, dtype=dtype),
+        k=zeros(*shape, dtype=kv_dtype), v=zeros(*shape, dtype=kv_dtype),
         pos=zeros(slots), window=capacity, table=zeros(slots, nb),
         occ=bm.pack_bits_padded(zeros(slots, capacity, dtype=torch.bool)),
-        blk=zeros(slots, nb))
+        blk=zeros(slots, nb), **scales)
 
 
 def paged_occupancy_mask(cache: PagedSparseKVCache) -> torch.Tensor:
@@ -260,25 +280,35 @@ def paged_key_positions(cache: PagedSparseKVCache) -> torch.Tensor:
     return kvc.key_positions_at(cache.pos, cache.window, cache.capacity)
 
 
-def paged_view(cache: PagedSparseKVCache
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def paged_view(cache: PagedSparseKVCache, scales: bool = False
+               ) -> Tuple[torch.Tensor, ...]:
     """Gather the logical (B, capacity, KV, hd) K/V view of the pool
-    through the block tables.  Blocks mapped to the trash page read stale
-    values; every consumer masks by occupancy and visibility first."""
+    through the block tables, in the pool's type (int8 stays int8); with
+    ``scales``, an int8 pool's (B, capacity, KV, 1) scales follow.
+    Blocks mapped to the trash page read stale values; every consumer
+    masks by occupancy and visibility first."""
     b, nb = cache.table.shape
 
     def gather(pool):
         return pool[cache.table].reshape(b, nb * cache.page_size,
                                          *pool.shape[2:])
+    if scales:
+        return (gather(cache.k), gather(cache.v), gather(cache.k_scale),
+                gather(cache.v_scale))
     return gather(cache.k), gather(cache.v)
 
 
 def paged_read(cache: PagedSparseKVCache, dtype=torch.bfloat16
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The logical K/V view in ``dtype``: the block-table gather plus a
-    cast.  The JAX package multiplies its unquantised pool by float32
-    scales of one and rounds back, which is exact, so the values are the
-    same."""
+    cast, an int8 pool dequantised first as the decode branches of
+    ``attention`` dequantise (:func:`~repro_torch.models.cache.dequantize`).
+    The JAX package
+    multiplies its unquantised pool by float32 scales of one and rounds
+    back, which is exact, so the values are the same."""
+    if cache.quantized:
+        k, v, ks, vs = paged_view(cache, scales=True)
+        return kvc.dequantize(k, ks, dtype), kvc.dequantize(v, vs, dtype)
     k, v = paged_view(cache)
     return k.to(dtype), v.to(dtype)
 
@@ -288,11 +318,12 @@ def paged_update(cache: PagedSparseKVCache, k_new: torch.Tensor,
     """Batched single-token decode append across all slots, in place on
     the pool.
 
-    k_new/v_new: (B, 1, KV, hd).  Each slot writes the page its table maps
-    its ring cursor to; a slot whose block is unmapped (an inactive slot,
-    or a cursor the host has not backed yet) writes the trash page, where
-    several such slots may write the same offset — a harmless race.
-    Occupancy follows the closed-form ring mask, per slot.
+    k_new/v_new: (B, 1, KV, hd), quantised first in an int8 pool.  Each
+    slot writes the page its table maps its ring cursor to; a slot whose
+    block is unmapped (an inactive slot, or a cursor the host has not
+    backed yet) writes the trash page, where several such slots may write
+    the same offset — a harmless race.  Occupancy follows the closed-form
+    ring mask, per slot.
     """
     if k_new.shape[-3] != 1:
         raise ValueError("paged caches take batched single-token appends")
@@ -301,8 +332,8 @@ def paged_update(cache: PagedSparseKVCache, k_new: torch.Tensor,
     lb = (slot // page).long()
     off = (slot % page).long()
     pp = cache.table.gather(1, lb[:, None])[:, 0].long()
-    cache.k[pp, off] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[pp, off] = v_new[:, 0].to(cache.v.dtype)
+    for pool, upd in kvc.write_pairs(cache, k_new, v_new):
+        pool[pp, off] = upd[:, 0]
     written = kvc.written_slot_mask(cache.pos, cache.window,
                                     cache.capacity, 1)
     occ_slots = paged_occupancy_mask(cache) | written
@@ -328,7 +359,10 @@ def insert_prefill(cache: PagedSparseKVCache, pre: kvc.KVCache, row: int,
     nbr = len(pages)
     need = nbr * page
     idx = torch.as_tensor(pages, dtype=torch.long, device=cache.k.device)
-    for pool, src in ((cache.k, pre.k), (cache.v, pre.v)):
+    pairs = [(cache.k, pre.k), (cache.v, pre.v)]
+    if cache.quantized:
+        pairs += [(cache.k_scale, pre.k_scale), (cache.v_scale, pre.v_scale)]
+    for pool, src in pairs:
         r = src[row, :need]
         if r.shape[0] < need:
             r = torch.nn.functional.pad(r, (0, 0, 0, 0, 0, need - r.shape[0]))
@@ -362,6 +396,7 @@ def paged_occupancy_report(cache: PagedSparseKVCache,
                           for m in (cache.table > 0).sum(-1).tolist()],
         "capacity": cache.capacity,
         "block_t": cache.page_size,
+        "quantized": cache.quantized,
         "n_blocks": cache.n_blocks,
         "n_pages": cache.n_pages,
     }

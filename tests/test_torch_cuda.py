@@ -252,6 +252,11 @@ NARROW = [  # (E, C, K, N, block_m, block_n, slice_k)
     (3, 100, 90, 12, 64, 12, 40),       # K and slice_k off the 8-grid
     (5, 37, 200, 16, 16, 16, 32),
     (3, 300, 256, 12, 100, 6, 128),     # 2 column tiles, 2 warps a tile
+    # the dense GQA families' scores over 32768 slots: yi-34b's odd G = 7,
+    # qwen1.5-110b's 8 and chatglm3-6b's 16 (= NARROW_N)
+    (16, 32768, 128, 7, 32, 7, 128),
+    (16, 32768, 128, 8, 32, 8, 128),
+    (4, 32768, 128, 16, 32, 16, 128),
 ]
 
 
@@ -259,13 +264,51 @@ NARROW = [  # (E, C, K, N, block_m, block_n, slice_k)
 @pytest.mark.parametrize("out_dtype", [None, torch.float32])
 def test_grouped_narrow_route_matches_plain(cuda, shape, out_dtype):
     """bf16 products of at most 16 columns: the narrow-N tensor-core
-    kernel, N in {1, 8, 12, 16}."""
+    kernel, N in {1, 7, 8, 12, 16}."""
     a, b, ks, counts, kp, geom = _grouped_case(cuda, *shape, torch.bfloat16)
     assert _route(a, b, geom) == ("narrow", 1)
     pairs = _grouped_pairs(a, b, ks, counts, kp, geom, out_dtype)
     for y, _ in pairs:
         assert not y[2].any()
     _assert_close(pairs, out_dtype or torch.bfloat16)
+
+
+def test_int8_attend_sparse_long_cache_matches_cpu(cuda):
+    """One decode step of qwen1.5-110b's attention (8 KV heads, G = 8,
+    head 128) over an int8 SparseKVCache of 32768 slots holding 3001
+    tokens: the card's codes equal the CPU's, and the output (K3 on the
+    narrow and mixed routes) agrees with the CPU plain walk."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import cache as kvc
+    from repro_torch.sparse import kvcache as skvc
+    cfg = dataclasses.replace(get_config("qwen1.5-110b"), sparse_mode="dual",
+                              sparse_use_kernel=True, sparse_kv=True)
+    b, t, kvh, hd, s = 2, 32768, cfg.n_kv_heads, cfg.hd, 3000
+    g = torch.Generator().manual_seed(2)
+    writes = [(torch.randn(b, n, kvh, hd, generator=g).to(torch.bfloat16),
+               torch.randn(b, n, kvh, hd, generator=g).to(torch.bfloat16))
+              for n in (s, 1)]
+    q = torch.randn(b, 1, cfg.n_heads, hd, generator=g).to(torch.bfloat16)
+    got = {}
+    for dev in ("cpu", cuda):
+        c = skvc.init_sparse_cache(b, t, kvh, hd, quantized=True,
+                                   block_t=cfg.sparse_block_t, device=dev)
+        for k_new, v_new in writes:
+            c = skvc.update(c, k_new.to(dev), v_new.to(dev))
+        n3 = gsk.grouped_spgemm_planned.launches
+        out = attn.attend_sparse(q.to(dev), c, cfg,
+                                 qpos=torch.tensor([s], device=dev),
+                                 kpos=kvc.key_positions(c))
+        got[str(dev)] = (c, out.cpu(), gsk.grouped_spgemm_planned.launches
+                         - n3)
+    (cc, want, n_cpu), (gc, out, n_gpu) = got["cpu"], got[str(cuda)]
+    assert (n_cpu, n_gpu) == (0, 2)
+    assert torch.equal(gc.k.cpu(), cc.k) and torch.equal(gc.v.cpu(), cc.v)
+    torch.testing.assert_close(gc.k_scale.cpu(), cc.k_scale, rtol=1e-7,
+                               atol=0)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
 
 
 MIXED = [
