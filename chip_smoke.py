@@ -180,6 +180,40 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    ``torch.matmul`` / ``torch.bmm`` over every slot.  Numbers: tokens/s,
    prefill ms, the decode-step median and peak memory per mode.
 
+16. Mamba2 and the hybrid, traffics G and H — first the smoke models of
+   mamba2-370m (tied head) and jamba-1.5-large (cut to one period of 8
+   layers: attention + 7 Mamba, MoE at odd positions) on the card
+   against the CPU plain path as in 15.  Then traffic G: full-width
+   ``jamba-1.5-large-398b`` cut to 2 layers (attention + dense SwiGLU,
+   Mamba + MoE of 16 experts top-2; 11.9 B random bf16 parameters from a
+   seed) under its ``decode_32k`` run config (int8 KV, chunks of 2048),
+   traffic F's 2 x 3000 prompt tokens into 32768-slot caches, 16 new, on
+   cached weight plans: dense, dual (K1 + K3 on the experts), dual+kv (K1
+   + K3, int8 ``SparseKVCache``) and dual+kc+kv (K2 + K4), each with exact
+   launches (K1/K2 8 and K3/K4 3 a forward, K3/K4 2 a decode's
+   attention), executing what it counts, the sparse-KV modes' scheduled
+   share of cache-block steps equal to the positions' reckoning; against
+   dense, routing flips only at near-ties, prefill logits within
+   ``SERVE_RTOL`` on the tokens routed alike and tokens parting only at
+   top-2 ties or after a flip, as in 14; the Mamba layer's SSD scan and
+   causal conv as shares of one prefill's and one decode's device time;
+   dual+kv through ``generate`` (the same tokens) and the ``Engine`` on an
+   int8 pool of 2 slots x 32768 with per-slot SSM state (exact launches,
+   tokens parting from generate's only at top-2 ties); then every launch
+   of a dual+kv and of a dual+kc+kv generate held to its plain walk and
+   replayed for device time, bound, ``torch.bmm`` over every expert or
+   slot.  Then traffic H: ``mamba2-370m`` whole (48 layers, 0.37 B
+   parameters, tied head) through ``generate``, 4 prompts of 2048 tokens,
+   32 new, dense and dual (K1 on the tied head, planned per call): exact
+   launches, dual logits within ``SERVE_RTOL`` of dense and tokens parting
+   only at ties; one forward over 2048 + 31 tokens against the prefill and
+   the 31 decode steps (continuity, bf16); the tied head's per-call plan
+   and contiguous copy timed; the SSD shares; the ``Engine`` on 4 slots
+   with 8 requests of 256-2048 prompt tokens and 32 new each, every
+   request's tokens against its own batch-1 generate; the dual generate's
+   K1 launches held to their plain walks and replayed.  Numbers: tokens/s,
+   prefill ms, the decode-step median and peak memory per mode.
+
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, it exits non-zero and prints no result.
@@ -3353,6 +3387,11 @@ def fig22_convs(torch, layers, blocks=CONV_BLOCKS):
             hold_conv_to_plain(torch, xb, wb, what)
         refb = spconv.conv2d_ref(xb.float(), wb.float(), layer.stride)
         scaleb = refb.abs().max().item()
+        # K6's yardstick on this path: F.unfold's dense im2col of the same
+        # bf16 map (NCHW), the profiler's device time
+        xn = xb.permute(0, 3, 1, 2).contiguous()
+        unfold_ms = device_ms(torch, lambda: torch.nn.functional.unfold(
+            xn, (w.shape[0], w.shape[1]), stride=layer.stride), reps=3)
         for mode in ("dual", "dual+kc"):
             t, yb = conv_split(torch, xb, wb, layer.stride,
                                CONV_MODES[mode][1], blocks[2])
@@ -3371,7 +3410,8 @@ def fig22_convs(torch, layers, blocks=CONV_BLOCKS):
                 f"{fmt_ms(t['K6'])} (bound {t['K6 bound']:.4f}) + {kn} "
                 f"{fmt_ms(t['K1/K2'])} + other ops {fmt_ms(t['device_rest'])}"
                 f"; planning {t['planning']:.3f}, lowering glue "
-                f"{t['glue']:.3f} (events); F.conv2d bf16 "
+                f"{t['glue']:.3f} (events); F.unfold bf16 device "
+                f"{fmt_ms(unfold_ms)}; F.conv2d bf16 "
                 f"{t['F.conv2d']:.3f} (device {fmt_ms(t['F.conv2d device'])})"
                 f"; bound {t['bound']:.4f} ms")
     # run_conv's kernel check: stride 2, so K7
@@ -3395,9 +3435,20 @@ def fig22_convs(torch, layers, blocks=CONV_BLOCKS):
     if row[2] != row[3] or not err <= 1e-4:
         raise AssertionError(f"stride-2 check: executed {row[3]} vs counted "
                              f"{row[2]}, max |y - conv2d_ref| {err:.3e}")
+    # K7 at this launch's input, timed alone: held bit-equal to its plain
+    # version again (conv_check), its device time and CUDA events beside
+    # its byte bound and F.unfold's device time
+    k7 = conv_check(torch, x, layer.k, layer.k, layer.stride,
+                    "stride-2 check")
     log(f"paper: run_conv's stride-2 check through conv2d_dual_sparse "
         f"(2 x 10 x 10 x 8 -> 16, K5 -> K7 -> K1): executed == counted "
-        f"{row[3]} of {row[1]}, max |y - conv2d_ref| {err:.2e}")
+        f"{row[3]} of {row[1]}, max |y - conv2d_ref| {err:.2e}; K7 there "
+        f"(float32, route {k7['routes'][1]}): device "
+        f"{fmt_ms(device_ms(torch, k7['k67']))} (events "
+        f"{cuda_ms(torch, k7['k67'], 20):.4f}), bound "
+        f"{k7['k67_bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms by bytes, plain "
+        f"{cuda_ms(torch, k7['k67_plain'], 3):.3f}, F.unfold device "
+        f"{fmt_ms(device_ms(torch, k7['unfold']))}")
     return steps
 
 
@@ -3510,12 +3561,50 @@ MOE_SOURCES = {"K1": "bitmap_spgemm.cu", "K2": "bitmap_spgemm_kfused.cu",
                "K3": "grouped_spgemm.cu", "K4": "grouped_spgemm_kfused.cu"}
 
 
-def moe_launches(cfg, forwards):
-    """(K1 or K2, K3 or K4) launches of ``forwards`` forwards of a MoE
-    stack: q/k/v/o a layer and the head; the experts' up, gate and down a
-    layer."""
-    return ((4 * cfg.n_layers + 1) * forwards,
-            (3 if cfg.mlp_type == "swiglu" else 2) * cfg.n_layers * forwards)
+# the kernels a sparse-KV generate's launches are held and replayed for,
+# by mode: (name, source)
+HELD_KERNELS = {"dual+kv": (("K1", "bitmap_spgemm.cu"),
+                            ("K3", "grouped_spgemm.cu")),
+                "dual+kc+kv": (("K2", "bitmap_spgemm_kfused.cu"),
+                               ("K4", "grouped_spgemm_kfused.cu"))}
+
+
+def stack_launches(cfg):
+    """(K1 or K2 launches a forward, K3 or K4 launches a forward, K3 or K4
+    launches of a decode's attention) of a decoder stack: q/k/v/o at each
+    attention layer, the projections of each dense MLP and the head; those
+    of each MoE layer's experts; score and value at each attention layer.
+    A Mamba block dispatches nothing (plain matmuls, as in the JAX
+    package)."""
+    ffn = 3 if cfg.mlp_type == "swiglu" else 2
+    k1, k3, kv = 1, 0, 0
+    for i in range(cfg.n_layers):
+        pos = i % cfg.period
+        attn = cfg.layer_kind(pos) == "attn"
+        k1 += 4 * attn
+        kv += 2 * attn
+        if not attn and cfg.family == "ssm":
+            continue
+        if cfg.layer_is_moe(pos):
+            k3 += ffn
+        else:
+            k1 += ffn
+    return k1, k3, kv
+
+
+def check_launches(what, counters, want):
+    """Each kernel's count against ``want`` (0 where it names none);
+    returns the counts that are not 0."""
+    got = {kn: fn.launches for kn, fn in counters.items()}
+    want = {kn: want.get(kn, 0) for kn in counters}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return {k: v for k, v in got.items() if v}
+
+
+def reset_launches(counters):
+    for fn in counters.values():
+        fn.launches = 0
 
 
 def seed_biases(torch, model, g):
@@ -3524,13 +3613,14 @@ def seed_biases(torch, model, g):
     which would leave their path unexercised."""
     with torch.no_grad():
         for layer in model.layers:
-            if layer.attn.bias:
+            if getattr(layer, "attn", None) is not None and layer.attn.bias:
                 for b in (layer.attn.bq, layer.attn.bk, layer.attn.bv):
                     b.copy_(0.5 * torch.randn(b.shape, generator=g,
                                               device=g.device))
 
 
-def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False):
+def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False,
+                          depth=None):
     """The smoke models of ``archs`` in float32 (random qkv biases where
     they have them): the card (K1/K2 in every projection, K3/K4 over MoE
     experts and in the sparse-KV decode, ``torch.matmul`` / ``torch.bmm``
@@ -3538,7 +3628,8 @@ def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False):
     prompt_len`` tokens: logits within 1e-4 x max, the auxiliary loss
     within 1e-5 and ``new`` greedy tokens equal in dense, dual and
     dual+kc; with ``int8_kv``, dual+kv on int8 caches (``rc.kv_quant``, a
-    48-slot context in 8-slot blocks), 7 tokens equal."""
+    48-slot context in 8-slot blocks), 7 tokens equal.  ``depth`` maps an
+    arch to the layers its smoke model is cut to."""
     from repro_torch.configs import smoke_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import transformer as tfm
@@ -3546,6 +3637,8 @@ def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False):
     rc = RunConfig(act_dtype="float32")
     for arch in archs:
         cfg = smoke_config(arch)
+        if depth and arch in depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth[arch])
         cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
                              device="cpu", dtype=torch.float32)
         seed_biases(torch, cpu, torch.Generator().manual_seed(4))
@@ -3585,7 +3678,8 @@ def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False):
             if not torch.equal(tc, tg.cpu()):
                 raise AssertionError(f"{arch}-smoke dual+kv int8: tokens "
                                      "differ")
-        log(f"reference: {arch}-smoke (G = {cfg.n_heads // cfg.n_kv_heads}"
+        log(f"reference: {arch}-smoke ({cfg.n_layers} layers, "
+            f"{cfg.family}, G = {cfg.n_heads // cfg.n_kv_heads}"
             f", qkv bias {cfg.qkv_bias}, rope {cfg.rope_style}) on the card "
             f"== CPU plain path: logits max err " + ", ".join(errs)
             + f"; {new} greedy tokens equal in each, "
@@ -3709,7 +3803,7 @@ def record_routing(fn):
 
 
 def routing_flips(torch, cfg, b, s, base, other, parted):
-    """Compare two runs' routings, call by call (``cfg.n_layers`` calls a
+    """Compare two runs' routings, call by call (one a MoE layer and
     forward, the prefill's B x S tokens first, then B a decode), token by
     token: the set of picked experts.  A row's decode calls are compared
     while its inputs are equal (forward f reads the token of forward f-1:
@@ -3721,7 +3815,11 @@ def routing_flips(torch, cfg, b, s, base, other, parted):
     first forward with a flip}, {(row, pos): prefill tokens that flipped
     in some layer}); each flip a (forward, layer, row, pos, gap in base,
     gap in other, reached) tuple."""
-    k, n_layers = cfg.n_experts_active, cfg.n_layers
+    k = cfg.n_experts_active
+    # MoE calls a forward: every layer of a MoE family, every other
+    # layer of a hybrid
+    n_layers = sum(cfg.layer_is_moe(i % cfg.period)
+                   for i in range(cfg.n_layers))
     flips, first, prefill_flipped = [], {}, set()
 
     def gap(g, t):
@@ -3834,9 +3932,9 @@ def serve_moe(torch, cfg, model, modes, smi, with_generate):
     counters = kernel_counters()
     batch = traffic_a_batch(torch, cfg)
     b, s = batch["tokens"].shape
-    per_forward = 4 * cfg.n_layers + 1 + (
-        3 if cfg.mlp_type == "swiglu" else 2) * cfg.n_layers
-    n1, n3 = moe_launches(cfg, NEW_TOKENS)
+    k1f, k3f, _ = stack_launches(cfg)
+    per_forward = k1f + k3f
+    n1, n3 = k1f * NEW_TOKENS, k3f * NEW_TOKENS
     runs, kernel_numbers = {}, {}
 
     def check_run(key, mode, entries):
@@ -4120,19 +4218,11 @@ def phase_dense_gqa(torch, smi):
     batch = {"tokens": prompts.cuda()}
     b, s = prompts.shape
     counters = kernel_counters()
-    per_forward = 7 * cfg.n_layers + 1     # q/k/v/o, up/gate/down; head
+    per_forward, _, kvd = stack_launches(cfg)
     n1 = per_forward * F_NEW
-    n3 = 2 * cfg.n_layers * (F_NEW - 1)
+    n3 = kvd * (F_NEW - 1)
     expect = {"dense": {}, "dual": {"K1": n1},
               "dual+kv": {"K1": n1, "K3": n3}}
-
-    def launches_of(what, want):
-        got = {kn: fn.launches for kn, fn in counters.items()}
-        want = {kn: want.get(kn, 0) for kn in counters}
-        if got != want:
-            raise AssertionError(f"traffic F {what}: launches {got}, "
-                                 f"expected {want}")
-        return {k: v for k, v in got.items() if v}
 
     # untimed: each mode's first products at these shapes, a short prompt
     warm = {"tokens": batch["tokens"][:, :64]}
@@ -4154,7 +4244,8 @@ def phase_dense_gqa(torch, smi):
             out = serve_with_plans(torch, model, c, batch, F_NEW,
                                    plans[mode], rc=rc, capacity=F_CAPACITY)
         wall = (time.perf_counter() - t0) * 1e3
-        got = launches_of(f"{mode} run", expect[mode])
+        got = check_launches(f"traffic F {mode} run", counters,
+                             expect[mode])
         rows = tape_rows(tape, entries)
         if mode != "dense":
             bad = [row for row in rows if row[2] != row[3]]
@@ -4236,7 +4327,8 @@ def phase_dense_gqa(torch, smi):
                                capacity=F_CAPACITY, rc=rc)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    got = launches_of("dual+kv generate", expect["dual+kv"])
+    got = check_launches("traffic F dual+kv generate", counters,
+                         expect["dual+kv"])
     if not torch.equal(toks.cpu(), runs["dual+kv"]["tokens"]):
         raise AssertionError("traffic F: generate's tokens != the cached-plan"
                              " run's")
@@ -4261,9 +4353,9 @@ def phase_dense_gqa(torch, smi):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     st = eng.stats()
-    got = launches_of("engine", {
+    got = check_launches("traffic F engine", counters, {
         "K1": per_forward * (st["prefill_calls"] + st["decode_calls"]),
-        "K3": 2 * cfg.n_layers * st["decode_calls"]})
+        "K3": kvd * st["decode_calls"]})
     etoks = torch.tensor([r.output for r in sorted(done,
                                                    key=lambda r: r.uid)],
                          dtype=torch.int32)
@@ -4286,41 +4378,566 @@ def phase_dense_gqa(torch, smi):
 
     # the cached-plan dual+kv run again, every K1 and K3 launch held to its
     # plain walk as it runs and kept, then replayed for the device time
+    numbers = held_generate(torch, "traffic F", model, c, batch,
+                            plans["dual+kv"], rc, F_CAPACITY, F_NEW,
+                            HELD_KERNELS["dual+kv"])
+    for kn, t in numbers.items():
+        if t["launches"] != expect["dual+kv"][kn]:
+            raise AssertionError(f"traffic F: {t['launches']} {kn} launches "
+                                 f"replayed, {expect['dual+kv'][kn]} counted")
+        kernel_numbers_line("traffic F: dual+kv", kn, t, smi)
+    del model, plans
+    torch.cuda.empty_cache()
+    log(f"traffic F: phase {time.perf_counter() - t_phase:.0f} s")
+    return numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 16: Mamba2 and the hybrid, traffics G and H
+# ---------------------------------------------------------------------------
+
+# traffic G, recurrent state beside an int8 long-context cache with MoE on
+# alternate layers: full-width jamba-1.5-large-398b cut to its period's
+# first two positions (attention + dense MLP, Mamba + MoE) under its
+# decode_32k run config, in traffic F's shape (2 x 3000 prompt tokens into
+# 32768-slot caches, 16 new)
+JAMBA = "jamba-1.5-large-398b"
+G_LAYERS = 2
+G_MODES = {"dense": MODES["dense"], "dual": MODES["dual"],
+           "dual+kv": KV_MODES["dual+kv"],
+           "dual+kc+kv": KV_MODES["dual+kc+kv"]}
+# traffic H, a whole attention-free model with a tied head: mamba2-370m
+# at full width and depth, H_PROMPTS prompts of H_PROMPT_LEN tokens and
+# H_NEW new through generate; the engine on H_SLOTS slots with requests
+# of H_ENGINE_LENS prompt tokens (a ladder, not a measured mix), H_NEW new
+MAMBA2 = "mamba2-370m"
+H_PROMPTS, H_PROMPT_LEN, H_NEW = 4, 2048, 32
+H_SLOTS = 4
+H_ENGINE_LENS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048)
+H_MODES = {"dense": MODES["dense"], "dual": MODES["dual"]}
+# the SSD's functions in repro_torch.models.ssm and the profiler range
+# each runs in when its share of device time is measured
+SSM_RANGES = {"ssd_chunked": "ssd.scan", "ssd_step": "ssd.scan",
+              "_conv_silu": "ssd.conv"}
+
+
+def ssd_shares(torch, model, c, batch, rc, capacity):
+    """One prefill and one decode step of ``model`` under the profiler,
+    the SSD scan (``ssd_chunked`` at prefill, ``ssd_step`` at decode) and
+    the causal conv (``_conv_silu``) each in a named range: {stage:
+    (device ms, scan ms, conv ms, scan events ms, conv events ms)}, the
+    device times from the trace (a range's: its kernels'), the events
+    CUDA events around each call; the device times None when the trace
+    holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import ssm as ssmm
+    from repro_torch.models import transformer as tfm
+    real = {name: getattr(ssmm, name) for name in SSM_RANGES}
+    events = {}
+
+    def wrapped(name):
+        fn, label = real[name], SSM_RANGES[name]
+
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with record_function(label):
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+            events.setdefault(label, []).append((start, end))
+            return out
+        return call
+    b, s = batch["tokens"].shape
+    caches = tfm.init_caches(c, b, capacity,
+                             quantized=bool(rc and rc.kv_quant))
+    out, nxt = {}, None
+    for name in SSM_RANGES:
+        setattr(ssmm, name, wrapped(name))
+    try:
+        for stage in ("prefill", "decode"):
+            events.clear()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                if stage == "prefill":
+                    o = model(batch, c, caches=caches,
+                              positions=torch.arange(s, device="cuda"),
+                              rc=rc)
+                else:
+                    o = model({"tokens": nxt}, c, caches=caches,
+                              positions=torch.tensor([s], device="cuda"),
+                              rc=rc)
+                torch.cuda.synchronize()
+            caches, nxt = o.caches, o.logits[:, -1:].argmax(-1)
+            labels = set(SSM_RANGES.values())
+            total = sum(e.device_time_total for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and e.name not in labels)
+            part = {lb: sum(e.device_time_total for e in prof.events()
+                            if e.name == lb
+                            and e.device_type == DeviceType.CPU)
+                    for lb in ("ssd.scan", "ssd.conv")}
+            ev = {lb: sum(a.elapsed_time(z) for a, z in events.get(lb, []))
+                  for lb in ("ssd.scan", "ssd.conv")}
+            out[stage] = ((total / 1e3, part["ssd.scan"] / 1e3,
+                           part["ssd.conv"] / 1e3) if total > 0
+                          else (None, None, None)) + (ev["ssd.scan"],
+                                                      ev["ssd.conv"])
+    finally:
+        for name, fn in real.items():
+            setattr(ssmm, name, fn)
+    return out
+
+
+def fmt_shares(shares):
+    def one(stage, v):
+        dev, scan, conv, ev_scan, ev_conv = v
+        head = (f"{stage}: device {dev:.2f} ms, SSD scan {scan:.3f} ms "
+                f"({scan / dev:.1%}), causal conv {conv:.3f} ms "
+                f"({conv / dev:.1%})" if dev else
+                f"{stage}: device time not measured")
+        return head + (f" [CUDA events: scan {ev_scan:.3f} ms, conv "
+                       f"{ev_conv:.3f} ms]")
+    return "; ".join(one(stage, v) for stage, v in shares.items())
+
+
+def kernel_numbers_line(what, kn, t, smi):
+    log(f"{what} {kn}: all {t['launches']} launches of a generate held to "
+        f"their plain walks (max err {t['max_abs_err']:.2e}); "
+        f"{t['ms']:.3f} ms events, device {fmt_ms(t['device_ms'])}, bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+        f"({t['nbytes'] / 1e9:.4f} GB, {t['flops'] / 1e12:.3f} TFLOP), "
+        f"plain {t['plain_ms']:.1f} ms, torch.bmm over every problem "
+        f"{t['library_ms']:.3f} ms (device "
+        f"{fmt_ms(t['library_device_ms'])}); launches by (E, M, K, N, "
+        "route, splits): " + ", ".join(
+            f"{k} x{n}" for k, n in sorted(t["shapes"].items()))
+        + f"; {smi}")
+
+
+def held_generate(torch, what, model, c, batch, plans, rc, capacity, new,
+                  pairs):
+    """One cached-plan generate with every K1-K4 launch held to its plain
+    walk as it runs and kept (:func:`held_to_plain` around
+    :func:`record_launches`), then each kernel of ``pairs`` ((name,
+    source)) replayed for its device time.  Returns {name: numbers}."""
     launches = {}
 
     def recorded():
         launches.update(record_launches(torch, lambda: serve_with_plans(
-            torch, model, c, batch, F_NEW, plans["dual+kv"], rc=rc,
-            capacity=F_CAPACITY)))
-    held = held_to_plain(torch, None, recorded, "traffic F")
+            torch, model, c, batch, new, plans, rc=rc, capacity=capacity)))
+    held = held_to_plain(torch, None, recorded, what)
     numbers = {}
-    for kn, src in (("K1", "bitmap_spgemm.cu"), ("K3", "grouped_spgemm.cu")):
+    for kn, src in pairs:
         got = launches.get(src, [])
-        if not len(got) == held[src]["n"] == expect["dual+kv"][kn]:
-            raise AssertionError(f"traffic F: {len(got)} {kn} launches "
-                                 f"recorded, {held[src]['n']} held, "
-                                 f"{expect['dual+kv'][kn]} counted")
+        if not (got and len(got) == held[src]["n"]):
+            raise AssertionError(f"{what}: {len(got)} {kn} launches "
+                                 f"recorded, {held.get(src, {}).get('n')} "
+                                 "held")
         t = replayed_numbers(torch, src, got, plain=False)
-        numbers[kn] = dict(t, launches=len(got),
-                           max_abs_err=held[src]["err"],
+        numbers[kn] = dict(t, launches=len(got), max_abs_err=held[src]["err"],
                            plain_ms=held[src]["plain_ms"])
-        log(f"traffic F: dual+kv {kn}: all {len(got)} launches of a "
-            f"generate held to their plain walks (max err "
-            f"{held[src]['err']:.2e}); {t['ms']:.3f} ms events, device "
-            f"{fmt_ms(t['device_ms'])}, bound {t['bound_ms']:.4f} ms by "
-            f"{t['bound_by']} ({t['nbytes'] / 1e9:.4f} GB, "
-            f"{t['flops'] / 1e12:.3f} TFLOP), plain "
-            f"{held[src]['plain_ms']:.1f} ms, "
-            + (f"torch.bmm over all {F_CAPACITY} slots" if kn == "K3"
-               else "torch.matmul") + f" {t['library_ms']:.3f} ms (device "
-            f"{fmt_ms(t['library_device_ms'])}); launches by (E, M, K, N, "
-            "route, splits): " + ", ".join(
-                f"{k} x{n}" for k, n in sorted(t["shapes"].items()))
-            + f"; {smi}")
-    del launches, model, plans
-    torch.cuda.empty_cache()
-    log(f"traffic F: phase {time.perf_counter() - t_phase:.0f} s")
     return numbers
+
+
+def serve_jamba(torch, smi):
+    """Traffic G (see the module docstring).  Returns {K-name: numbers} of
+    the cached-plan dual+kv generate's K1/K3 and dual+kc+kv's K2/K4."""
+    from repro_torch.configs import get_config, get_run_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models import ssm as ssmm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.sparse import tape
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(JAMBA), n_layers=G_LAYERS)
+    rc = get_run_config(JAMBA, "decode_32k")
+    if not (rc.kv_quant and rc.attn_chunk == 2048):
+        raise AssertionError(f"{JAMBA} decode_32k run config {rc}")
+    layers = [(cfg.layer_kind(i), cfg.layer_is_moe(i))
+              for i in range(cfg.n_layers)]
+    if layers != [("attn", False), ("mamba", True)]:
+        raise AssertionError(f"traffic G layers {layers}")
+    model = make_model(torch, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (F_PROMPTS, F_PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(7))
+    batch = {"tokens": prompts.cuda()}
+    b, s = prompts.shape
+    counters = kernel_counters()
+    k1f, k3f, kvd = stack_launches(cfg)
+    n1, n3, nkv = k1f * F_NEW, k3f * F_NEW, kvd * (F_NEW - 1)
+    expect = {"dense": {}, "dual": {"K1": n1, "K3": n3},
+              "dual+kv": {"K1": n1, "K3": n3 + nkv},
+              "dual+kc+kv": {"K2": n1, "K4": n3 + nkv}}
+
+    # untimed: each mode's first products at these shapes, a short prompt
+    warm = {"tokens": batch["tokens"][:, :64]}
+    plans = {}
+    for mode, knobs in G_MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        plans[mode] = tfm.plan_weight_activities(model, c)
+        serve_with_plans(torch, model, c, warm, 2, plans[mode], rc=rc,
+                         capacity=F_CAPACITY)
+    runs = {}
+    for mode, knobs in G_MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            out, routing = record_routing(lambda: serve_with_plans(
+                torch, model, c, batch, F_NEW, plans[mode], rc=rc,
+                capacity=F_CAPACITY))
+        wall = (time.perf_counter() - t0) * 1e3
+        got = check_launches(f"traffic G {mode} run", counters, expect[mode])
+        rows = tape_rows(tape, entries)
+        if mode != "dense":
+            bad = [row for row in rows if row[2] != row[3]]
+            if bad:
+                raise AssertionError(f"traffic G {mode}: executed != counted"
+                                     f" at {bad[:3]}")
+        if not (torch.isfinite(out["prefill"]).all()
+                and all(torch.isfinite(st).all() for st in out["steps"])):
+            raise AssertionError(f"traffic G {mode}: non-finite logits")
+        share = (f_attention_share(tape, entries, c, s)
+                 if c.sparse_kv else None)
+        r = runs[mode] = dict(out, routing=routing, wall=wall,
+                              peak=torch.cuda.max_memory_allocated() / 1e9)
+        t = out["times"]
+        log(f"traffic G: {cfg.name} ({cfg.n_layers} layers: attention + "
+            f"MLP, Mamba + MoE) {mode} on int8 {F_CAPACITY}-slot caches, "
+            f"cached plans: {b * F_NEW / wall * 1e3:.2f} tokens/s "
+            f"({wall:.0f} ms, stats tape on, routing read to the host), "
+            f"prefill {t[0]:.1f} ms, decode steps median "
+            f"{statistics.median(t[1:]):.2f} ms, peak memory "
+            f"{r['peak']:.1f} GB, launches {got}"
+            + ("" if share is None else
+               f"; scheduled share of cache-block steps {share[1]:.4f} "
+               "(= the positions' occupancy): " + ", ".join(
+                   f"{k} {v[0]}/{v[1]}" for k, v in share[0].items()))
+            + f"; {smi}")
+        if mode == "dense":
+            continue
+        # against dense: prefill logits on the tokens routed alike, routing
+        # flips only at near-ties, greedy tokens parting only at top-2 ties
+        # or after a flip in their row
+        dense = runs["dense"]
+        scale = dense["prefill"].abs().max().item()
+        tol = SERVE_RTOL * scale
+        parted = parted_at(r["tokens"], dense["tokens"])
+        flips, first, flipped = routing_flips(
+            torch, cfg, b, s, dense["routing"], r["routing"], parted)
+        keep = torch.ones(b, s, dtype=torch.bool)
+        for row, pos in flipped:
+            keep[row, pos] = False
+        diff = (r["prefill"] - dense["prefill"]).abs().amax(-1).cpu()
+        err = diff[keep].max().item()
+        if not err <= tol:
+            raise AssertionError(f"traffic G {mode}: prefill logits differ "
+                                 f"from dense by {err:.4f} > {tol:.4f} on "
+                                 "tokens routed as dense")
+        agree = moe_parting(torch, f"traffic G {mode}", r["tokens"],
+                            dense["tokens"], dense["steps"], tol, first)
+        log(f"traffic G: {mode} vs dense: {len(flips)} routing flips "
+            f"({len([f for f in flips if not f[6]])} near-ties <= "
+            f"{GATE_MARGIN}), {len(flipped)} of {b * s} prefill tokens "
+            f"flipped; prefill logits max |diff| on the others {err:.4f} <= "
+            f"{tol:.4f} ({SERVE_RTOL} x max|dense| {scale:.2f}); "
+            + "; ".join(agree))
+        del r["prefill"]
+    del runs["dense"]["prefill"]
+
+    for mode in ("dense", "dual+kv"):
+        shares = ssd_shares(torch, model,
+                            dataclasses.replace(cfg, **G_MODES[mode]),
+                            batch, rc, F_CAPACITY)
+        log(f"traffic G: {mode}, the Mamba layer's share of one prefill and "
+            f"one decode step: {fmt_shares(shares)}; {smi}")
+
+    # serve_loop.generate (per-call plans) builds the int8 caches itself
+    c = dataclasses.replace(cfg, **G_MODES["dual+kv"])
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve_loop.generate(model, batch, c, max_new_tokens=F_NEW,
+                               capacity=F_CAPACITY, rc=rc)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    got = check_launches("traffic G dual+kv generate", counters,
+                         expect["dual+kv"])
+    if not torch.equal(toks.cpu(), runs["dual+kv"]["tokens"]):
+        raise AssertionError("traffic G: generate's tokens != the "
+                             "cached-plan run's")
+    log(f"traffic G: dual+kv through serve_loop.generate (per-call plans, "
+        f"rc {JAMBA} decode_32k): {b * F_NEW / wall * 1e3:.2f} tokens/s "
+        f"({wall:.0f} ms), launches {got}, tokens == the cached-plan run's")
+
+    # the paged engine on an int8 pool, 2 slots of F_CAPACITY
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, c, serve=ServeConfig(slots=F_PROMPTS,
+                                             capacity=F_CAPACITY), rc=rc)
+    kinds = [type(cc).__name__ for cc in eng.caches]
+    if not (all(cc.quantized for cc in eng.caches
+                if not isinstance(cc, ssmm.SSMState))
+            and kinds == ["PagedSparseKVCache", "SSMState"]):
+        raise AssertionError(f"traffic G: the engine's caches {kinds}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid in range(b):
+        eng.submit(Request(uid=uid, prompt=prompts[uid].tolist(),
+                           max_new_tokens=F_NEW))
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    st = eng.stats()
+    calls = st["prefill_calls"] + st["decode_calls"]
+    got = check_launches("traffic G engine", counters, {
+        "K1": k1f * calls, "K3": k3f * calls + kvd * st["decode_calls"]})
+    etoks = torch.tensor([r.output for r in sorted(done,
+                                                   key=lambda r: r.uid)],
+                         dtype=torch.int32)
+    if tuple(etoks.shape) != (b, F_NEW) or st["pages_free"] != \
+            st["pages_total"]:
+        raise AssertionError(f"traffic G engine: tokens {etoks.shape}, "
+                             f"stats {st}")
+    base = runs["dual+kv"]
+    tol = SERVE_RTOL * max(x.abs().max().item() for x in base["steps"])
+    agree = parting_report(torch, "traffic G engine", etoks, base["tokens"],
+                           base["steps"], tol)
+    log(f"traffic G: Engine, dual+kv on an int8 pool of {eng.n_pages} pages "
+        f"x {eng.page} slots ({F_PROMPTS} slots x {F_CAPACITY}) and per-slot"
+        f" SSM state: {b * F_NEW / wall * 1e3:.2f} tokens/s ({wall:.0f} ms, "
+        f"{st['prefill_calls']} prefill and {st['decode_calls']} decode "
+        f"calls), launches {got}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; against generate"
+        f" (its batched prefill): " + "; ".join(agree))
+    del eng, done
+    torch.cuda.empty_cache()
+
+    numbers = {}
+    for mode, pairs in HELD_KERNELS.items():
+        c = dataclasses.replace(cfg, **G_MODES[mode])
+        got = held_generate(torch, f"traffic G {mode}", model, c, batch,
+                            plans[mode], rc, F_CAPACITY, F_NEW, pairs)
+        for kn, t in got.items():
+            if t["launches"] != expect[mode][kn]:
+                raise AssertionError(f"traffic G {mode}: {t['launches']} "
+                                     f"{kn} launches replayed, "
+                                     f"{expect[mode][kn]} counted")
+            kernel_numbers_line(f"traffic G: {mode}", kn, t, smi)
+        numbers.update(got)
+        torch.cuda.empty_cache()
+    del model, plans, runs
+    torch.cuda.empty_cache()
+    log(f"traffic G: {time.perf_counter() - t_phase:.0f} s")
+    return numbers
+
+
+def serve_mamba2(torch, smi):
+    """Traffic H (see the module docstring).  Returns {"K1": numbers} of
+    the dual generate's tied-head launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving import serve_loop
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.sparse import tape
+    t_phase = time.perf_counter()
+    cfg = get_config(MAMBA2)
+    model = make_model(torch, cfg)
+    if model.lm_head is not None or not cfg.tie_embeddings:
+        raise AssertionError(f"{MAMBA2}: the head is not tied")
+    prompts = torch.randint(0, cfg.vocab_size, (H_PROMPTS, H_PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(8))
+    batch = {"tokens": prompts.cuda()}
+    b, s = prompts.shape
+    counters = kernel_counters()
+    k1f = stack_launches(cfg)[0]
+    expect = {"dense": {}, "dual": {"K1": k1f * H_NEW}}
+    warm = {"tokens": batch["tokens"][:, :64]}
+    for knobs in H_MODES.values():
+        serve_with_plans(torch, model, dataclasses.replace(cfg, **knobs),
+                         warm, 2, None)
+    runs = {}
+    for mode, knobs in H_MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            out = serve_with_plans(torch, model, c, batch, H_NEW, None)
+        wall = (time.perf_counter() - t0) * 1e3
+        got = check_launches(f"traffic H {mode} run", counters,
+                             expect[mode])
+        rows = tape_rows(tape, entries)
+        if mode != "dense" and (len(rows) != k1f * H_NEW
+                                or any(row[2] != row[3] for row in rows)):
+            raise AssertionError(f"traffic H {mode}: tape {rows[:3]}")
+        if not (torch.isfinite(out["prefill"]).all()
+                and all(torch.isfinite(st).all() for st in out["steps"])):
+            raise AssertionError(f"traffic H {mode}: non-finite logits")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # serve_loop.generate: the same tokens
+        reset_launches(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = serve_loop.generate(model, batch, c, max_new_tokens=H_NEW)
+        torch.cuda.synchronize()
+        gen_wall = (time.perf_counter() - t0) * 1e3
+        check_launches(f"traffic H {mode} generate", counters, expect[mode])
+        if not torch.equal(toks.cpu(), out["tokens"]):
+            raise AssertionError(f"traffic H {mode}: generate's tokens != "
+                                 "the loop's")
+        runs[mode] = dict(out, wall=wall)
+        t = out["times"]
+        log(f"traffic H: {cfg.name} (all {cfg.n_layers} layers, tied head) "
+            f"{mode}: {b * H_NEW / wall * 1e3:.2f} tokens/s ({wall:.0f} ms, "
+            f"stats tape on; generate {b * H_NEW / gen_wall * 1e3:.2f} "
+            f"tokens/s, {gen_wall:.0f} ms, the same tokens), prefill "
+            f"{t[0]:.1f} ms, decode steps median "
+            f"{statistics.median(t[1:]):.2f} ms, peak memory {peak:.1f} GB, "
+            f"launches {got}; {smi}")
+    dense, dual = runs["dense"], runs["dual"]
+    tol = SERVE_RTOL * dense["prefill"].abs().max().item()
+    pre_err = (dual["prefill"] - dense["prefill"]).abs().max().item()
+    parted = parted_at(dual["tokens"], dense["tokens"])
+    dec_err = max([(dual["steps"][t][i] - dense["steps"][t][i]).abs()
+                   .max().item() for t in range(1, H_NEW) for i in range(b)
+                   if t <= parted[i]] or [0.0])
+    if not (pre_err <= tol and dec_err <= tol):
+        raise AssertionError(f"traffic H dual: logits differ from dense by "
+                             f"{pre_err:.4f} (prefill) / {dec_err:.4f} "
+                             f"(decode) > {tol:.4f}")
+    agree = parting_report(torch, "traffic H dual", dual["tokens"],
+                           dense["tokens"], dense["steps"], tol)
+    log(f"traffic H: dual vs dense: max |diff| {pre_err:.4f} (prefill), "
+        f"{dec_err:.4f} (decodes while the tokens agree) <= {tol:.4f} "
+        f"({SERVE_RTOL} x max|dense|); " + "; ".join(agree))
+
+    # continuity: one forward over the prompt and the first H_NEW - 1
+    # tokens against the prefill and the decode steps that fed them, in
+    # bf16 after one step (the JAX package's continuity test, at the served
+    # width) and in float32 (the model cast up) after every step; bf16's
+    # later steps are reported: their bf16 roundings differ from the
+    # prefill's and pass through the state and 48 layers
+    from repro_torch.configs.base import RunConfig
+    c = dataclasses.replace(cfg, **H_MODES["dense"])
+
+    def continuity(m, rc, run):
+        seq = torch.cat([batch["tokens"], run["tokens"][:, :H_NEW - 1].to(
+            device="cuda", dtype=batch["tokens"].dtype)], 1)
+        with torch.inference_mode():
+            full = m({"tokens": seq}, c, rc=rc).logits[:, s - 1:].float()
+        stepped = torch.stack(run["steps"], 1)
+        return ((full - stepped).abs().amax((0, 2)).tolist(),
+                stepped.abs().max().item())
+    bf_t, bf_scale = continuity(model, None, dense)
+    m32 = copy.deepcopy(model).float()
+    rc32 = RunConfig(act_dtype="float32")
+    f32_t, f32_scale = continuity(m32, rc32, serve_with_plans(
+        torch, m32, c, batch, H_NEW, None, rc=rc32))
+    del m32
+    if not (bf_t[1] <= SERVE_RTOL * bf_scale
+            and max(f32_t) <= RTOL["float32"] * f32_scale):
+        raise AssertionError(
+            f"traffic H: prefill + steps vs one forward: bf16 {bf_t[1]:.4f} "
+            f"after one step (> {SERVE_RTOL * bf_scale:.4f}?), float32 "
+            f"{max(f32_t):.2e} (> {RTOL['float32'] * f32_scale:.2e}?)")
+    log(f"traffic H: continuity, prefill({s}) + t decode steps against one "
+        f"forward over {s} + t tokens (dense): bf16 after one step "
+        f"{bf_t[1]:.4f} <= {SERVE_RTOL * bf_scale:.4f} ({SERVE_RTOL} x "
+        f"max|logit| {bf_scale:.2f}); float32 over t = 1..{H_NEW - 1} "
+        f"{max(f32_t):.2e} <= {RTOL['float32'] * f32_scale:.2e} "
+        f"({RTOL['float32']} x {f32_scale:.2f}); bf16 by t (not gated): "
+        + ", ".join(f"{x:.4f}" for x in bf_t[1:]))
+    del dense["prefill"], dual["prefill"]
+
+    # the tied head: its per-call plan and its contiguous copy
+    c = dataclasses.replace(cfg, **H_MODES["dual"])
+    plan_ms, plan_calls = planning_ms(torch, lambda: serve_with_plans(
+        torch, model, c, batch, H_NEW, None))
+    copy_ms = cuda_ms(torch, lambda: model.embed.t().contiguous(), 20)
+    log(f"traffic H: the tied head (K = {cfg.d_model}, N = {cfg.vocab_size}"
+        f", a {cfg.vocab_size % 128}-column last tile) planned per call: "
+        f"{plan_ms:.1f} ms in {plan_calls} dispatches a generate "
+        f"({plan_ms / plan_calls:.3f} ms each); its contiguous copy "
+        f"{copy_ms:.4f} ms a call (CUDA events); {smi}")
+    for mode in H_MODES:
+        shares = ssd_shares(torch, model,
+                            dataclasses.replace(cfg, **H_MODES[mode]),
+                            batch, None, s + 2)
+        log(f"traffic H: {mode}, the {cfg.n_layers} Mamba layers' share of "
+            f"one prefill and one decode step: {fmt_shares(shares)}; {smi}")
+
+    # the engine: H_SLOTS slots, exact prefills, every request against its
+    # own batch-1 generate
+    rng = torch.Generator().manual_seed(9)
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+            for n in H_ENGINE_LENS]
+    refs = [serve_with_plans(torch, model, c, {"tokens": p[None].cuda()},
+                             H_NEW, None) for p in reqs]
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    cap = -(-(max(H_ENGINE_LENS) + H_NEW + 1) // 32) * 32
+    eng = Engine(model, c, serve=ServeConfig(slots=H_SLOTS, capacity=cap))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid, p in enumerate(reqs):
+        eng.submit(Request(uid=uid, prompt=p.tolist(),
+                           max_new_tokens=H_NEW))
+    done = sorted(eng.run_to_completion(), key=lambda r: r.uid)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    st = eng.stats()
+    got = check_launches("traffic H engine", counters, {
+        "K1": k1f * (st["prefill_calls"] + st["decode_calls"])})
+    if [len(r.output) for r in done] != [H_NEW] * len(reqs):
+        raise AssertionError(f"traffic H engine: {st}")
+    agree = []
+    for r, ref in zip(done, refs):
+        tol = SERVE_RTOL * max(x.abs().max().item() for x in ref["steps"])
+        agree += parting_report(
+            torch, f"traffic H engine request {r.uid}",
+            torch.tensor([r.output], dtype=torch.int32), ref["tokens"],
+            ref["steps"], tol)
+    log(f"traffic H: Engine, dual, {H_SLOTS} slots, {len(reqs)} requests of "
+        f"{H_ENGINE_LENS[0]}-{H_ENGINE_LENS[-1]} prompt tokens, {H_NEW} new "
+        f"each: {len(reqs) * H_NEW / wall * 1e3:.2f} tokens/s ({wall:.0f} "
+        f"ms, {st['prefill_calls']} prefill and {st['decode_calls']} decode "
+        f"calls, {st['ticks']} ticks), launches {got}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; against each "
+        "request's batch-1 generate: " + "; ".join(
+            f"request {i}: {a.split(': ', 1)[1]}"
+            for i, a in enumerate(agree)))
+    del eng, done, refs
+    torch.cuda.empty_cache()
+
+    numbers = held_generate(torch, "traffic H dual", model, c, batch, None,
+                            None, None, H_NEW,
+                            (("K1", "bitmap_spgemm.cu"),))
+    if numbers["K1"]["launches"] != expect["dual"]["K1"]:
+        raise AssertionError(f"traffic H: {numbers['K1']['launches']} K1 "
+                             "launches replayed")
+    kernel_numbers_line("traffic H: dual", "K1", numbers["K1"], smi)
+    del model
+    torch.cuda.empty_cache()
+    log(f"traffic H: {time.perf_counter() - t_phase:.0f} s")
+    return numbers
+
+
+def phase_hybrid(torch, smi):
+    """Phase 16: traffics G and H.  Returns {"traffic_g": {K-name:
+    numbers}, "traffic_h": {"K1": numbers}}."""
+    t0 = time.perf_counter()
+    out = {"traffic_g": serve_jamba(torch, smi),
+           "traffic_h": serve_mamba2(torch, smi)}
+    log(f"hybrid: phase {time.perf_counter() - t0:.0f} s")
+    return out
 
 
 def main() -> int:
@@ -4374,6 +4991,10 @@ def main() -> int:
     moe = phase_moe(torch, smi)
     phase_reference_smoke(torch, DENSE_GQA, 9, 6, int8_kv=True)
     dense_gqa = phase_dense_gqa(torch, smi)
+    torch.cuda.empty_cache()
+    phase_reference_smoke(torch, (MAMBA2, JAMBA), 9, 6, int8_kv=True,
+                          depth={JAMBA: 8})
+    hybrid = phase_hybrid(torch, smi)
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -4455,15 +5076,22 @@ def main() -> int:
                 "ms": m["ms"], "device_ms": m["device_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
-        if kn in dense_gqa:
-            # traffic F (phase 15): qwen1.5-110b's cached-plan dual+kv
-            # generate on int8 32768-slot caches, its launches replayed
-            m = dense_gqa[kn]
-            rows[-1]["traffic_f"] = {
-                "launches": m["launches"], "max_abs_err": m["max_abs_err"],
-                "ms": m["ms"], "device_ms": m["device_ms"],
-                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+        # traffic F (phase 15): qwen1.5-110b's cached-plan dual+kv
+        # generate on int8 32768-slot caches, its launches replayed; traffic
+        # G (phase 16) likewise on jamba-1.5-large (dual+kv: K1, K3;
+        # dual+kc+kv: K2, K4) and traffic H on mamba2-370m (dual: K1 on the
+        # tied head)
+        for group, nums in (("traffic_f", dense_gqa),
+                            ("traffic_g", hybrid["traffic_g"]),
+                            ("traffic_h", hybrid["traffic_h"])):
+            if kn in nums:
+                m = nums[kn]
+                rows[-1][group] = {
+                    "launches": m["launches"],
+                    "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                    "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
+                    "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                    "library_ms": m["library_ms"]}
     log(f"kernels line: ms, plain_ms, bound_ms and library_ms are summed "
         f"over one generate's launches at the served types: K1/K2 bf16 over "
         f"{13 * NEW_TOKENS} dispatches (1 prefill of {PROMPTS * PROMPT_LEN} "
@@ -4483,7 +5111,12 @@ def main() -> int:
         f"traffic F on {QWEN15} ({F_PROMPTS} x {F_PROMPT_LEN} tokens, "
         f"{F_NEW} new, int8 {F_CAPACITY}-slot caches), replayed alike, "
         f"plain_ms the plain walks of the held replay, library_ms torch.bmm "
-        f"over every slot (K3) or the product (K1); total "
+        f"over every slot (K3) or the product (K1); under \"traffic_g\" "
+        f"the same for {JAMBA} ({G_LAYERS} layers) in dual+kv (K1, K3: "
+        f"experts and cache) and dual+kc+kv (K2, K4), library_ms torch.bmm "
+        f"over every expert or slot; under \"traffic_h\", K1 on the tied "
+        f"head of one dual generate of {MAMBA2} ({H_PROMPTS} x "
+        f"{H_PROMPT_LEN} tokens, {H_NEW} new); total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,18 @@
 """Config dataclasses: model architecture and run knobs.
 
 A copy of the JAX package's ``configs/base.py`` cut to the families this
-package serves: the decoder-only dense family, the decoder-only
-mixture-of-experts family and the audio encoder-decoder with its conv
-stem.  Field names, defaults and the frontend and dense-mode checks are
+package serves: the decoder-only dense and mixture-of-experts families,
+the attention-free Mamba2 family (``ssm``), the Mamba/attention hybrid
+with MoE on some layers (``hybrid``) and the audio encoder-decoder with
+its conv stem.  Field names, defaults, the layer pattern (``layer_kind``,
+``layer_is_moe``, ``period``) and the frontend and dense-mode checks are
 the same, so one configuration means the same model in both packages;
 the shapes table and the run knobs likewise.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Tuple
 
@@ -17,7 +20,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | audio (the ported families)
+    family: str                    # dense | moe | ssm | hybrid | audio (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,7 +40,17 @@ class ModelConfig:
     # moe
     n_experts: int = 0
     n_experts_active: int = 0
+    moe_every: int = 1             # MoE at layer positions p % moe_every == moe_offset
+    moe_offset: int = 0
     capacity_factor: float = 1.25
+    # ssm / hybrid
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 64
+    attn_every: int = 0            # hybrid: attention at p % attn_every == 0
     # enc-dec / audio frontend: with frontend_conv the model consumes raw
     # mel frames through the two-conv stem (repro_torch.models.frontend),
     # routed through repro_torch.sparse.conv
@@ -65,7 +78,7 @@ class ModelConfig:
     # norms
     norm_kind: str = "rms"         # rms | layer
     norm_eps: float = 1e-5
-    tie_embeddings: bool = False   # only untied heads are ported
+    tie_embeddings: bool = False   # the head is embed.T (no lm_head)
     # sub-quadratic capability (decides long_500k applicability)
     subquadratic: bool = False
 
@@ -103,20 +116,39 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
     def layer_kind(self, pos: int) -> str:
         """Layer type at position ``pos`` within the layer period."""
+        if self.family == "ssm":
+            return "mamba"
+        if self.family == "hybrid":
+            return "attn" if pos % self.attn_every == 0 else "mamba"
         return "attn"
 
     def layer_is_moe(self, pos: int) -> bool:
-        """Whether the layer at ``pos`` holds a MoE: every layer of a MoE
-        family (the ported families interleave no dense layers)."""
-        return bool(self.n_experts)
+        """Whether the layer at ``pos`` holds a MoE in place of its MLP."""
+        if not self.n_experts:
+            return False
+        return pos % self.moe_every == self.moe_offset
 
     @property
     def period(self) -> int:
-        """Length of the repeating layer pattern (1 for the ported
-        families)."""
-        return 1
+        """Length of the repeating layer pattern: 1 for the dense, MoE,
+        ssm and audio families, ``attn_every`` for a hybrid, widened to
+        the lcm with ``moe_every`` where MoE skips layers."""
+        p = 1
+        if self.family == "hybrid" and self.attn_every:
+            p = self.attn_every
+        if self.n_experts and self.moe_every > 1:
+            p = _lcm(p, self.moe_every)
+        return p
 
     @property
     def n_periods(self) -> int:
@@ -124,6 +156,10 @@ class ModelConfig:
             raise ValueError(f"n_layers {self.n_layers} is not a multiple "
                              f"of the period {self.period}")
         return self.n_layers // self.period
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,13 +1,18 @@
-"""The transformer: decoder-only dense and MoE, and the audio
-encoder-decoder.
+"""The transformer: decoder-only dense, MoE, Mamba2 (``ssm``) and
+Mamba/attention hybrid stacks, and the audio encoder-decoder.
 
 The JAX package stacks each period position's parameters over periods
 and scans over them; here the layers are an ``nn.ModuleList`` walked by a
-Python loop, with one cache entry per decoder layer.
+Python loop over ``n_layers``, with one cache entry per decoder layer.
+Layer i is built as period position ``i % cfg.period``: its kind
+(``cfg.layer_kind``: an attention or a Mamba block) and whether its
+feed-forward block is a MoE (``cfg.layer_is_moe``).  The loop never asks
+for ``n_periods``, so a depth that is not a multiple of the period (a
+hybrid cut to its first two positions) runs too.
 ``Transformer.forward`` is the JAX package's ``forward`` and
-``DecoderLayer.forward`` its ``_apply_layer``.  A MoE family's decoder
-layers hold a :class:`~repro_torch.models.moe.MoE` where the JAX package
-puts its ``"moe"`` block, and the forward sums their auxiliary losses.
+``DecoderLayer.forward`` its ``_apply_layer``.  The forward sums the MoE
+layers' auxiliary losses.  A tied model has no ``lm_head``: its head is
+``embed.T``, which the sparse modes plan per call.
 
 The encoder-decoder (whisper) runs the conv frontend over ``batch["mel"]``
 and the encoder stack (non-causal, no cache) at prefill only; its decoder
@@ -25,6 +30,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import device as devmod
 from repro_torch.models import cache as kvc
 from repro_torch.models import frontend as fem
+from repro_torch.models import ssm as ssmm
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
@@ -42,68 +48,88 @@ class ModelOutputs(NamedTuple):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    decoder_only = (cfg.family in ("dense", "moe")
-                    and not cfg.is_encoder_decoder)
+    decoder_only = (cfg.family in ("dense", "moe", "ssm", "hybrid")
+                    and not cfg.is_encoder_decoder and cfg.frontend == "none")
     audio = (cfg.family == "audio" and cfg.is_encoder_decoder
              and cfg.frontend == "audio" and cfg.frontend_conv)
-    if cfg.period != 1 or not (decoder_only or audio) or cfg.tie_embeddings:
-        raise ValueError(f"{cfg.name}: only the decoder-only dense and MoE "
-                         "families (MoE in every layer) and the audio "
-                         "encoder-decoder with its conv stem (untied heads) "
-                         "are ported")
+    if not (decoder_only or audio):
+        raise ValueError(f"{cfg.name}: only the decoder-only dense, MoE, "
+                         "Mamba2 and hybrid families and the audio "
+                         "encoder-decoder with its conv stem are ported "
+                         "(not the VLM's cross layers and vision frontend)")
 
 
 class DecoderLayer(nn.Module):
-    """norm1 + attn, [norm_cross + cross_attn,] norm2 + mlp (or moe, where
-    ``cfg.layer_is_moe``: the ported families have period 1, so every
-    layer is period position 0).  Encoder layers are the same module
-    without ``cross``, run non-causal."""
+    """One layer at period position ``pos``: norm1 + attn, [norm_cross +
+    cross_attn,] norm2 + mlp (or moe, where ``cfg.layer_is_moe(pos)``);
+    a ``"mamba"`` position holds norm1 + mamba in place of the attention,
+    and a Mamba2 (``ssm``) stack no norm2 and no feed-forward block.
+    Encoder layers are the attention layer without ``cross``, run
+    non-causal."""
 
-    def __init__(self, cfg: ModelConfig, *, cross: bool = False,
-                 device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, pos: int = 0, *,
+                 cross: bool = False, device=None, dtype=None):
         super().__init__()
         d, kind = cfg.d_model, cfg.norm_kind
-        self.norm1 = init_norm(d, kind, device=device, dtype=dtype)
-        self.attn = Attention(cfg, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.kind = cfg.layer_kind(pos)
+        self.norm1 = init_norm(d, kind, **kw)
+        if self.kind == "mamba":
+            self.mamba = ssmm.Mamba(cfg, **kw)
+        else:
+            self.attn = Attention(cfg, **kw)
         self.cross = cross
         if cross:
-            self.norm_cross = init_norm(d, kind, device=device, dtype=dtype)
-            self.cross_attn = Attention(cfg, cross=True, device=device,
-                                        dtype=dtype)
-        self.norm2 = init_norm(d, kind, device=device, dtype=dtype)
-        # "moe" or "mlp": the block's attribute, and its key in the JAX
-        # parameter tree and in the weight plans
-        self.ffn_key = "moe" if cfg.layer_is_moe(0) else "mlp"
-        self.add_module(self.ffn_key, (MoE if self.ffn_key == "moe" else MLP)(
-            cfg, device=device, dtype=dtype))
+            self.norm_cross = init_norm(d, kind, **kw)
+            self.cross_attn = Attention(cfg, cross=True, **kw)
+        # "moe", "mlp" or None: the block's attribute, and its key in the
+        # JAX parameter tree and in the weight plans
+        self.ffn_key = None
+        if self.kind != "mamba" or cfg.family != "ssm":
+            self.norm2 = init_norm(d, kind, **kw)
+            self.ffn_key = "moe" if cfg.layer_is_moe(pos) else "mlp"
+            self.add_module(self.ffn_key, (
+                MoE if self.ffn_key == "moe" else MLP)(cfg, **kw))
 
     @property
     def ffn(self):
-        """The layer's feed-forward block: its MoE or its MLP."""
-        return getattr(self, self.ffn_key)
+        """The layer's feed-forward block: its MoE, its MLP or None."""
+        return getattr(self, self.ffn_key) if self.ffn_key else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.attn.reset_parameters(generator)
+        (self.mamba if self.kind == "mamba" else self.attn
+         ).reset_parameters(generator)
         if self.cross:
             self.cross_attn.reset_parameters(generator)
-        self.ffn.reset_parameters(generator)
+        if self.ffn is not None:
+            self.ffn.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, cache=None,
                 plans: Optional[Dict] = None,
                 memory: Optional[torch.Tensor] = None,
                 causal: bool = True, chunk: int = 0):
-        """``cache``: a KVCache (decoder-only), an EncDecCache (a cross
-        layer) or None; ``memory``: the encoder output at prefill, None
-        at decode; ``chunk``: attention's KV chunk.  Returns (x, the
-        updated cache, the MoE's float32 auxiliary loss or None)."""
+        """``cache``: a KVCache (decoder-only attention), an SSMState (a
+        Mamba layer), an EncDecCache (a cross layer) or None; ``memory``:
+        the encoder output at prefill, None at decode; ``chunk``:
+        attention's KV chunk.  A Mamba layer with a cache takes one token
+        as a decode step (``mamba_step``) and more as a prefill that
+        returns its state.  Returns (x, the updated cache, the MoE's
+        float32 auxiliary loss or None)."""
         plans = plans or {}
-        kv, cross_kv = (cache if isinstance(cache, kvc.EncDecCache)
-                        else (cache, None))
         h = apply_norm(self.norm1, x, cfg.norm_eps)
-        y, kv = self.attn(h, cfg, positions=positions, cache=kv,
-                          plans=plans.get("attn"), causal=causal,
-                          chunk=chunk)
+        if self.kind == "mamba":
+            if cache is not None and x.shape[1] == 1:
+                y, kv = ssmm.mamba_step(self.mamba, h, cfg, cache)
+            else:
+                y, kv = ssmm.mamba_forward(self.mamba, h, cfg, state=cache,
+                                           return_state=cache is not None)
+        else:
+            kv, cross_kv = (cache if isinstance(cache, kvc.EncDecCache)
+                            else (cache, None))
+            y, kv = self.attn(h, cfg, positions=positions, cache=kv,
+                              plans=plans.get("attn"), causal=causal,
+                              chunk=chunk)
         x = x + y
         if self.cross:
             h = apply_norm(self.norm_cross, x, cfg.norm_eps)
@@ -112,19 +138,21 @@ class DecoderLayer(nn.Module):
                 plans=plans.get("cross_attn"), kv_source=memory,
                 is_cross=True, update_cache=memory is not None, chunk=chunk)
             x = x + y
-        h = apply_norm(self.norm2, x, cfg.norm_eps)
-        y = self.ffn(h, cfg, plans=plans.get(self.ffn_key))
-        y, aux = y if self.ffn_key == "moe" else (y, None)
-        x = x + y
+        aux = None
+        if self.ffn is not None:
+            h = apply_norm(self.norm2, x, cfg.norm_eps)
+            y = self.ffn(h, cfg, plans=plans.get(self.ffn_key))
+            y, aux = y if self.ffn_key == "moe" else (y, None)
+            x = x + y
         if isinstance(cache, kvc.EncDecCache):
             return x, kvc.EncDecCache(kv=kv, cross_kv=cross_kv), aux
         return x, kv, aux
 
 
 class Transformer(nn.Module):
-    """embed (vocab, d), the decoder layers, final_norm, lm_head (d,
-    vocab); an encoder-decoder adds ``frontend``, ``enc_layers`` and
-    ``enc_final_norm``."""
+    """embed (vocab, d), the decoder layers, final_norm and, unless
+    ``cfg.tie_embeddings``, lm_head (d, vocab); an encoder-decoder adds
+    ``frontend``, ``enc_layers`` and ``enc_final_norm``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
@@ -134,12 +162,13 @@ class Transformer(nn.Module):
             torch.empty(cfg.vocab_size, cfg.d_model, **kw),
             requires_grad=False)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, cross=cfg.is_encoder_decoder, **kw)
-            for _ in range(cfg.n_layers))
+            DecoderLayer(cfg, i % cfg.period, cross=cfg.is_encoder_decoder,
+                         **kw)
+            for i in range(cfg.n_layers))
         self.final_norm = init_norm(cfg.d_model, cfg.norm_kind, **kw)
-        self.lm_head = nn.Parameter(
+        self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, **kw),
-            requires_grad=False)
+            requires_grad=False))
         if cfg.is_encoder_decoder:
             self.frontend = fem.AudioFrontend(cfg, **kw)
             self.enc_layers = nn.ModuleList(
@@ -149,7 +178,8 @@ class Transformer(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded normal weights (the JAX package's stddevs), unit norms."""
         self.embed.normal_(0.0, 0.02, generator=generator)
-        self.lm_head.normal_(0.0, 0.02, generator=generator)
+        if self.lm_head is not None:
+            self.lm_head.normal_(0.0, 0.02, generator=generator)
         for layer in self.layers:
             layer.reset_parameters(generator)
         if hasattr(self, "enc_layers"):
@@ -223,12 +253,19 @@ class Transformer(nn.Module):
             if new_caches is not None:
                 new_caches.append(c)
         x = apply_norm(self.final_norm, x, cfg.norm_eps)
+        head = self.lm_head
         if cfg.sparse_mode == "dense":
-            logits = x @ self.lm_head.to(x.dtype)
+            logits = x @ (self.embed.t() if head is None else head
+                          ).to(x.dtype)
         else:
+            if head is None:
+                # a tied head: embed.T, copied contiguous for the kernel
+                # (which reads its operands dense, row-major) and planned
+                # per call, as the JAX package plans it
+                head = self.embed.to(x.dtype).t().contiguous()
             head_site = site.make("matmul", "lm_head", axes=("embed", "vocab"))
             logits, _ = site.matmul(
-                x, spw.planned_or_array(self.lm_head, weight_plans, "lm_head",
+                x, spw.planned_or_array(head, weight_plans, "lm_head",
                                         x.dtype, cfg.sparse_slice_k,
                                         site=head_site),
                 head_site, cfg)
@@ -257,7 +294,10 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
     w_down[, w_gate][, @elem]}}, ...], "lm_head": ...}``, the attention
     weights flattened to their 2-D dispatch shapes, a MoE's over its
     stacked (E, K, N) expert weights; an encoder-decoder adds
-    ``"enc_layers"`` and the stem convs' ``"frontend"``.
+    ``"enc_layers"`` and the stem convs' ``"frontend"``.  A Mamba block
+    plans nothing (its projections are plain matmuls, as in the JAX
+    package), and a tied head has no ``"lm_head"`` entry: it is planned
+    per call.
     """
     if cfg.sparse_mode == "dense":
         return None
@@ -274,19 +314,21 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
                 "wo": plan_of(a.wo.reshape(-1, a.wo.shape[-1]))}
 
     def layer_plans(layer: DecoderLayer) -> Dict[str, Any]:
-        out: Dict[str, Any] = {
-            "attn": attn_plans(layer.attn),
-            layer.ffn_key: spw.plan_layer_weights(
+        out: Dict[str, Any] = {}
+        if layer.kind != "mamba":
+            out["attn"] = attn_plans(layer.attn)
+        if layer.ffn is not None:
+            out[layer.ffn_key] = spw.plan_layer_weights(
                 layer.ffn.weights(), slice_k=sk,
-                block_n=cfg.sparse_block_n if cfg.sparse_kcondense else None),
-        }
+                block_n=cfg.sparse_block_n if cfg.sparse_kcondense else None)
         if layer.cross:
             out["cross_attn"] = attn_plans(layer.cross_attn)
         return out
 
     plans: Dict[str, Any] = {
-        "layers": [layer_plans(layer) for layer in model.layers],
-        "lm_head": plan_of(model.lm_head)}
+        "layers": [layer_plans(layer) for layer in model.layers]}
+    if model.lm_head is not None:
+        plans["lm_head"] = plan_of(model.lm_head)
     if cfg.is_encoder_decoder:
         plans["enc_layers"] = [layer_plans(layer)
                                for layer in model.enc_layers]
@@ -313,6 +355,8 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
     encoder-decoder's layers hold
     :class:`~repro_torch.models.cache.EncDecCache` s, each with a cross
     cache of ``encoder_len`` slots (bf16 always, as in the JAX package).
+    A Mamba layer holds a zero :class:`~repro_torch.models.ssm.SSMState`
+    (float32 state, the conv tail in ``dtype``) whatever the capacity.
     """
     dev = devmod.resolve(device)
     if sparse is None:
@@ -331,7 +375,9 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
                               device=dev)
 
     if not cfg.is_encoder_decoder:
-        return [self_cache() for _ in range(cfg.n_layers)]
+        return [ssmm.init_state(cfg, batch, dtype=dtype, device=dev)
+                if cfg.layer_kind(i % cfg.period) == "mamba" else self_cache()
+                for i in range(cfg.n_layers)]
     return [kvc.EncDecCache(
                 kv=self_cache(),
                 cross_kv=kvc.init_cache(batch, cfg.encoder_len,
@@ -345,16 +391,20 @@ def init_paged_caches(cfg: ModelConfig, slots: int, pages: int,
                       quantized: bool = False, dtype=torch.bfloat16,
                       device=None) -> List[Any]:
     """The continuous-batching engine's decode caches: one
-    :class:`~repro_torch.sparse.kvcache.PagedSparseKVCache` per decoder
+    :class:`~repro_torch.sparse.kvcache.PagedSparseKVCache` per attention
     layer, each its own page pool of ``pages`` pages (int8 with scales
-    when ``quantized``) with per-slot block tables.  Encoder-decoder stacks are not paged (their memory K/V are
-    per request and fixed in size): they raise ``ValueError``, as in the
-    JAX package."""
+    when ``quantized``) with per-slot block tables, and a zero per-slot
+    :class:`~repro_torch.models.ssm.SSMState` per Mamba layer (O(1) a
+    slot: nothing to page).  Encoder-decoder stacks are not paged (their
+    memory K/V are per request and fixed in size): they raise
+    ``ValueError``, as in the JAX package."""
     if cfg.is_encoder_decoder:
         raise ValueError(
             "paged serving supports decoder-only self-attention stacks")
     dev = devmod.resolve(device)
-    return [skvc.init_paged_cache(slots, pages, page_size, capacity,
-                                  cfg.n_kv_heads, cfg.hd, dtype=dtype,
-                                  quantized=quantized, device=dev)
-            for _ in range(cfg.n_layers)]
+    return [ssmm.init_state(cfg, slots, dtype=dtype, device=dev)
+            if cfg.layer_kind(i % cfg.period) == "mamba"
+            else skvc.init_paged_cache(slots, pages, page_size, capacity,
+                                       cfg.n_kv_heads, cfg.hd, dtype=dtype,
+                                       quantized=quantized, device=dev)
+            for i in range(cfg.n_layers)]

@@ -8,11 +8,15 @@ three cores, which here are plain methods run under
   one prefill into fresh contiguous full-history caches;
 * **insert** — each prefilled row is copied into the shared
   :class:`~repro_torch.sparse.kvcache.PagedSparseKVCache` page pools at
-  the physical pages the host allocator backed for its slot;
+  the physical pages the host allocator backed for its slot, and a Mamba
+  layer's row of :class:`~repro_torch.models.ssm.SSMState` into its
+  slot's state;
 * **decode** — ONE step per engine tick advances every slot together:
   tokens (B, 1), per-slot positions (B, 1); in a sparse mode both
   attention products go through the grouped dispatch as one E = B·KV
-  problem set spanning the slots, each slot with its own schedule.
+  problem set spanning the slots, each slot with its own schedule.  A
+  Mamba layer steps every slot's recurrent state, idle slots' too (as
+  the JAX engine does); an insert overwrites the slot's state.
 
 The prefill and decode cores each end in one host read (the next tokens
 and the per-row ``ok`` flags), as ``np.asarray`` does in the JAX engine.  Slots share one
@@ -50,6 +54,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ServeConfig
 from repro_torch.core import device as devmod
+from repro_torch.models import ssm as ssmm
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.scheduler import (PageAllocator, Scheduler,
                                            pack_prefills)
@@ -203,9 +208,19 @@ class Engine:
 
     @torch.inference_mode()
     def _insert_impl(self, caches, pre, row, slot, pages, true_len):
-        """Lift one prefilled row into every layer's page pool."""
-        return [skvc.insert_prefill(c, p, row, slot, pages, true_len)
-                for c, p in zip(caches, pre)]
+        """Lift one prefilled row into every attention layer's page pool
+        and every Mamba layer's slot state (copied in place, cast to the
+        slot state's dtype as the JAX engine's ``.at[].set`` casts)."""
+        out = []
+        for c, p in zip(caches, pre):
+            if isinstance(c, ssmm.SSMState):
+                c.state[slot] = p.state[row]
+                c.conv[slot] = p.conv[row]
+                out.append(c)
+            else:
+                out.append(skvc.insert_prefill(c, p, row, slot, pages,
+                                               true_len))
+        return out
 
     @torch.inference_mode()
     def _decode_impl(self, toks, pos, caches):
@@ -229,7 +244,7 @@ class Engine:
         tokens, so with ``cfg.sparse_kv`` the bitmap-scheduled decode
         records its ``attn.score``/``attn.value`` entries, one schedule
         per batch row, and the report ends with one
-        ``kvcache.pos0.layerI`` occupancy entry per sparse cache.  Runs
+        ``kvcache.posP.layerI`` occupancy entry per sparse cache.  Runs
         beside the serving state, which it does not touch.  ``[]`` in
         dense mode (nothing is routed).
         """
@@ -261,15 +276,21 @@ class Engine:
 
     def _cache_occupancy_entries(self, caches) -> List[dict]:
         """Per-layer sparse-cache occupancy, from the maintained bitmaps,
-        named as the JAX engine names them (period position 0, layer i:
-        every ported stack has period 1)."""
+        named and ordered as the JAX engine names them: layer i is
+        ``kvcache.pos{i % P}.layer{i // P}`` for the period P, by position
+        name, then layer.  Mamba layers hold no cache to report."""
         out: List[dict] = []
         mask_w = self.cfg.sliding_window or None
-        for i, c in enumerate(caches):
+        period = self.cfg.period
+        order = sorted(range(len(caches)),
+                       key=lambda i: (f"pos{i % period}", i // period))
+        for i in order:
+            c = caches[i]
             if not isinstance(c, skvc.SparseKVCache):
                 continue
             rep = skvc.occupancy_report(c, mask_window=mask_w)
-            out.append({"name": f"kvcache.pos0.layer{i}",
+            out.append({"name": f"kvcache.pos{i % period}.layer"
+                                f"{i // period}",
                         "written_frac": rep["written_frac"],
                         "evicted_frac": rep["evicted_frac"],
                         "quantized": rep["quantized"],
@@ -308,11 +329,15 @@ class Engine:
             "pages_total": self.n_pages,
         }
 
-    def pool_stats(self) -> dict:
-        """Per-slot paged-cache occupancy report (first layer: the
-        metadata is the same in every layer)."""
-        return skvc.paged_occupancy_report(
-            self.caches[0], mask_window=self.cfg.sliding_window or None)
+    def pool_stats(self) -> Optional[dict]:
+        """Per-slot paged-cache occupancy report (the first attention
+        layer's: the metadata is the same in every one), or None for a
+        stack without attention."""
+        for c in self.caches:
+            if isinstance(c, skvc.PagedSparseKVCache):
+                return skvc.paged_occupancy_report(
+                    c, mask_window=self.cfg.sliding_window or None)
+        return None
 
     def health(self) -> dict:
         """JSON-serialisable control-plane snapshot: who holds which
@@ -356,6 +381,7 @@ class Engine:
         # a copy: on the CPU ``as_tensor`` would alias the host table
         tbl = torch.tensor(self.table_host, device=self.dev)
         self.caches = [dataclasses.replace(c, table=tbl)
+                       if isinstance(c, skvc.PagedSparseKVCache) else c
                        for c in self.caches]
         self._table_dirty = False
 

@@ -18,7 +18,8 @@ from repro_torch.models import transformer as tfm
 
 
 class DecodeState(NamedTuple):
-    caches: List               # per decoder layer: KVCache or EncDecCache
+    caches: List               # per decoder layer: KVCache, EncDecCache
+                               # or (a Mamba layer) SSMState
     last_token: torch.Tensor   # (B, 1) int64
     pos: int                   # next position to write
 

@@ -1,6 +1,7 @@
-"""K1-K7, the sparse-KV decode, the whisper path, block pruning and the
-MoE expert products on the card against their plain versions and the CPU (needs an NVIDIA GPU with
-nvcc; skipped elsewhere).  Run there with
+"""K1-K7, the sparse-KV decode, the whisper path, block pruning, the
+MoE expert products, a full-width Mamba block and a tied head on the card
+against their plain versions and the CPU (needs an NVIDIA GPU with nvcc;
+skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -791,3 +792,61 @@ def test_conv2d_dual_sparse_matches_conv2d_ref(cuda, monkeypatch):
     assert e["executed_steps"] == e["sparse_steps"] < e["dense_steps"]
     ref = spconv.conv2d_ref(x, w, 1)
     assert (res.out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_jamba_mamba_layer_matches_cpu(cuda):
+    """One full-width jamba Mamba block (d_inner 16384, 256 SSD heads,
+    state 128) in float32: a prefill of 130 tokens (past two chunks of
+    64, so the dt = 0 padding runs) and two decode steps on the card
+    against the same on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("jamba-1.5-large-398b")
+    cpu = ssm.Mamba(cfg, dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    cpu.reset_parameters(g)
+    with torch.no_grad():
+        for p in (cpu.dt_bias, cpu.conv_b):
+            p.copy_(0.3 * torch.randn(p.shape, generator=g))
+    gpu = ssm.Mamba(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    x = 0.5 * torch.randn(1, 132, cfg.d_model, generator=g)
+
+    def run(m, xs):
+        y, st = ssm.mamba_forward(m, xs[:, :130], cfg, return_state=True)
+        outs = [y]
+        for t in (130, 131):
+            y, st = ssm.mamba_step(m, xs[:, t:t + 1], cfg, st)
+            outs.append(y)
+        return torch.cat(outs, 1), st
+
+    want, wst = run(cpu, x)
+    got, gst = run(gpu, x.to(cuda))
+    assert torch.isfinite(got).all()
+    for a, b in ((got, want), (gst.state, wst.state), (gst.conv, wst.conv)):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), err
+
+
+def test_tied_head_dispatch_matches_plain(cuda):
+    """mamba2-370m's tied head (embed.T, K = 1024, N = 50280: a ragged
+    last N tile) through K1 in dual mode, planned per call, against the
+    plain walk on the CPU in bf16; the model has no layers, so the head
+    is all it runs."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=0,
+                              sparse_mode="dual", sparse_use_kernel=True)
+    cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu",
+                         dtype=torch.bfloat16)
+    gpu = tfm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu",
+                         dtype=torch.bfloat16).to(cuda)
+    assert cpu.lm_head is None
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    before = bsk.bitmap_spgemm_planned.launches
+    got = gpu({"tokens": tokens.to(cuda)}, cfg).logits
+    assert bsk.bitmap_spgemm_planned.launches == before + 1
+    want = cpu({"tokens": tokens}, cfg).logits
+    assert got.shape == (2, 40, 50280)
+    err = (got.float().cpu() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
