@@ -213,6 +213,32 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    request's tokens against its own batch-1 generate; the dual generate's
    K1 launches held to their plain walks and replayed.  Numbers: tokens/s,
    prefill ms, the decode-step median and peak memory per mode.
+17. the VLM, traffic I — first llama-3.2-vision-90b's smoke model (10
+   layers, 16 x 16 images, the cross layers' gates drawn non-zero) on the
+   card against the CPU plain path as in 15, each prompt with an image.
+   Then full-width ``llama-3.2-vision-90b`` cut to one period of 5 layers
+   (a tanh-gated cross layer, 4 self layers; 6.40 B random bf16
+   parameters from a seed, the gates drawn in [0.5, 1)) under its
+   ``decode_32k`` run config (int8 self caches, chunks of 2048), traffic
+   F's 2 x 3000 prompt tokens into 32768-slot caches, 16 new, each request
+   with a 560 x 560 x 3 ReLU-clipped normal image (1601 image tokens with
+   the cls token), on cached weight plans: dense, dual (K1, K5, K7),
+   dual+kv (adds K3) and dual+kc+kv (K2, K4, K5, K7), each with exact
+   launches (K1/K2 37 a prefill and 34 a decode step, K3/K4 8 a decode
+   step, K5 and K7 1 a prefill), executing what it counts, the scheduled
+   share of cache-block steps equal to the positions' reckoning; sparse
+   logits within ``SERVE_RTOL`` x max|dense|, tokens parting only at
+   top-2 ties; the two requests' images swapped must move each row's
+   first-token logits by more than the tolerance and more than 10 x the
+   sparse modes' own first-token difference from dense; the frontend's
+   and the cross layer's shares of one prefill's device time (profiler
+   ranges), the patch conv as ``F.conv2d`` and ``F.unfold`` and its GEMM
+   on K1 replayed beside ``torch.matmul``; dual+kv through ``generate``
+   (the same tokens; the cross caches plain bf16 of 1601 slots); the
+   ``Engine`` refusing the config with ``ValueError``; then every K1-K4
+   launch of a dual+kv and a dual+kc+kv generate held to its plain walk
+   and replayed, and the generate's K5 and K7 launches held bit-equal and
+   replayed beside their bound (and ``F.unfold`` for K7).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -293,7 +319,7 @@ W_SEGMENTS, W_NEW = 4, 32
 # <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>
 W_PROMPT = (50258, 50259, 50359, 50363)
 # the vision patch conv's shape (k = s = 14 over a 560 x 560 x 3 image):
-# K7's other caller, checked here, served by a later slice
+# K7's other caller, checked here and served in phase 17
 PATCH = (1, 560, 560, 3, 14, 14, 14)
 # ragged conv shapes (N, H, W, C, kh, kw, stride): 3x3 at strides 1 and
 # 2, windows that cross or end on a word boundary, W multiple of 32, and
@@ -3629,7 +3655,9 @@ def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False,
     within 1e-5 and ``new`` greedy tokens equal in dense, dual and
     dual+kc; with ``int8_kv``, dual+kv on int8 caches (``rc.kv_quant``, a
     48-slot context in 8-slot blocks), 7 tokens equal.  ``depth`` maps an
-    arch to the layers its smoke model is cut to."""
+    arch to the layers its smoke model is cut to.  A VLM's prompts come
+    with an image each (:func:`memory_inputs`), its gates drawn non-zero
+    (:func:`seed_gates`)."""
     from repro_torch.configs import smoke_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import transformer as tfm
@@ -3642,14 +3670,18 @@ def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False,
         cpu = tfm.init_model(cfg, torch.Generator().manual_seed(0),
                              device="cpu", dtype=torch.float32)
         seed_biases(torch, cpu, torch.Generator().manual_seed(4))
+        seed_gates(torch, cpu, torch.Generator().manual_seed(5))
         gpu = copy.deepcopy(cpu).to("cuda")
         tokens = torch.randint(0, cfg.vocab_size, (2, prompt_len),
                                generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": tokens, **memory_inputs(
+            torch, cfg, 2, torch.Generator().manual_seed(2))}
+        gbatch = {k: v.cuda() for k, v in batch.items()}
         errs = []
         for mode, knobs in MODES.items():
             c = dataclasses.replace(cfg, **knobs)
-            want = cpu({"tokens": tokens}, c, rc=rc)
-            got = gpu({"tokens": tokens.cuda()}, c, rc=rc)
+            want = cpu(batch, c, rc=rc)
+            got = gpu(gbatch, c, rc=rc)
             err = (got.logits.cpu() - want.logits).abs().max().item()
             if not err <= 1e-4 * want.logits.abs().max().item():
                 raise AssertionError(f"{arch}-smoke {mode}: card vs CPU "
@@ -3660,21 +3692,20 @@ def phase_reference_smoke(torch, archs, prompt_len, new, int8_kv=False,
                                      f"aux loss {aux_err}")
             errs.append(f"{mode} {err:.2e}" + (f" (aux loss {aux_err:.1e})"
                                                if cfg.n_experts else ""))
-            tc = serve_loop.generate(cpu, {"tokens": tokens}, c,
-                                     max_new_tokens=new, rc=rc, device="cpu")
-            tg = serve_loop.generate(gpu, {"tokens": tokens}, c,
-                                     max_new_tokens=new, rc=rc)
+            tc = serve_loop.generate(cpu, batch, c, max_new_tokens=new,
+                                     rc=rc, device="cpu")
+            tg = serve_loop.generate(gpu, batch, c, max_new_tokens=new,
+                                     rc=rc)
             if not torch.equal(tc, tg.cpu()):
                 raise AssertionError(f"{arch}-smoke {mode}: tokens differ")
         if int8_kv:
             c = dataclasses.replace(cfg, sparse_block_t=8,
                                     **KV_MODES["dual+kv"])
             rc8 = dataclasses.replace(rc, kv_quant=True)
-            tc = serve_loop.generate(cpu, {"tokens": tokens}, c,
-                                     max_new_tokens=7, capacity=48, rc=rc8,
-                                     device="cpu")
-            tg = serve_loop.generate(gpu, {"tokens": tokens}, c,
-                                     max_new_tokens=7, capacity=48, rc=rc8)
+            tc = serve_loop.generate(cpu, batch, c, max_new_tokens=7,
+                                     capacity=48, rc=rc8, device="cpu")
+            tg = serve_loop.generate(gpu, batch, c, max_new_tokens=7,
+                                     capacity=48, rc=rc8)
             if not torch.equal(tc, tg.cpu()):
                 raise AssertionError(f"{arch}-smoke dual+kv int8: tokens "
                                      "differ")
@@ -4940,6 +4971,441 @@ def phase_hybrid(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the VLM, traffic I
+# ---------------------------------------------------------------------------
+
+# traffic I, a served VLM with a real image: full-width llama-3.2-vision-90b
+# cut to one period of I_LAYERS layers (a tanh-gated cross layer, then 4
+# self layers) under its decode_32k run config, in traffic F's shape (2 x
+# 3000 prompt tokens into 32768-slot caches, 16 new), each request with
+# one 560 x 560 x 3 image through the patch-conv frontend (K5 -> K7 -> K1)
+VLM = "llama-3.2-vision-90b"
+I_LAYERS = 5
+I_MODES = G_MODES
+# the cross layers' gates: drawn from the seeded generator in [0.5, 1), so
+# that tanh(gate) does not multiply the image away (it is 0 at init)
+I_GATE_LOW = 0.5
+
+
+def memory_inputs(torch, cfg, b, g):
+    """The frontend's input of ``b`` requests on ``g``'s device, drawn as
+    the JAX package's ``frontend_inputs`` draws it: ReLU-clipped normal
+    images for the vision frontend; nothing for a model without one."""
+    if cfg.frontend != "vision":
+        return {}
+    shape = (b, cfg.image_size, cfg.image_size, cfg.image_channels)
+    return {"images": torch.randn(shape, generator=g,
+                                  device=g.device).clamp(min=0)}
+
+
+def seed_gates(torch, model, g):
+    """Every cross layer's ``gate_attn`` drawn from ``g`` in [I_GATE_LOW,
+    1): ``init_model`` starts it at zero, as the JAX package does, and
+    tanh(0) would leave the image out of the logits."""
+    with torch.no_grad():
+        for layer in model.layers:
+            if hasattr(layer, "gate_attn"):
+                u = torch.rand((), generator=g, device=g.device)
+                layer.gate_attn.copy_(I_GATE_LOW + (1 - I_GATE_LOW) * u)
+
+
+def vlm_launches(cfg):
+    """(K1 or K2 launches of a prefill, of a decode step, K3 or K4
+    launches of a decode step's attention) of a VLM stack: at prefill
+    q/k/v/o at every layer (a cross layer's k/v over the image memory), the
+    SwiGLU MLP's three a layer, the head and the patch conv's GEMM; at a
+    decode step a cross layer's q/o only (its K/V are cached) and no
+    patch conv; score and value at each self layer's sparse-KV decode (a
+    cross layer attends over its plain cache)."""
+    kinds = [cfg.layer_kind(i % cfg.period) for i in range(cfg.n_layers)]
+    n_self, n_cross = kinds.count("attn"), kinds.count("cross")
+    ffn = 3 * cfg.n_layers
+    return (4 * cfg.n_layers + ffn + 1 + 1,
+            4 * n_self + 2 * n_cross + ffn + 1, 2 * n_self)
+
+
+def held_conv(torch, fn):
+    """``fn()`` with every K5 and K7 launch of ``kernels.ops`` held bit-equal
+    to its plain walk on the same inputs, run right after the launch, and
+    kept: {"K5": [x], "K7": [(cond, bits, kh, kw, stride)]}.  Seen at
+    ``ops._k5`` / ``ops._k7``, which ``ops.sparse_im2col`` looks up at each
+    call; the plain walks are not launches and are not counted."""
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparse_im2col as k67
+    real5, real7, seen = kops._k5, kops._k7, {"K5": [], "K7": []}
+
+    def enc(x, **kw):
+        bits, cond = real5(x, **kw)
+        pb, pc = k5.bitmap_encode_plain(x)
+        if not (torch.equal(bits, pb)
+                and torch.equal(raw_bits(cond), raw_bits(pc))):
+            raise AssertionError(f"K5 != plain at {tuple(x.shape)}")
+        seen["K5"].append(x)
+        return bits, cond
+
+    def strided(cond, bits, *, kh, kw, stride, **kw_):
+        ob, ov = real7(cond, bits, kh=kh, kw=kw, stride=stride, **kw_)
+        qb, qv = k67.sparse_im2col_strided_plain(cond, bits, kh=kh, kw=kw,
+                                                 stride=stride)
+        if not (torch.equal(ob, qb)
+                and torch.equal(raw_bits(ov), raw_bits(qv))):
+            raise AssertionError(f"K7 != plain at {tuple(cond.shape)}")
+        seen["K7"].append((cond, bits, kh, kw, stride))
+        return ob, ov
+    kops._k5, kops._k7 = enc, strided
+    try:
+        fn()
+    finally:
+        kops._k5, kops._k7 = real5, real7
+    return seen
+
+
+def conv_numbers(torch, seen):
+    """K5's and K7's launches of one generate (:func:`held_conv`) replayed
+    on their inputs: device time, CUDA events, the plain walks, the bound
+    from the bytes each must move (:func:`conv_kernel_bytes`) and, for K7,
+    ``F.unfold`` over the images (its dense lowering).  {name: numbers}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import bitmap_encode as k5
+    from repro_torch.kernels import sparse_im2col as k67
+    (x,), ((cond7, bits7, kh, kw, stride),) = seen["K5"], seen["K7"]
+    bits, cond = k5.bitmap_encode(x)
+    ob, ov = k67.sparse_im2col_strided(cond7, bits7, kh=kh, kw=kw,
+                                       stride=stride)
+    b5, b7 = conv_kernel_bytes(torch, x, bits, cond, ob, ov)
+    xn = x.contiguous()
+    out = {}
+    for kn, fn, plain, nb, lib in (
+            ("K5", lambda: k5.bitmap_encode(x),
+             lambda: k5.bitmap_encode_plain(x), b5, None),
+            ("K7", functools.partial(k67.sparse_im2col_strided, cond7, bits7,
+                                     kh=kh, kw=kw, stride=stride),
+             functools.partial(k67.sparse_im2col_strided_plain, cond7, bits7,
+                               kh=kh, kw=kw, stride=stride), b7,
+             lambda: F.unfold(xn, (kh, kw), stride=stride))):
+        out[kn] = dict(
+            launches=1, max_abs_err=0.0, ms=cuda_ms(torch, fn, 5),
+            device_ms=device_ms(torch, fn), plain_ms=cuda_ms(torch, plain, 1),
+            nbytes=nb, bound_ms=nb / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None if lib is None else device_ms(torch, lib),
+            zero_share=1.0 - int(torch.count_nonzero(ov)) / ov.numel(),
+            routes=conv_routes(x.permute(0, 2, 3, 1), kh, kw, stride))
+    return out
+
+
+def range_shares(torch, fn, wraps):
+    """``fn()`` once under the profiler with each of ``wraps`` ({(object,
+    attribute): label}) run in a named range: (the device time of all the
+    kernels ``fn`` launched, {label: the device time of its range's
+    kernels}) in ms, (None, {}) when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real = {key: getattr(*key) for key in wraps}
+    own = {key: key[1] in vars(key[0]) for key in wraps}
+
+    def wrapped(key):
+        fn_, label = real[key], wraps[key]
+
+        def call(*args, **kwargs):
+            with record_function(label):
+                return fn_(*args, **kwargs)
+        return call
+    for key in wraps:
+        setattr(*key, wrapped(key))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for key, f in real.items():
+            if own[key]:
+                setattr(*key, f)
+            else:
+                delattr(*key)
+    labels = set(wraps.values())
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == DeviceType.CUDA and e.name not in labels)
+    if not total > 0:
+        return None, {}
+    part = {lb: sum(e.device_time_total for e in prof.events()
+                    if e.name == lb and e.device_type == DeviceType.CPU) / 1e3
+            for lb in labels}
+    return total / 1e3, part
+
+
+def serve_vlm(torch, smi):
+    """Phase 17, traffic I (see the module docstring).  Returns {K-name:
+    numbers} of the cached-plan dual+kv generate's K1/K3/K5/K7 and
+    dual+kc+kv's K2/K4."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, get_run_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models import cache as kvc
+    from repro_torch.models import frontend as fem
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sparse import tape
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(VLM), n_layers=I_LAYERS)
+    rc = get_run_config(VLM, "decode_32k")
+    if not (rc.kv_quant and rc.attn_chunk == 2048):
+        raise AssertionError(f"{VLM} decode_32k run config {rc}")
+    kinds = [cfg.layer_kind(i % cfg.period) for i in range(cfg.n_layers)]
+    if kinds != ["cross"] + ["attn"] * 4 or cfg.n_periods != 1:
+        raise AssertionError(f"traffic I layers {kinds}")
+    model = make_model(torch, cfg)
+    seed_gates(torch, model, torch.Generator(device="cuda").manual_seed(5))
+    prompts = torch.randint(0, cfg.vocab_size, (F_PROMPTS, F_PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(9))
+    images = memory_inputs(torch, cfg, F_PROMPTS, torch.Generator(
+        device="cuda").manual_seed(8))["images"].to(torch.bfloat16)
+    batch = {"tokens": prompts.cuda(), "images": images}
+    b, s = prompts.shape
+    counters = kernel_counters()
+    k1p, k1d, kvd = vlm_launches(cfg)
+    n1, nkv = k1p + (F_NEW - 1) * k1d, kvd * (F_NEW - 1)
+    conv = {"K5": 1, "K7": 1}
+    expect = {"dense": {}, "dual": {"K1": n1, **conv},
+              "dual+kv": {"K1": n1, "K3": nkv, **conv},
+              "dual+kc+kv": {"K2": n1, "K4": nkv, **conv}}
+    gates = [round(layer.gate_attn.item(), 4) for layer in model.layers
+             if hasattr(layer, "gate_attn")]
+    log(f"traffic I: {cfg.name} ({cfg.n_layers} layers: {kinds}; gates "
+        f"{gates}), {cfg.num_image_tokens} image tokens an image "
+        f"({cfg.image_size}^2 x {cfg.image_channels}, patch "
+        f"{cfg.patch_size}); launches a prefill: K1/K2 {k1p}, K5 1, K7 1; "
+        f"a decode step: K1/K2 {k1d}, K3/K4 {kvd}")
+
+    # untimed: each mode's first products at these shapes, a short prompt
+    warm = {"tokens": batch["tokens"][:, :64], "images": images}
+    plans = {}
+    for mode, knobs in I_MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        plans[mode] = tfm.plan_weight_activities(model, c)
+        serve_with_plans(torch, model, c, warm, 2, plans[mode], rc=rc,
+                         capacity=F_CAPACITY)
+    runs = {}
+    for mode, knobs in I_MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            out = serve_with_plans(torch, model, c, batch, F_NEW,
+                                   plans[mode], rc=rc, capacity=F_CAPACITY)
+        wall = (time.perf_counter() - t0) * 1e3
+        got = check_launches(f"traffic I {mode} run", counters, expect[mode])
+        rows = tape_rows(tape, entries)
+        if mode != "dense":
+            bad = [row for row in rows if row[2] != row[3]]
+            if bad:
+                raise AssertionError(f"traffic I {mode}: executed != counted"
+                                     f" at {bad[:3]}")
+        if not (torch.isfinite(out["prefill"]).all()
+                and all(torch.isfinite(st).all() for st in out["steps"])):
+            raise AssertionError(f"traffic I {mode}: non-finite logits")
+        share = (f_attention_share(tape, entries, c, s)
+                 if c.sparse_kv else None)
+        patch = [row for row in rows if row[0] == "conv.patch"]
+        r = runs[mode] = dict(out, wall=wall,
+                              peak=torch.cuda.max_memory_allocated() / 1e9)
+        t = out["times"]
+        log(f"traffic I: {cfg.name} ({cfg.n_layers} layers) {mode} on int8 "
+            f"{F_CAPACITY}-slot self caches and bf16 {cfg.num_image_tokens}"
+            f"-slot cross caches, cached plans: "
+            f"{b * F_NEW / wall * 1e3:.2f} tokens/s ({wall:.0f} ms, stats "
+            f"tape on), prefill {t[0]:.1f} ms, decode steps median "
+            f"{statistics.median(t[1:]):.2f} ms, peak memory "
+            f"{r['peak']:.1f} GB, launches {got}; conv.patch steps (dense, "
+            f"counted, executed) {[row[1:4] for row in patch]}"
+            + ("" if share is None else
+               f"; scheduled share of cache-block steps {share[1]:.4f} "
+               "(= the positions' occupancy): " + ", ".join(
+                   f"{k} {v[0]}/{v[1]}" for k, v in share[0].items()))
+            + f"; {smi}")
+        if mode == "dense":
+            continue
+        dense = runs["dense"]
+        tol = SERVE_RTOL * dense["prefill"].abs().max().item()
+        pre_err = max((r["prefill"][i] - dense["prefill"][i]).abs()
+                      .max().item() for i in range(b))
+        parted = parted_at(r["tokens"], dense["tokens"])
+        dec_err = max([(r["steps"][t][i] - dense["steps"][t][i]).abs()
+                       .max().item() for t in range(1, F_NEW)
+                       for i in range(b) if t <= parted[i]] or [0.0])
+        if not (pre_err <= tol and dec_err <= tol):
+            raise AssertionError(
+                f"traffic I {mode}: logits differ from dense by "
+                f"{pre_err:.4f} (prefill) / {dec_err:.4f} (decode) > "
+                f"{tol:.4f}")
+        r["first_err"] = (r["steps"][0] - dense["steps"][0]).abs().max().item()
+        agree = parting_report(torch, f"traffic I {mode}", r["tokens"],
+                               dense["tokens"], dense["steps"], tol)
+        log(f"traffic I: {mode} vs dense: max |diff| {pre_err:.4f} "
+            f"(prefill), {dec_err:.4f} (decodes while the tokens agree) "
+            f"<= {tol:.4f} ({SERVE_RTOL} x max|dense|); " + "; ".join(agree))
+        del r["prefill"]
+    dense = runs["dense"]
+    tol = SERVE_RTOL * dense["prefill"].abs().max().item()
+    del dense["prefill"]
+
+    # the image matters: the two requests' images swapped, one dense prefill
+    # into fresh int8 caches as in the runs; each row's first-token logits
+    # against those of its own image
+    c = dataclasses.replace(cfg, **I_MODES["dense"])
+    caches = tfm.init_caches(c, b, F_CAPACITY, quantized=True)
+    with torch.inference_mode():
+        swapped = model({"tokens": batch["tokens"],
+                         "images": images.flip(0)}, c, caches=caches,
+                        positions=torch.arange(s, device="cuda"), rc=rc
+                        ).logits[:, -1].float()
+    del caches
+    moved = (swapped - dense["steps"][0]).abs().amax(-1).tolist()
+    noise = max(r["first_err"] for r in runs.values() if "first_err" in r)
+    if not min(moved) > max(tol, 10 * noise):
+        raise AssertionError(
+            f"traffic I: swapping the images moves the first token's logits "
+            f"by {moved} (rows), not more than the tolerance {tol:.4f} and 10 "
+            f"x the sparse modes' largest first-token difference {noise:.4f}")
+    log(f"traffic I: the images swapped between the requests move each row's "
+        f"first-token logits by max |diff| {[round(x, 4) for x in moved]} "
+        f"(dense): {min(moved) / tol:.2f}x the tolerance {tol:.4f} "
+        f"({SERVE_RTOL} x max|dense|), {min(moved) / max(noise, 1e-30):.1f}x "
+        f"the sparse modes' largest first-token difference from dense "
+        f"{noise:.4f}")
+    del swapped
+
+    # the frontend's and the cross layer's shares of one prefill's device
+    # time, by profiler range, dense and dual+kv; the patch conv alone as
+    # F.conv2d and F.unfold on the same images
+    cross = model.layers[0]
+    for mode in ("dense", "dual+kv"):
+        c = dataclasses.replace(cfg, **I_MODES[mode])
+        caches = tfm.init_caches(c, b, F_CAPACITY, quantized=True)
+        with torch.inference_mode():
+            total, part = range_shares(torch, lambda: model(
+                batch, c, caches=caches,
+                positions=torch.arange(s, device="cuda"), rc=rc,
+                weight_plans=plans[mode]),
+                {(fem, "vision_frontend"): "vlm.frontend",
+                 (cross, "forward"): "vlm.cross"})
+        del caches
+        shares = {lb: f"{ms:.3f} ms ({ms / total:.2%})" if ms else
+                  "not measured (no device time in its range)"
+                  for lb, ms in part.items()}
+        log(f"traffic I: {mode}, one prefill's device time "
+            + (f"{total:.2f} ms: the vision frontend "
+               f"{shares['vlm.frontend']}, the cross layer "
+               f"{shares['vlm.cross']}" if total
+               else "not measured (empty trace)") + f"; {smi}")
+    w4 = model.frontend.patch.permute(3, 2, 0, 1).contiguous()
+    xn = images.permute(0, 3, 1, 2).contiguous()
+    ps = cfg.patch_size
+    conv_dev = device_ms(torch, lambda: F.conv2d(xn, w4, stride=ps), 5)
+    unfold_dev = device_ms(torch, lambda: F.unfold(xn, (ps, ps), stride=ps),
+                           5)
+    c = dataclasses.replace(cfg, **I_MODES["dual+kv"])
+    with torch.inference_mode():
+        gemm = record_launches(torch, lambda: fem.vision_frontend(
+            model.frontend, images, c, plans=plans["dual+kv"]["frontend"]))
+    (src, launches), = gemm.items()
+    t = replayed_numbers(torch, src, launches)
+    log(f"traffic I: the patch conv alone on the served images: F.conv2d "
+        f"(bf16) device {fmt_ms(conv_dev)}, F.unfold device "
+        f"{fmt_ms(unfold_dev)}; its GEMM on K1 (dual+kv, cached plan; "
+        f"{', '.join(f'{k} x{n}' for k, n in t['shapes'].items())}): device "
+        f"{fmt_ms(t['device_ms'])} ({t['ms']:.4f} ms events), bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']}, plain "
+        f"{t['plain_ms']:.1f} ms, torch.matmul device "
+        f"{fmt_ms(t['library_device_ms'])}; {smi}")
+
+    # serve_loop.generate (per-call plans) builds the caches itself and
+    # passes the images to the prefill only
+    c = dataclasses.replace(cfg, **I_MODES["dual+kv"])
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve_loop.generate(model, batch, c, max_new_tokens=F_NEW,
+                               capacity=F_CAPACITY, rc=rc)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    got = check_launches("traffic I dual+kv generate", counters,
+                         expect["dual+kv"])
+    if not torch.equal(toks.cpu(), runs["dual+kv"]["tokens"]):
+        raise AssertionError("traffic I: generate's tokens != the "
+                             "cached-plan run's")
+    caches = tfm.init_caches(c, b, F_CAPACITY, quantized=True)
+    cross_caches = [cc for cc, kind in zip(caches, kinds) if kind == "cross"]
+    if not all(type(cc) is kvc.KVCache and not cc.quantized
+               and cc.k.dtype == torch.bfloat16
+               and cc.capacity == cfg.num_image_tokens
+               for cc in cross_caches):
+        raise AssertionError("traffic I: a cross cache is not a plain bf16 "
+                             f"cache of {cfg.num_image_tokens} slots")
+    del caches, cross_caches
+    log(f"traffic I: dual+kv through serve_loop.generate (per-call plans, "
+        f"rc {VLM} decode_32k): {b * F_NEW / wall * 1e3:.2f} tokens/s "
+        f"({wall:.0f} ms), launches {got}, tokens == the cached-plan run's")
+
+    # the engine refuses a cross-attention stack
+    try:
+        Engine(model, c, serve=ServeConfig(slots=F_PROMPTS,
+                                           capacity=F_CAPACITY), rc=rc)
+    except ValueError as e:
+        log(f"traffic I: Engine refuses the VLM: ValueError({e})")
+    else:
+        raise AssertionError("traffic I: the Engine took a cross stack")
+    torch.cuda.empty_cache()
+
+    # every K1-K4 launch of a cached-plan generate held to its plain walk
+    # and replayed (:func:`held_generate`), its K5 and K7 launches held too
+    numbers = {}
+    for mode, pairs in HELD_KERNELS.items():
+        c = dataclasses.replace(cfg, **I_MODES[mode])
+        conv_seen = {}
+
+        def run():
+            got = held_generate(torch, f"traffic I {mode}", model, c, batch,
+                                plans[mode], rc, F_CAPACITY, F_NEW, pairs)
+            numbers.update(got)
+        conv_seen.update(held_conv(torch, run))
+        for kn, src in pairs:
+            t = numbers[kn]
+            if t["launches"] != expect[mode][kn]:
+                raise AssertionError(f"traffic I {mode}: {t['launches']} "
+                                     f"{kn} launches replayed, "
+                                     f"{expect[mode][kn]} counted")
+            kernel_numbers_line(f"traffic I: {mode}", kn, t, smi)
+        if [len(v) for v in conv_seen.values()] != [1, 1]:
+            raise AssertionError(f"traffic I {mode}: K5/K7 launches held "
+                                 f"{ {k: len(v) for k, v in conv_seen.items()} }")
+        if mode == "dual+kv":
+            for kn, t in conv_numbers(torch, conv_seen).items():
+                numbers[kn] = t
+                log(f"traffic I: {mode} {kn}: the generate's 1 launch held "
+                    f"bit-equal to its plain walk; device "
+                    f"{fmt_ms(t['device_ms'])} ({t['ms']:.4f} ms events), "
+                    f"bound {t['bound_ms']:.5f} ms by bytes "
+                    f"({t['nbytes'] / 1e6:.2f} MB), plain {t['plain_ms']:.2f}"
+                    f" ms, " + ("no PyTorch call encodes a bitmap"
+                                if kn == "K5" else
+                                f"F.unfold device {fmt_ms(t['library_ms'])}")
+                    + f"; zero share of the lowered values "
+                    f"{t['zero_share']:.3f}; routes (K5; K7) {t['routes']}; "
+                    f"{smi}")
+        torch.cuda.empty_cache()
+    del model, plans, runs
+    torch.cuda.empty_cache()
+    log(f"traffic I: phase {time.perf_counter() - t_phase:.0f} s")
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4995,6 +5461,9 @@ def main() -> int:
     phase_reference_smoke(torch, (MAMBA2, JAMBA), 9, 6, int8_kv=True,
                           depth={JAMBA: 8})
     hybrid = phase_hybrid(torch, smi)
+    torch.cuda.empty_cache()
+    phase_reference_smoke(torch, (VLM,), 9, 6, int8_kv=True)
+    vlm = serve_vlm(torch, smi)
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -5079,11 +5548,13 @@ def main() -> int:
         # traffic F (phase 15): qwen1.5-110b's cached-plan dual+kv
         # generate on int8 32768-slot caches, its launches replayed; traffic
         # G (phase 16) likewise on jamba-1.5-large (dual+kv: K1, K3;
-        # dual+kc+kv: K2, K4) and traffic H on mamba2-370m (dual: K1 on the
-        # tied head)
+        # dual+kc+kv: K2, K4), traffic H on mamba2-370m (dual: K1 on the
+        # tied head) and traffic I (phase 17) on llama-3.2-vision-90b
+        # (dual+kv: K1, K3, K5, K7; dual+kc+kv: K2, K4)
         for group, nums in (("traffic_f", dense_gqa),
                             ("traffic_g", hybrid["traffic_g"]),
-                            ("traffic_h", hybrid["traffic_h"])):
+                            ("traffic_h", hybrid["traffic_h"]),
+                            ("traffic_i", vlm)):
             if kn in nums:
                 m = nums[kn]
                 rows[-1][group] = {
@@ -5116,7 +5587,12 @@ def main() -> int:
         f"experts and cache) and dual+kc+kv (K2, K4), library_ms torch.bmm "
         f"over every expert or slot; under \"traffic_h\", K1 on the tied "
         f"head of one dual generate of {MAMBA2} ({H_PROMPTS} x "
-        f"{H_PROMPT_LEN} tokens, {H_NEW} new); total "
+        f"{H_PROMPT_LEN} tokens, {H_NEW} new); under \"traffic_i\", K1-K4 "
+        f"the same for {VLM} ({I_LAYERS} layers, {F_PROMPTS} x "
+        f"{F_PROMPT_LEN} tokens and a 560 x 560 image each) in dual+kv (K1, "
+        f"K3) and dual+kc+kv (K2, K4), and K5 and K7 over the generate's one "
+        f"launch each (the patch conv), ms CUDA events, device_ms the "
+        f"profiler's, library_ms F.unfold (K7); total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

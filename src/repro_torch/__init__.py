@@ -8,7 +8,7 @@ PyTorch idiom differs, the counterpart is:
 * ``models.transformer.forward`` → ``Transformer.forward`` (its
   encoder half → ``Transformer.encode``); ``_apply_layer`` →
   ``DecoderLayer.forward``;
-* ``models.frontend`` params → ``AudioFrontend``;
+* ``models.frontend`` params → ``AudioFrontend`` / ``VisionFrontend``;
   ``attention.attention_forward`` → ``Attention.forward``;
   ``mlp.init_mlp``/``mlp_forward`` → ``MLP`` and ``MLP.forward``;
 * ``lax.scan`` over layers or decode steps → a Python loop;

@@ -54,9 +54,9 @@ def runnable_shapes(name: str) -> List[ShapeConfig]:
 
 def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
-        chatglm3_6b, jamba_1_5_large_398b, mamba2_370m, mixtral_8x7b,
-        nemotron_4_340b, qwen1_5_110b, qwen3_moe_235b_a22b, whisper_base,
-        yi_34b)
+        chatglm3_6b, jamba_1_5_large_398b, llama3_2_vision_90b, mamba2_370m,
+        mixtral_8x7b, nemotron_4_340b, qwen1_5_110b, qwen3_moe_235b_a22b,
+        whisper_base, yi_34b)
 
 
 __all__ = ["ModelConfig", "RunConfig", "SHAPES", "SHAPES_BY_NAME",

@@ -3,8 +3,10 @@
 A copy of the JAX package's ``configs/base.py`` cut to the families this
 package serves: the decoder-only dense and mixture-of-experts families,
 the attention-free Mamba2 family (``ssm``), the Mamba/attention hybrid
-with MoE on some layers (``hybrid``) and the audio encoder-decoder with
-its conv stem.  Field names, defaults, the layer pattern (``layer_kind``,
+with MoE on some layers (``hybrid``), the audio encoder-decoder with its
+conv stem or its stub, and the VLM (``vlm``): tanh-gated cross layers
+over image embeddings from the patch-conv vision frontend or its stub.
+Field names, defaults, the layer pattern (``layer_kind``,
 ``layer_is_moe``, ``period``) and the frontend and dense-mode checks are
 the same, so one configuration means the same model in both packages;
 the shapes table and the run knobs likewise.
@@ -20,7 +22,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid | audio (ported)
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,15 +53,21 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 64
     attn_every: int = 0            # hybrid: attention at p % attn_every == 0
-    # enc-dec / audio frontend: with frontend_conv the model consumes raw
-    # mel frames through the two-conv stem (repro_torch.models.frontend),
-    # routed through repro_torch.sparse.conv
+    # enc-dec / multimodal: with frontend_conv the model consumes raw mel
+    # frames / images through a conv stem (repro_torch.models.frontend),
+    # routed through repro_torch.sparse.conv; without it the frontend is
+    # the stub fed precomputed embeddings ("frames" / "image_embeds")
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
     encoder_len: int = 0           # encoder positions (mel frames / 2)
-    frontend: str = "none"         # none | audio (vision is not ported)
+    cross_attn_every: int = 0      # vlm: cross-attn at p % cross_attn_every == 0
+    num_image_tokens: int = 0
+    frontend: str = "none"         # none | audio | vision
     frontend_conv: bool = False
     n_mels: int = 0                # audio: mel bins into the conv stem
+    image_size: int = 0            # vision: square input image extent
+    patch_size: int = 0            # vision: patch conv kernel == stride
+    image_channels: int = 3        # vision: input channels
     # dual-side sparsity dispatch: dense keeps plain torch.matmul;
     # weight/dual route every projection through repro_torch.sparse.
     sparse_mode: str = "dense"     # dense | weight | dual
@@ -90,6 +98,18 @@ class ModelConfig:
                 raise ValueError(
                     f"ModelConfig(name={self.name!r}): frontend_conv audio "
                     "requires n_mels > 0")
+            if self.frontend == "vision":
+                if self.patch_size <= 0 or self.image_size % self.patch_size:
+                    raise ValueError(
+                        f"ModelConfig(name={self.name!r}): frontend_conv "
+                        f"vision requires patch_size dividing image_size, "
+                        f"got {self.image_size}/{self.patch_size}")
+                g = self.image_size // self.patch_size
+                if self.num_image_tokens not in (g * g, g * g + 1):
+                    raise ValueError(
+                        f"ModelConfig(name={self.name!r}): num_image_tokens "
+                        f"({self.num_image_tokens}) must be {g * g} (patch "
+                        f"grid) or {g * g + 1} (grid + cls token)")
             if self.frontend == "none":
                 raise ValueError(
                     f"ModelConfig(name={self.name!r}): frontend_conv "
@@ -130,6 +150,8 @@ class ModelConfig:
             return "mamba"
         if self.family == "hybrid":
             return "attn" if pos % self.attn_every == 0 else "mamba"
+        if self.cross_attn_every:
+            return "cross" if pos % self.cross_attn_every == 0 else "attn"
         return "attn"
 
     def layer_is_moe(self, pos: int) -> bool:
@@ -141,11 +163,14 @@ class ModelConfig:
     @property
     def period(self) -> int:
         """Length of the repeating layer pattern: 1 for the dense, MoE,
-        ssm and audio families, ``attn_every`` for a hybrid, widened to
-        the lcm with ``moe_every`` where MoE skips layers."""
+        ssm and audio families, ``attn_every`` for a hybrid,
+        ``cross_attn_every`` for a VLM, widened to the lcm with
+        ``moe_every`` where MoE skips layers."""
         p = 1
         if self.family == "hybrid" and self.attn_every:
             p = self.attn_every
+        if self.cross_attn_every:
+            p = self.cross_attn_every
         if self.n_experts and self.moe_every > 1:
             p = _lcm(p, self.moe_every)
         return p

@@ -1,2 +1,3 @@
-"""The models: norms, caches, attention, MLP, the audio frontend and the
-transformer (decoder-only dense, and the audio encoder-decoder)."""
+"""The models: norms, caches, attention, MLP, MoE, the Mamba2 block, the
+audio and vision frontends and the transformer (decoder-only dense, MoE,
+Mamba2 and hybrid stacks, the audio encoder-decoder and the VLM)."""

@@ -5,13 +5,15 @@ trees (:func:`from_jax_params`) and ``init_sparse_linear`` dicts
 The JAX pytree is layer-stacked by period position:
 ``params["layers"][f"pos{p}"][...]`` has a leading axis over the periods,
 so the port's layer i is ``[f"pos{i % P}"][...][i // P]`` with P the
-period (an encoder-decoder's ``params["enc_layers"]["pos0"]`` has period
-1).  Each layer's leaves go to its modules: a MoE layer's ``moe`` leaves
-(router, stacked expert weights) as its ``mlp`` leaves are, a Mamba
-block's ``mamba`` leaves, and a self-attention's qkv biases
-``bq``/``bk``/``bv`` beside its weights.  A tied model has no
-``lm_head``.  Layouts are the same on both sides, so each leaf is a plain
-copy.
+period (5 for the VLM; an encoder-decoder's
+``params["enc_layers"]["pos0"]`` has period 1).  Each layer's leaves go
+to its modules: a MoE layer's ``moe`` leaves (router, stacked expert
+weights) as its ``mlp`` leaves are, a Mamba block's ``mamba`` leaves, an
+attention's qkv biases ``bq``/``bk``/``bv`` beside its weights, and a
+VLM cross layer's scalar ``gate_attn``.  A conv frontend's leaves
+(``conv1``/``b1``/``conv2``/``b2``, or ``patch``/``bias``/``pos`` and
+``cls``) go to ``model.frontend``.  A tied model has no ``lm_head``.
+Layouts are the same on both sides, so each leaf is a plain copy.
 """
 from __future__ import annotations
 
@@ -51,6 +53,8 @@ def from_jax_params(tree, cfg: ModelConfig, device=None,
             if layer.kind == "mamba":
                 for key in MAMBA_KEYS:
                     put(getattr(layer.mamba, key), stack["mamba"][key][j])
+            if layer.kind == "cross":
+                put(layer.gate_attn, stack["gate_attn"][j])
             blks = (() if layer.kind == "mamba" else ("attn",)) + (
                 ("cross_attn",) if layer.cross else ())
             for blk in blks:
@@ -79,8 +83,13 @@ def from_jax_params(tree, cfg: ModelConfig, device=None,
             put_layers(model.enc_layers, tree["enc_layers"], 1)
             for key, p in model.enc_final_norm.items():
                 put(p, tree["enc_final_norm"][key])
-            for key in ("conv1", "b1", "conv2", "b2"):
-                put(getattr(model.frontend, key), tree["frontend"][key])
+        if cfg.frontend_conv:
+            names = dict(model.frontend.named_parameters())
+            if set(names) != set(tree["frontend"]):
+                raise ValueError(f"frontend leaves {sorted(tree['frontend'])}"
+                                 f" != {sorted(names)}")
+            for key, p in names.items():
+                put(p, tree["frontend"][key])
     return model
 
 

@@ -1,23 +1,29 @@
 """The transformer: decoder-only dense, MoE, Mamba2 (``ssm``) and
-Mamba/attention hybrid stacks, and the audio encoder-decoder.
+Mamba/attention hybrid stacks, the audio encoder-decoder and the VLM.
 
 The JAX package stacks each period position's parameters over periods
 and scans over them; here the layers are an ``nn.ModuleList`` walked by a
 Python loop over ``n_layers``, with one cache entry per decoder layer.
 Layer i is built as period position ``i % cfg.period``: its kind
-(``cfg.layer_kind``: an attention or a Mamba block) and whether its
-feed-forward block is a MoE (``cfg.layer_is_moe``).  The loop never asks
-for ``n_periods``, so a depth that is not a multiple of the period (a
-hybrid cut to its first two positions) runs too.
+(``cfg.layer_kind``: an attention, a Mamba or a cross block) and whether
+its feed-forward block is a MoE (``cfg.layer_is_moe``).  The loop never
+asks for ``n_periods``, so a depth that is not a multiple of the period
+(a hybrid cut to its first two positions) runs too.
 ``Transformer.forward`` is the JAX package's ``forward`` and
 ``DecoderLayer.forward`` its ``_apply_layer``.  The forward sums the MoE
 layers' auxiliary losses.  A tied model has no ``lm_head``: its head is
 ``embed.T``, which the sparse modes plan per call.
 
-The encoder-decoder (whisper) runs the conv frontend over ``batch["mel"]``
-and the encoder stack (non-causal, no cache) at prefill only; its decoder
-layers add cross-attention over the encoder's memory, whose K/V the
-prefill writes into each layer's cross cache and decode reads.
+The memory is built at prefill (and in a cacheless forward) only: the
+conv frontend over ``batch["mel"]`` / ``batch["images"]``, or, without
+``frontend_conv``, the stub's precomputed ``batch["frames"]`` /
+``batch["image_embeds"]``.  The encoder-decoder (whisper) runs the
+encoder stack (non-causal, no cache) over it; its decoder layers add
+cross-attention over the encoder's memory.  The VLM's ``"cross"`` layers
+have no self-attention: their attention reads the image memory,
+non-causal and without RoPE, and adds ``tanh(gate_attn)`` times its
+output.  Either way the prefill writes the memory's K/V into each
+layer's cross cache, and decode reads them.
 """
 from __future__ import annotations
 
@@ -41,6 +47,13 @@ from repro_torch.sparse import site
 from repro_torch.sparse import weights as spw
 
 
+# the batch key of the memory's input, by (cfg.frontend, cfg.frontend_conv):
+# raw mel frames / images into a conv frontend, or a stub's embeddings
+MEMORY_INPUTS = {("audio", True): "mel", ("audio", False): "frames",
+                 ("vision", True): "images",
+                 ("vision", False): "image_embeds"}
+
+
 class ModelOutputs(NamedTuple):
     logits: torch.Tensor
     caches: Optional[List[Any]]
@@ -49,21 +62,28 @@ class ModelOutputs(NamedTuple):
 
 def _check_family(cfg: ModelConfig) -> None:
     decoder_only = (cfg.family in ("dense", "moe", "ssm", "hybrid")
-                    and not cfg.is_encoder_decoder and cfg.frontend == "none")
+                    and not cfg.is_encoder_decoder and cfg.frontend == "none"
+                    and not cfg.cross_attn_every)
     audio = (cfg.family == "audio" and cfg.is_encoder_decoder
-             and cfg.frontend == "audio" and cfg.frontend_conv)
-    if not (decoder_only or audio):
+             and cfg.frontend == "audio" and not cfg.cross_attn_every)
+    vlm = (cfg.family == "vlm" and not cfg.is_encoder_decoder
+           and cfg.frontend == "vision" and cfg.cross_attn_every > 0)
+    if not (decoder_only or audio or vlm):
         raise ValueError(f"{cfg.name}: only the decoder-only dense, MoE, "
-                         "Mamba2 and hybrid families and the audio "
-                         "encoder-decoder with its conv stem are ported "
-                         "(not the VLM's cross layers and vision frontend)")
+                         "Mamba2 and hybrid families, the audio "
+                         "encoder-decoder and the VLM with its vision "
+                         "frontend (each with its conv stem or its stub) "
+                         "are ported")
 
 
 class DecoderLayer(nn.Module):
     """One layer at period position ``pos``: norm1 + attn, [norm_cross +
     cross_attn,] norm2 + mlp (or moe, where ``cfg.layer_is_moe(pos)``);
     a ``"mamba"`` position holds norm1 + mamba in place of the attention,
-    and a Mamba2 (``ssm``) stack no norm2 and no feed-forward block.
+    and a Mamba2 (``ssm``) stack no norm2 and no feed-forward block.  A
+    VLM's ``"cross"`` position holds norm1 + attn (an ``Attention(cfg)``,
+    qkv biases as a self-attention's, run over the image memory) and the
+    scalar ``gate_attn``, zero at init, in place of the self-attention.
     Encoder layers are the attention layer without ``cross``, run
     non-causal."""
 
@@ -78,6 +98,9 @@ class DecoderLayer(nn.Module):
             self.mamba = ssmm.Mamba(cfg, **kw)
         else:
             self.attn = Attention(cfg, **kw)
+        if self.kind == "cross":
+            self.gate_attn = nn.Parameter(torch.zeros((), **kw),
+                                          requires_grad=False)
         self.cross = cross
         if cross:
             self.norm_cross = init_norm(d, kind, **kw)
@@ -109,13 +132,15 @@ class DecoderLayer(nn.Module):
                 plans: Optional[Dict] = None,
                 memory: Optional[torch.Tensor] = None,
                 causal: bool = True, chunk: int = 0):
-        """``cache``: a KVCache (decoder-only attention), an SSMState (a
-        Mamba layer), an EncDecCache (a cross layer) or None; ``memory``:
-        the encoder output at prefill, None at decode; ``chunk``:
-        attention's KV chunk.  A Mamba layer with a cache takes one token
-        as a decode step (``mamba_step``) and more as a prefill that
-        returns its state.  Returns (x, the updated cache, the MoE's
-        float32 auxiliary loss or None)."""
+        """``cache``: a KVCache (decoder-only attention, or a VLM cross
+        layer's image K/V), an SSMState (a Mamba layer), an EncDecCache (an
+        encoder-decoder's decoder layer) or None; ``memory``: the encoder
+        output or the image embeddings at prefill, None at decode (where a
+        cross layer reads its filled cache); ``chunk``: attention's KV
+        chunk.  A Mamba layer with a cache takes one token as a decode step
+        (``mamba_step``) and more as a prefill that returns its state.
+        Returns (x, the updated cache, the MoE's float32 auxiliary loss or
+        None)."""
         plans = plans or {}
         h = apply_norm(self.norm1, x, cfg.norm_eps)
         if self.kind == "mamba":
@@ -124,6 +149,13 @@ class DecoderLayer(nn.Module):
             else:
                 y, kv = ssmm.mamba_forward(self.mamba, h, cfg, state=cache,
                                            return_state=cache is not None)
+        elif self.kind == "cross":
+            # cross-attention to the image memory, tanh-gated
+            y, kv = self.attn(h, cfg, positions=positions, cache=cache,
+                              plans=plans.get("attn"), kv_source=memory,
+                              is_cross=True, update_cache=memory is not None,
+                              chunk=chunk)
+            y = torch.tanh(self.gate_attn).to(x.dtype) * y
         else:
             kv, cross_kv = (cache if isinstance(cache, kvc.EncDecCache)
                             else (cache, None))
@@ -151,8 +183,9 @@ class DecoderLayer(nn.Module):
 
 class Transformer(nn.Module):
     """embed (vocab, d), the decoder layers, final_norm and, unless
-    ``cfg.tie_embeddings``, lm_head (d, vocab); an encoder-decoder adds
-    ``frontend``, ``enc_layers`` and ``enc_final_norm``."""
+    ``cfg.tie_embeddings``, lm_head (d, vocab); with ``cfg.frontend_conv``
+    a conv ``frontend`` (audio or vision); an encoder-decoder adds
+    ``enc_layers`` and ``enc_final_norm``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
@@ -169,8 +202,9 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, **kw),
             requires_grad=False))
+        if cfg.frontend_conv:
+            self.frontend = fem.init_frontend(cfg, **kw)
         if cfg.is_encoder_decoder:
-            self.frontend = fem.AudioFrontend(cfg, **kw)
             self.enc_layers = nn.ModuleList(
                 DecoderLayer(cfg, **kw) for _ in range(cfg.n_encoder_layers))
             self.enc_final_norm = init_norm(cfg.d_model, cfg.norm_kind, **kw)
@@ -182,19 +216,39 @@ class Transformer(nn.Module):
             self.lm_head.normal_(0.0, 0.02, generator=generator)
         for layer in self.layers:
             layer.reset_parameters(generator)
-        if hasattr(self, "enc_layers"):
+        if hasattr(self, "frontend"):
             self.frontend.reset_parameters(generator)
+        if hasattr(self, "enc_layers"):
             for layer in self.enc_layers:
                 layer.reset_parameters(generator)
 
-    def encode(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+    def memory(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                dtype, weight_plans: Optional[Dict] = None,
+               chunk: int = 0) -> Optional[torch.Tensor]:
+        """The memory the cross layers read, or None when ``batch`` holds
+        no modality input (a decode step, or a decoder-only model): the
+        conv frontend over ``"mel"`` / ``"images"``, else the stub's
+        ``"frames"`` / ``"image_embeds"`` cast to ``dtype``; an
+        encoder-decoder's goes through :meth:`encode`."""
+        key = MEMORY_INPUTS.get((cfg.frontend, cfg.frontend_conv))
+        if key is None or key not in batch:
+            return None
+        wp = weight_plans or {}
+        if cfg.frontend_conv:
+            memory = fem.frontend_forward(self.frontend, batch, cfg, dtype,
+                                          plans=wp.get("frontend"))
+        else:
+            memory = batch[key].to(dtype)
+        if cfg.is_encoder_decoder:
+            memory = self.encode(memory, cfg, weight_plans, chunk)
+        return memory
+
+    def encode(self, memory: torch.Tensor, cfg: ModelConfig,
+               weight_plans: Optional[Dict] = None,
                chunk: int = 0) -> torch.Tensor:
-        """The encoder memory: conv frontend over ``batch["mel"]``,
+        """The encoder over the frontend's ``memory`` (B, M, d):
         sinusoidal positions, the non-causal encoder stack, its norm."""
         wp = weight_plans or {}
-        memory = fem.frontend_forward(self.frontend, batch, cfg, dtype,
-                                      plans=wp.get("frontend"))
         m = memory.shape[1]
         pos = torch.arange(m, device=memory.device)
         x = memory + sinusoidal_positions(pos, cfg.d_model,
@@ -210,15 +264,18 @@ class Transformer(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 rc: Optional[RunConfig] = None,
                 weight_plans: Optional[Dict] = None) -> ModelOutputs:
-        """batch: {"tokens": (B, S)}, plus "mel" (B, T, n_mels) for an
-        encoder-decoder at prefill; decode passes S == 1, the caches and
-        the position of the new token (and no mel: the memory's K/V are
-        in the cross caches), or (B, 1) positions, one per row, over the
-        serving engine's paged caches.  ``weight_plans`` are cached weight
-        activities from :func:`plan_weight_activities` (optional: without
-        them the sparse modes plan the weights per call).  ``aux_loss`` is
-        the sum of the MoE layers' load-balancing losses.  Attention runs
-        KV-chunked at ``rc.attn_chunk`` (2048 without ``rc``)."""
+        """batch: {"tokens": (B, S)}, plus the memory's input at prefill:
+        "mel" (B, T, n_mels) for an encoder-decoder, "images" (B, H, W, C)
+        for a VLM with ``frontend_conv``, or the stubs' "frames" /
+        "image_embeds" (B, M, d) without it; decode passes S == 1, the
+        caches and the position of the new token (and no memory input: the
+        memory's K/V are in the cross caches), or (B, 1) positions, one per
+        row, over the serving engine's paged caches.  ``weight_plans`` are
+        cached weight activities from :func:`plan_weight_activities`
+        (optional: without them the sparse modes plan the weights per
+        call).  ``aux_loss`` is the sum of the MoE layers' load-balancing
+        losses.  Attention runs KV-chunked at ``rc.attn_chunk`` (2048
+        without ``rc``)."""
         tokens = batch["tokens"]
         s = tokens.shape[1]
         chunk = rc.attn_chunk if rc else 2048
@@ -227,14 +284,12 @@ class Transformer(nn.Module):
         x = self.embed[tokens].to(act_dtype)
         if positions is None:
             positions = torch.arange(s, device=tokens.device)
-        memory = None
-        if cfg.is_encoder_decoder:
-            if "mel" in batch:
-                memory = self.encode(batch, cfg, act_dtype, weight_plans,
-                                     chunk)
-            elif caches is None:
-                raise ValueError(f"{cfg.name}: forward needs batch['mel'] "
-                                 "or filled cross caches")
+        memory = self.memory(batch, cfg, act_dtype, weight_plans, chunk)
+        if (memory is None and caches is None
+                and (cfg.is_encoder_decoder or cfg.cross_attn_every)):
+            key = MEMORY_INPUTS[(cfg.frontend, cfg.frontend_conv)]
+            raise ValueError(f"{cfg.name}: forward needs batch[{key!r}] "
+                             "or filled cross caches")
         if cfg.abs_positions:
             # (B, S) positions (the multi-slot batched decode) per row
             pe = sinusoidal_positions(positions, cfg.d_model, x.dtype)
@@ -292,9 +347,10 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
     (built once at load; None in dense mode): ``{"layers": [{"attn":
     {wq, wk, wv, wo}, ["cross_attn": {...},] "mlp" or "moe": {w_up,
     w_down[, w_gate][, @elem]}}, ...], "lm_head": ...}``, the attention
-    weights flattened to their 2-D dispatch shapes, a MoE's over its
-    stacked (E, K, N) expert weights; an encoder-decoder adds
-    ``"enc_layers"`` and the stem convs' ``"frontend"``.  A Mamba block
+    weights flattened to their 2-D dispatch shapes (a VLM cross layer's
+    under ``"attn"``), a MoE's over its stacked (E, K, N) expert weights;
+    an encoder-decoder adds ``"enc_layers"``, and a conv frontend its
+    convs' ``"frontend"`` (the stem's or the patch's).  A Mamba block
     plans nothing (its projections are plain matmuls, as in the JAX
     package), and a tied head has no ``"lm_head"`` entry: it is planned
     per call.
@@ -332,6 +388,7 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
     if cfg.is_encoder_decoder:
         plans["enc_layers"] = [layer_plans(layer)
                                for layer in model.enc_layers]
+    if cfg.frontend_conv:
         plans["frontend"] = fem.plan_frontend_activities(model.frontend, cfg)
     return plans
 
@@ -354,7 +411,10 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
     ``insert_prefill`` can lift contiguous rows into pool pages.  An
     encoder-decoder's layers hold
     :class:`~repro_torch.models.cache.EncDecCache` s, each with a cross
-    cache of ``encoder_len`` slots (bf16 always, as in the JAX package).
+    cache of ``encoder_len`` slots, and a VLM's cross layers a plain cache
+    of ``num_image_tokens`` slots: in ``dtype``, never int8 and never
+    sparse, whatever ``quantized`` and ``sparse`` say (as in the JAX
+    package).
     A Mamba layer holds a zero :class:`~repro_torch.models.ssm.SSMState`
     (float32 state, the conv tail in ``dtype``) whatever the capacity.
     """
@@ -374,9 +434,17 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
                               dtype=dtype, quantized=quantized, window=ring,
                               device=dev)
 
+    def layer_cache(kind):
+        if kind == "mamba":
+            return ssmm.init_state(cfg, batch, dtype=dtype, device=dev)
+        if kind == "cross":
+            return kvc.init_cache(batch, cfg.num_image_tokens,
+                                  cfg.n_kv_heads, cfg.hd, dtype=dtype,
+                                  device=dev)
+        return self_cache()
+
     if not cfg.is_encoder_decoder:
-        return [ssmm.init_state(cfg, batch, dtype=dtype, device=dev)
-                if cfg.layer_kind(i % cfg.period) == "mamba" else self_cache()
+        return [layer_cache(cfg.layer_kind(i % cfg.period))
                 for i in range(cfg.n_layers)]
     return [kvc.EncDecCache(
                 kv=self_cache(),
@@ -395,10 +463,11 @@ def init_paged_caches(cfg: ModelConfig, slots: int, pages: int,
     layer, each its own page pool of ``pages`` pages (int8 with scales
     when ``quantized``) with per-slot block tables, and a zero per-slot
     :class:`~repro_torch.models.ssm.SSMState` per Mamba layer (O(1) a
-    slot: nothing to page).  Encoder-decoder stacks are not paged (their
-    memory K/V are per request and fixed in size): they raise
-    ``ValueError``, as in the JAX package."""
-    if cfg.is_encoder_decoder:
+    slot: nothing to page).  Encoder-decoder and cross-attention stacks
+    are not paged (their memory K/V are per request and fixed in size):
+    they raise ``ValueError``, as in the JAX package."""
+    if cfg.is_encoder_decoder or "cross" in [
+            cfg.layer_kind(p) for p in range(cfg.period)]:
         raise ValueError(
             "paged serving supports decoder-only self-attention stacks")
     dev = devmod.resolve(device)

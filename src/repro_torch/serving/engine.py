@@ -37,9 +37,14 @@ admission; ``run_to_completion`` watches for progress and raises
 unfinished requests rather than dropping in-flight work.
 
 Not ported yet: the invariant validators (``validate_state``), fault
-injection (the ``nan_logits`` poison operand and ``preemption_storm``),
-``autotune_keys``, and the legacy per-slot control plane of
-encoder-decoder stacks — an encoder-decoder config raises ``ValueError``.
+injection (the ``nan_logits`` poison operand and ``preemption_storm``)
+and ``autotune_keys``.  The JAX engine's legacy per-slot control plane
+(``_admit_legacy``, ``_step_legacy``, ``_decode_one``), which the JAX
+package meant for encoder-decoder and cross-attention stacks, is not
+ported: its ``Request`` carries no mel frames or images, and its prefill
+calls ``forward`` with the tokens alone, so it raises ``KeyError`` for
+every config that reaches it.  Such a config (whisper, the VLM) raises
+``ValueError`` here at construction, from ``init_paged_caches``.
 With ``rc.kv_quant`` the page pools and the prefill caches are int8.
 """
 from __future__ import annotations

@@ -2,9 +2,10 @@
 
 The JAX package scans its decode steps with ``lax.scan``; here they are a
 Python loop, so every step runs eagerly (and a stats tape sees them all).
-An encoder-decoder's ``batch["mel"]`` goes to the prefill only: the
-encoder runs once, and decode reads the memory's K/V from the cross
-caches.
+The memory's input (an encoder-decoder's ``"mel"`` or ``"frames"``, a
+VLM's ``"images"`` or ``"image_embeds"``: ``transformer.MEMORY_INPUTS``)
+goes to the prefill only: the frontend (and an encoder) runs once, and
+decode reads the memory's K/V from the cross caches.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ from repro_torch.models import transformer as tfm
 
 
 class DecodeState(NamedTuple):
-    caches: List               # per decoder layer: KVCache, EncDecCache
-                               # or (a Mamba layer) SSMState
+    caches: List               # per decoder layer: KVCache (a VLM cross
+                               # layer's too), EncDecCache or (a Mamba
+                               # layer) SSMState
     last_token: torch.Tensor   # (B, 1) int64
     pos: int                   # next position to write
 
@@ -60,16 +62,18 @@ def generate(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
 
     Returns exactly ``max_new_tokens`` int32 tokens per row (the
     prefill's argmax is the first).  ``batch``: {"tokens": (B, S)}, plus
-    "mel" (B, T, n_mels) for an encoder-decoder, which only the prefill
-    sees.  ``rc.kv_quant`` makes the caches int8.  ``device=None`` means
-    the card; the model must live on ``device``.
+    the memory's input, which only the prefill sees: "mel" (B, T, n_mels)
+    or "frames" for an encoder-decoder, "images" (B, H, W, C) or
+    "image_embeds" for a VLM.  ``rc.kv_quant`` makes the self-attention
+    caches int8 (a cross cache stays bf16).  ``device=None`` means the
+    card; the model must live on ``device``.
     """
     dev = devmod.resolve(device)
     devmod.check_on(model.embed, dev, "the model")
     tokens = batch["tokens"].to(dev)
     first = {"tokens": tokens}
-    if "mel" in batch:
-        first["mel"] = batch["mel"].to(dev)
+    first.update({k: batch[k].to(dev) for k in tfm.MEMORY_INPUTS.values()
+                  if k in batch})
     b, s = tokens.shape
     if max_new_tokens <= 0:
         return torch.zeros((b, 0), dtype=torch.int32, device=dev)

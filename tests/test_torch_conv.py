@@ -7,6 +7,7 @@ StepCounts tape equal bit for bit; ``lowered_to_activation``'s bitmap and
 slice activity and ``plan_conv``'s plans equal exactly.  The port runs
 its kernel chain (K5 → K6/K7 → K1/K2), which on CPU tensors is the plain
 versions, and also its reference chain."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,6 +46,23 @@ def _operands(shape, seed=0):
     return x, wt
 
 
+def _jax_taped(fn, *args):
+    """``fn(*args)`` (JAX) compiled with ``jax.jit``, and its stats tape:
+    the entries recorded while it traces (names, StepCounts, executed
+    steps) come back as outputs of the compiled call, so the tape holds
+    the values an eager call records op by op, at a fraction of the eager
+    run's time."""
+    names = []
+
+    def traced(*a):
+        with jtape.collect() as entries:
+            out = fn(*a)
+        names[:] = [e[0] for e in entries]
+        return out, [e[1:] for e in entries]
+    out, rest = jax.jit(traced)(*args)
+    return out, [(name, *r) for name, r in zip(names, rest)]
+
+
 def _steps(summary):
     return [(e["name"], e["dense_steps"], e["sparse_steps"],
              e["tiles_skipped"]) for e in summary]
@@ -56,9 +74,9 @@ def test_conv2d_matches_jax(shape, mode):
     x, w = _operands(shape)
     stride = shape[-1]
     m, cond = MODES[mode]
-    with jtape.collect() as je:
-        jy, _ = jconv.conv2d(jnp.asarray(x), jnp.asarray(w), stride, mode=m,
-                             condense=cond, name="conv.t", **GEOM)
+    (jy, _), je = _jax_taped(lambda x_, w_: jconv.conv2d(
+        x_, w_, stride, mode=m, condense=cond, name="conv.t", **GEOM),
+        jnp.asarray(x), jnp.asarray(w))
     for use_kernel in ((False,) if m == "dense" else (True, False)):
         with ttape.collect() as te:
             ty, _ = tconv.conv2d(torch.from_numpy(x), torch.from_numpy(w),
@@ -83,7 +101,8 @@ def test_lowered_activation_matches_jax(shape):
     the kernel chain and the reference chain alike."""
     x, _ = _operands(shape)
     n, h, w, c, kh, kw, f, s = shape
-    want = jconv.im2col_sparse(jnp.asarray(x), kh, kw, s, slice_k=16)
+    want = jax.jit(lambda x_: jconv.im2col_sparse(x_, kh, kw, s,
+                                                  slice_k=16))(jnp.asarray(x))
     for use_kernel in (True, False):
         got = tconv.im2col_sparse(torch.from_numpy(x), kh, kw, s,
                                   slice_k=16, use_kernel=use_kernel)
@@ -97,8 +116,8 @@ def test_lowered_activation_matches_jax(shape):
     # one image, unbatched
     lb = ti2c.im2col_bitmap(torch.from_numpy(x[0]), kh, kw, s)
     one = tconv.lowered_to_activation(lb, 16)
-    ref = jconv.lowered_to_activation(
-        ji2c.im2col_bitmap(jnp.asarray(x[0]), kh, kw, s), 16)
+    ref = jax.jit(lambda x_: jconv.lowered_to_activation(
+        ji2c.im2col_bitmap(x_, kh, kw, s), 16))(jnp.asarray(x[0]))
     np.testing.assert_array_equal(one.bitmap.numpy().view(np.uint32),
                                   np.asarray(ref.bitmap))
     np.testing.assert_array_equal(one.slice_act.numpy(),

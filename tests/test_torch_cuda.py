@@ -1,6 +1,6 @@
 """K1-K7, the sparse-KV decode, the whisper path, block pruning, the
-MoE expert products, a full-width Mamba block and a tied head on the card
-against their plain versions and the CPU (needs an NVIDIA GPU with nvcc;
+MoE expert products, a full-width Mamba block, a tied head and the VLM's
+vision frontend on the card against their plain versions and the CPU (needs an NVIDIA GPU with nvcc;
 skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
@@ -850,3 +850,32 @@ def test_tied_head_dispatch_matches_plain(cuda):
     assert got.shape == (2, 40, 50280)
     err = (got.float().cpu() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+def test_vision_frontend_matches_cpu(cuda):
+    """llama-3.2-vision-90b's patch-conv frontend at full width (two 560²
+    images, 14² patches, d_model 8192, 1601 tokens with the cls token) in
+    dual mode, float32: K5 → K7 → K1 on the card, one launch each,
+    against the plain chain on the CPU."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontend as fem
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                              sparse_mode="dual", sparse_use_kernel=True)
+    g = torch.Generator().manual_seed(0)
+    cpu = fem.VisionFrontend(cfg, dtype=torch.float32)
+    cpu.reset_parameters(g)
+    with torch.no_grad():
+        cpu.bias.copy_(0.1 * torch.randn(cfg.d_model, generator=g))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    images = torch.randn(2, 560, 560, 3, generator=g).clamp(min=0)
+    kernels = (k5.bitmap_encode, k67.sparse_im2col_strided,
+               bsk.bitmap_spgemm_planned)
+    before = [k.launches for k in kernels]
+    got = fem.vision_frontend(gpu, images.to(cuda), cfg)
+    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 1]
+    want = fem.vision_frontend(cpu, images, cfg)
+    assert got.shape == (2, 1601, 8192)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err

@@ -189,8 +189,9 @@ def test_forward_matches_jax(arch, mode):
     jparams, model = _weights(arch)
     jcfg, tcfg = _cfgs(arch, **(DUAL if mode == "dual" else {}))
     tokens = _tokens(arch)
-    jout = jtfm.forward(jparams, {"tokens": jnp.asarray(tokens)}, jcfg,
-                        mode="prefill", rc=JRunConfig(**F32))
+    jout = jax.jit(lambda p, b: jtfm.forward(
+        p, b, jcfg, mode="prefill", rc=JRunConfig(**F32)))(
+            jparams, {"tokens": jnp.asarray(tokens)})
     tout = model({"tokens": torch.from_numpy(tokens).long()}, tcfg,
                  rc=TRunConfig(**F32))
     np.testing.assert_allclose(tout.logits.numpy(), np.asarray(jout.logits),

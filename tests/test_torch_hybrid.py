@@ -119,8 +119,9 @@ def test_forward_matches_jax(name, mode):
     jparams, model = _weights(name)
     jcfg, tcfg = _cfgs(name, **(DUAL if mode == "dual" else {}))
     tokens = _tokens(name)
-    jout = jtfm.forward(jparams, {"tokens": jnp.asarray(tokens)}, jcfg,
-                        mode="train", rc=JRunConfig(**F32))
+    jout = jax.jit(lambda p, b: jtfm.forward(
+        p, b, jcfg, mode="train", rc=JRunConfig(**F32)))(
+            jparams, {"tokens": jnp.asarray(tokens)})
     tout = model({"tokens": torch.from_numpy(tokens).long()}, tcfg,
                  rc=TRunConfig(**F32))
     np.testing.assert_allclose(tout.logits.numpy(), np.asarray(jout.logits),

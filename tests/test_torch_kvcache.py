@@ -158,6 +158,23 @@ def test_decode_operands_equal(rng):
 # decode attention
 # ---------------------------------------------------------------------------
 
+def _jax_taped(fn, *args):
+    """``fn(*args)`` (JAX) compiled with ``jax.jit``, and its stats tape:
+    the entries recorded while it traces (names, StepCounts, executed
+    steps) come back as outputs of the compiled call, so the tape holds
+    the values an eager call records op by op, at a fraction of the eager
+    run's time."""
+    names = []
+
+    def traced(*a):
+        with jtape.collect() as entries:
+            out = fn(*a)
+        names[:] = [e[0] for e in entries]
+        return out, [e[1:] for e in entries]
+    out, rest = jax.jit(traced)(*args)
+    return out, [(name, *r) for name, r in zip(names, rest)]
+
+
 @pytest.mark.parametrize("window", WINDOWS)
 @pytest.mark.parametrize("knobs", [
     dict(), dict(sparse_use_kernel=True),
@@ -169,10 +186,9 @@ def test_attend_sparse_matches_jax(rng, window, knobs):
     q = rng.normal(size=(2, 1, 6, 16)).astype(np.float32)
     qpos = tc.pos - 1
     w = window or None
-    with jtape.collect() as je:
-        jy = jattn.attend_sparse(jnp.asarray(q), jc, jcfg,
-                                 qpos=jnp.asarray([qpos], jnp.int32),
-                                 kpos=jkvc.key_positions(jc), window=w)
+    jy, je = _jax_taped(lambda q_, c_: jattn.attend_sparse(
+        q_, c_, jcfg, qpos=jnp.asarray([qpos], jnp.int32),
+        kpos=jkvc.key_positions(c_), window=w), jnp.asarray(q), jc)
     with ttape.collect() as te:
         ty = tattn.attend_sparse(torch.from_numpy(q), tc, tcfg,
                                  qpos=torch.tensor([qpos]),
@@ -222,6 +238,14 @@ def setup():
     return p, model, tokens
 
 
+def _jax_generate(params, batch, jcfg, **kwargs):
+    """JAX ``generate`` compiled whole with ``jax.jit``: its decode steps
+    are a compiled scan already, and this compiles its prefill with them
+    instead of running it op by op."""
+    return jax.jit(lambda p, b: jserve.generate(p, b, jcfg, **kwargs))(
+        params, batch)
+
+
 @pytest.mark.parametrize("window", WINDOWS)
 @pytest.mark.parametrize("knobs", [
     dict(), dict(sparse_use_kernel=True),
@@ -232,9 +256,9 @@ def test_generate_tokens_match_jax(setup, window, knobs, max_new):
     params, model, tokens = setup
     jcfg, tcfg = _cfgs(window, **knobs)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
-    jt = jserve.generate(jparams, {"tokens": jnp.asarray(tokens)}, jcfg,
-                         max_new_tokens=max_new, capacity=CAP,
-                         rc=JRunConfig(act_dtype="float32"))
+    jt = _jax_generate(jparams, {"tokens": jnp.asarray(tokens)}, jcfg,
+                       max_new_tokens=max_new, capacity=CAP,
+                       rc=JRunConfig(act_dtype="float32"))
     with ttape.collect() as te:
         tt = tserve.generate(model, {"tokens": torch.from_numpy(tokens)},
                              tcfg, max_new_tokens=max_new, capacity=CAP,

@@ -49,12 +49,29 @@ def tokens():
     return np.random.default_rng(0).integers(0, 512, (2, 7)).astype(np.int32)
 
 
+def _jax_taped(fn, *args):
+    """``fn(*args)`` (JAX) compiled with ``jax.jit``, and its stats tape:
+    the entries recorded while it traces (names, StepCounts, executed
+    steps) come back as outputs of the compiled call, so the tape holds
+    the values an eager call records op by op, at a fraction of the eager
+    run's time."""
+    names = []
+
+    def traced(*a):
+        with jtape.collect() as entries:
+            out = fn(*a)
+        names[:] = [e[0] for e in entries]
+        return out, [e[1:] for e in entries]
+    out, rest = jax.jit(traced)(*args)
+    return out, [(name, *r) for name, r in zip(names, rest)]
+
+
 def _forward_both(params, tokens, mode, dtype):
     jcfg = dataclasses.replace(jsmoke(ARCH), **MODES[mode])
     tcfg = dataclasses.replace(tsmoke(ARCH), **MODES[mode])
-    with jtape.collect() as je:
-        jout = jtfm.forward(params, {"tokens": tokens}, jcfg, mode="prefill",
-                            rc=JRunConfig(act_dtype=dtype, scan_unroll=True))
+    rc = JRunConfig(act_dtype=dtype, scan_unroll=True)
+    jout, je = _jax_taped(lambda p, b: jtfm.forward(
+        p, b, jcfg, mode="prefill", rc=rc), params, {"tokens": tokens})
     model = convert.from_jax_params(
         params, tcfg, device="cpu",
         dtype=torch.float32 if dtype == "float32" else torch.bfloat16)

@@ -85,14 +85,31 @@ def _gate_gap(gates, k):
     return float(np.min(top[:, :-1] - top[:, 1:]))
 
 
+def _jax_taped(fn, *args):
+    """``fn(*args)`` (JAX) compiled with ``jax.jit``, and its stats tape:
+    the entries recorded while it traces (names, StepCounts, executed
+    steps) come back as outputs of the compiled call, so the tape holds
+    the values an eager call records op by op, at a fraction of the eager
+    run's time."""
+    names = []
+
+    def traced(*a):
+        with jtape.collect() as entries:
+            out = fn(*a)
+        names[:] = [e[0] for e in entries]
+        return out, [e[1:] for e in entries]
+    out, rest = jax.jit(traced)(*args)
+    return out, [(name, *r) for name, r in zip(names, rest)]
+
+
 def _both(cfg_name, mode, shape, seed=0, **over):
     jcfg = dataclasses.replace(jsmoke(cfg_name), **MODES[mode], **over)
     tcfg = dataclasses.replace(tsmoke(cfg_name), **MODES[mode], **over)
     params = _moe_params(jcfg, seed)
     x = _x(shape, jcfg.d_model, seed + 1)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
-    with jtape.collect() as je:
-        jy, jaux = jmoe.moe_forward(jp, jnp.asarray(x), jcfg)
+    (jy, jaux), je = _jax_taped(lambda p_, x_: jmoe.moe_forward(p_, x_, jcfg),
+                                jp, jnp.asarray(x))
     moe = _port_moe(tcfg, params)
     with ttape.collect() as te:
         ty, taux = tmoe.moe_forward(moe, torch.from_numpy(x), tcfg)
@@ -257,8 +274,8 @@ def test_swiglu_mlp_matches_jax(mode):
         for key in tplans:
             np.testing.assert_array_equal(tplans[key].numpy(),
                                           np.asarray(jplans[key]))
-    with jtape.collect() as je:
-        jy = jmlp.mlp_forward(jp, jnp.asarray(x), jcfg, plans=jplans)
+    jy, je = _jax_taped(lambda p_, x_, w_: jmlp.mlp_forward(
+        p_, x_, jcfg, plans=w_), jp, jnp.asarray(x), jplans)
     with ttape.collect() as te:
         ty = mlp(torch.from_numpy(x), tcfg, plans=tplans)
     np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),

@@ -82,16 +82,32 @@ def _cfgs(arch, mode, **over):
             dataclasses.replace(tsmoke(arch), **MODES[mode], **over))
 
 
+def _jax_taped(fn, *args):
+    """``fn(*args)`` (JAX) compiled with ``jax.jit``, and its stats tape:
+    the entries recorded while it traces (names, StepCounts, executed
+    steps) come back as outputs of the compiled call, so the tape holds
+    the values an eager call records op by op, at a fraction of the eager
+    run's time."""
+    names = []
+
+    def traced(*a):
+        with jtape.collect() as entries:
+            out = fn(*a)
+        names[:] = [e[0] for e in entries]
+        return out, [e[1:] for e in entries]
+    out, rest = jax.jit(traced)(*args)
+    return out, [(name, *r) for name, r in zip(names, rest)]
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 def test_forward_matches_jax(setup, mode):
     arch, jparams, model, tokens = setup
     jcfg, tcfg = _cfgs(arch, mode)
     assert all(isinstance(layer.moe, tmoe.MoE) for layer in model.layers)
-    with jtape.collect() as je:
-        jout = jtfm.forward(jparams, {"tokens": jnp.asarray(tokens)}, jcfg,
-                            mode="prefill",
-                            rc=JRunConfig(act_dtype="float32",
-                                          scan_unroll=True))
+    rc = JRunConfig(act_dtype="float32", scan_unroll=True)
+    jout, je = _jax_taped(lambda p, b: jtfm.forward(
+        p, b, jcfg, mode="prefill", rc=rc), jparams,
+        {"tokens": jnp.asarray(tokens)})
     with ttape.collect() as te:
         tout = model({"tokens": torch.from_numpy(tokens).long()}, tcfg,
                      rc=TRunConfig(act_dtype="float32"))
@@ -108,13 +124,14 @@ def test_forward_matches_jax(setup, mode):
 
 
 def test_prefill_and_decode_logits_match_jax(setup):
-    """dual+kc (K2 + K4's plain walks), step by step."""
+    """dual+kc (K2 + K4's plain walks), step by step; the JAX steps each
+    compiled once."""
     arch, jparams, model, tokens = setup
     jcfg, tcfg = _cfgs(arch, "dual+kc")
     jcfg = dataclasses.replace(jcfg, sparse_use_kernel=False)
     jrc, trc = JRunConfig(act_dtype="float32"), TRunConfig(act_dtype="float32")
     cap = PROMPT + NEW
-    jstate, jl = jserve.make_prefill_step(jcfg, jrc)(
+    jstate, jl = jax.jit(jserve.make_prefill_step(jcfg, jrc))(
         jparams, {"tokens": jnp.asarray(tokens)},
         jtfm.init_caches(jcfg, 2, cap))
     tstate, tl = tserve.make_prefill_step(tcfg, trc)(
@@ -122,7 +139,7 @@ def test_prefill_and_decode_logits_match_jax(setup):
         ttfm.init_caches(tcfg, 2, cap, device="cpu"))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
                                rtol=1e-4)
-    jdec = jserve.make_decode_step(jcfg, jrc)
+    jdec = jax.jit(jserve.make_decode_step(jcfg, jrc))
     tdec = tserve.make_decode_step(tcfg, trc)
     for _ in range(NEW - 1):
         jstate, jl = jdec(jparams, jstate)

@@ -261,6 +261,23 @@ def test_attend_per_row_positions(rng, dtype, window):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _jax_taped(fn, *args):
+    """``fn(*args)`` (JAX) compiled with ``jax.jit``, and its stats tape:
+    the entries recorded while it traces (names, StepCounts, executed
+    steps) come back as outputs of the compiled call, so the tape holds
+    the values an eager call records op by op, at a fraction of the eager
+    run's time."""
+    names = []
+
+    def traced(*a):
+        with jtape.collect() as entries:
+            out = fn(*a)
+        names[:] = [e[0] for e in entries]
+        return out, [e[1:] for e in entries]
+    out, rest = jax.jit(traced)(*args)
+    return out, [(name, *r) for name, r in zip(names, rest)]
+
+
 @pytest.mark.parametrize("window", [None, 6])
 @pytest.mark.parametrize("knobs", [
     dict(), dict(sparse_use_kernel=True),
@@ -276,11 +293,10 @@ def test_attend_sparse_paged_matches_jax(rng, driven, window, knobs):
     h = 6
     q = rng.normal(size=(SLOTS, 1, h, HD)).astype(np.float32)
     qpos = (t.pos - 1).clamp(min=0)[:, None]
-    with jtape.collect() as je:
-        jy = jattn.attend_sparse(jnp.asarray(q), j, jcfg,
-                                 qpos=jnp.asarray(qpos.numpy()),
-                                 kpos=jskv.paged_key_positions(j),
-                                 window=window)
+    jy, je = _jax_taped(lambda q_, c_: jattn.attend_sparse(
+        q_, c_, jcfg, qpos=jnp.asarray(qpos.numpy()),
+        kpos=jskv.paged_key_positions(c_), window=window),
+        jnp.asarray(q), j)
     with ttape.collect() as te:
         ty = tattn.attend_sparse(torch.from_numpy(q), t, tcfg, qpos=qpos,
                                  kpos=tskv.paged_key_positions(t),

@@ -65,6 +65,23 @@ def _prune_torch(model, tcfg):
                 w.mul_(tpr.block_mask(w, 0.5, block=block))
 
 
+def _jax_taped(fn, *args):
+    """``fn(*args)`` (JAX) compiled with ``jax.jit``, and its stats tape:
+    the entries recorded while it traces (names, StepCounts, executed
+    steps) come back as outputs of the compiled call, so the tape holds
+    the values an eager call records op by op, at a fraction of the eager
+    run's time."""
+    names = []
+
+    def traced(*a):
+        with jtape.collect() as entries:
+            out = fn(*a)
+        names[:] = [e[0] for e in entries]
+        return out, [e[1:] for e in entries]
+    out, rest = jax.jit(traced)(*args)
+    return out, [(name, *r) for name, r in zip(names, rest)]
+
+
 @pytest.fixture(scope="module")
 def smoke_params():
     """Per arch, computed once: JAX's ``init_model(PRNGKey(0))``
@@ -104,12 +121,10 @@ def test_pruned_forward_on_cached_plans_matches_jax(smoke_params, arch,
             (2, 2 * tcfg.encoder_len, tcfg.n_mels)), 0).astype(np.float32)
         jbatch["mel"], tbatch["mel"] = jnp.asarray(mel), torch.from_numpy(mel)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
-    with jtape.collect() as je:
-        jout = jtfm.forward(
-            jparams, jbatch, jcfg, mode="prefill",
-            rc=JRunConfig(act_dtype="float32", scan_unroll=True,
-                          remat="none"),
-            weight_plans=jtfm.plan_weight_activities(jparams, jcfg))
+    rc = JRunConfig(act_dtype="float32", scan_unroll=True, remat="none")
+    jout, je = _jax_taped(lambda p, b, w: jtfm.forward(
+        p, b, jcfg, mode="prefill", rc=rc, weight_plans=w), jparams, jbatch,
+        jtfm.plan_weight_activities(jparams, jcfg))
     plans = ttfm.plan_weight_activities(model, tcfg)
     with ttape.collect() as te:
         tout = model(tbatch, tcfg, rc=TRunConfig(act_dtype="float32"),

@@ -42,6 +42,14 @@ def setup():
     return p, model, tokens
 
 
+def _jax_generate(params, batch, jcfg, **kwargs):
+    """JAX ``generate`` compiled whole with ``jax.jit``: its decode steps
+    are a compiled scan already, and this compiles its prefill with them
+    instead of running it op by op."""
+    return jax.jit(lambda p, b: jserve.generate(p, b, jcfg, **kwargs))(
+        params, batch)
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("max_new", [0, 1, 2, 8])
 def test_generate_tokens_match_jax(setup, mode, max_new):
@@ -49,9 +57,9 @@ def test_generate_tokens_match_jax(setup, mode, max_new):
     jcfg = dataclasses.replace(jsmoke(ARCH), **MODES[mode])
     tcfg = dataclasses.replace(tsmoke(ARCH), **MODES[mode])
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
-    jt = jserve.generate(jparams, {"tokens": jnp.asarray(tokens)}, jcfg,
-                         max_new_tokens=max_new,
-                         rc=JRunConfig(act_dtype="float32"))
+    jt = _jax_generate(jparams, {"tokens": jnp.asarray(tokens)}, jcfg,
+                       max_new_tokens=max_new,
+                       rc=JRunConfig(act_dtype="float32"))
     tt = tserve.generate(model, {"tokens": torch.from_numpy(tokens)}, tcfg,
                          max_new_tokens=max_new,
                          rc=TRunConfig(act_dtype="float32"), device="cpu")

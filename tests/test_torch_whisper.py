@@ -138,13 +138,29 @@ def test_audio_frontend_matches_jax(params, jparams, inputs, mode):
                                rtol=1e-4)
 
 
+def _jax_taped(fn, *args):
+    """``fn(*args)`` (JAX) compiled with ``jax.jit``, and its stats tape:
+    the entries recorded while it traces (names, StepCounts, executed
+    steps) come back as outputs of the compiled call, so the tape holds
+    the values an eager call records op by op, at a fraction of the eager
+    run's time."""
+    names = []
+
+    def traced(*a):
+        with jtape.collect() as entries:
+            out = fn(*a)
+        names[:] = [e[0] for e in entries]
+        return out, [e[1:] for e in entries]
+    out, rest = jax.jit(traced)(*args)
+    return out, [(name, *r) for name, r in zip(names, rest)]
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 def test_forward_f32(params, jparams, inputs, mode):
     jcfg, tcfg = _cfgs(mode)
-    with jtape.collect() as je:
-        jout = jtfm.forward(jparams, _jbatch(inputs), jcfg, mode="prefill",
-                            rc=JRunConfig(scan_unroll=True, remat="none",
-                                          **F32))
+    rc = JRunConfig(scan_unroll=True, remat="none", **F32)
+    jout, je = _jax_taped(lambda p, b: jtfm.forward(
+        p, b, jcfg, mode="prefill", rc=rc), jparams, _jbatch(inputs))
     model = convert.from_jax_params(params, tcfg, device="cpu")
     with ttape.collect() as te:
         tout = model(_tbatch(inputs), tcfg, rc=TRunConfig(**F32))
