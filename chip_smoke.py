@@ -239,6 +239,31 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    launch of a dual+kv and a dual+kc+kv generate held to its plain walk
    and replayed, and the generate's K5 and K7 launches held bit-equal and
    replayed beside their bound (and ``F.unfold`` for K7).
+18. tuning and guards — full-width ``nemotron-4-340b`` (2 layers, MLPs
+   block-pruned to half as in 10) in dual: ``Engine.autotune_keys`` on
+   traffic D's 4 slots x 4096, then one served pass of traffic A
+   (``generate``) and of traffic D (the engine) with ``sparse_autotune``
+   on an empty cache, every lookup logged and each key's operands
+   captured; ``tune_matmul`` on each matmul key (the card timer, at most
+   4 cost-model survivors, the baseline and the kfused twin of the
+   model's pick) and ``tune_attn`` at the engine's decode geometry (the
+   block_t lattice on K3 and K4), one line per key with the baseline, the
+   winner and their times; the cache saved under ``build/`` and checked
+   with ``check_tuning_cache``; traffic A and D served on it with
+   ``sparse_autotune``: hits, misses and stale entries equal to the
+   logged lookups replayed on the cache, tokens against the untuned dual
+   runs parting only at top-2 ties, every tape entry executing what it
+   counts, every K1-K4 launch of a tuned generate held to its plain walk,
+   tokens/s beside untuned dual and dense; the cost-model tier
+   (``sparse_costmodel``, empty cache) with its knobs per site; traffic D
+   under ``faults.chaos`` (kernel faults, allocator faults, preemption
+   storm, one poisoned uid): exactly the sites that ran K1 and K3
+   quarantined, the poisoned request retired ``nonfinite_logits``, the
+   others finishing with the fault-free tokens but for near-ties; traffic
+   D with ``RunConfig(validate=True)`` and the dispatch boundary checks on
+   (no ``ValidationError``), then a broken ``PlannedWeight`` and a broken
+   block table each raising.  Every earlier phase must end with no site
+   quarantined.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -849,7 +874,8 @@ def site_geometry(cfg, op, c, n, k):
     ``attention.attend_sparse`` resolves it."""
     from repro_torch.sparse import plan as pln
     from repro_torch.sparse import site
-    kw = site.resolve(site.make(op, op, out_dtype="float32"), cfg)
+    kw = site.resolve(site.make(op, op, out_dtype="float32"), cfg, m=c,
+                      n=n, k=k, device="cuda")
     if op == "attn.value":
         kw["slice_k"] = pln.effective_slice_k(k, kw["slice_k"])
     bm, bn, sk = pln.clamp_geometry(c, n, k, kw["block_m"], kw["block_n"],
@@ -1983,12 +2009,15 @@ def phase_conv_split(torch, cfg, model):
         kern = (bsk.bitmap_spgemm_kfused_planned if condense
                 else bsk.bitmap_spgemm_planned)
         for key, x, stride in (("conv1", x1, 1), ("conv2", x2, 2)):
-            st = fem.conv_site(key)
-            kw_ = site.resolve(st, c)
             w4 = getattr(fp, key)
             kh, kwid, _, f = w4.shape
             w2 = w4.reshape(-1, f)
             ow = i2c.out_size(x.shape[2], kwid, stride)
+            st = fem.conv_site(key)
+            kw_ = site.resolve(
+                st, c, n=f, k=w2.shape[0],
+                m=x.shape[0] * i2c.out_size(x.shape[1], kh, stride) * ow,
+                device="cuda")
             xv = x.permute(0, 3, 1, 2)
             bits, cond = k5.bitmap_encode(xv)
 
@@ -5406,6 +5435,502 @@ def serve_vlm(torch, smi):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 18: tuning and guards — the tuner swept on K1-K4, traffics A and D
+# served on its cache, the cost-model tier, fault injection, validators
+# ---------------------------------------------------------------------------
+
+T_MAX_CANDIDATES = 4        # cost-model survivors timed per key
+T_FAULT_SEED = 0
+T_POISONED = 3              # the uid whose decode logits are poisoned
+
+
+def no_quarantine(what):
+    """Raise unless no site is quarantined: on the card only an injected
+    fault quarantines a site (a kernel's own error propagates), so outside
+    the fault phase a quarantine is a fault that leaked out of it."""
+    from repro_torch.sparse import site
+    rep = site.quarantine_report()
+    if rep:
+        raise AssertionError(f"{what}: quarantined sites (a fault raised; "
+                             f"its site ran the plain arm): {rep}")
+
+
+def reset_telemetry():
+    """The tuner's hit/miss/stale counters and observed keys to zero,
+    its cache kept."""
+    from repro_torch.sparse import autotune as atn
+    atn.HITS = atn.MISSES = atn.STALE = 0
+    atn.OBSERVED.clear()
+
+
+def telemetry():
+    from repro_torch.sparse import autotune as atn
+    return dict(hits=atn.HITS, misses=atn.MISSES, stale=atn.STALE)
+
+
+def capture_lookups(fn):
+    """Run ``fn()`` with every tuning-cache lookup logged, in order, and
+    the operands of the dispatch call each lookup resolves (the first
+    call of each key kept): wraps ``autotune.lookup`` and the dispatch's
+    ``matmul``/``grouped_matmul``, which the sites call right after they
+    resolve (the decode attention resolves both its products, then runs
+    them in the same order).  Returns (lookups, {key: (x, w,
+    out_dtype)})."""
+    from repro_torch.sparse import autotune as atn
+    from repro_torch.sparse import dispatch as dsp
+    calls, pending, operands = [], [], {}
+    real = (atn.lookup, dsp.matmul, dsp.grouped_matmul)
+
+    def lookup(op, m, n, k, *, dtype, sparsity=None, interpret=False,
+               extra=""):
+        args = dict(op=op, m=m, n=n, k=k, dtype=atn.dtype_name(dtype),
+                    sparsity=sparsity, interpret=interpret, extra=extra)
+        key = atn.make_key(op, m, n, k, dtype=dtype, sparsity=sparsity,
+                           platform=atn.platform_of(interpret), extra=extra)
+        calls.append(dict(args, key=key))
+        pending.append(key)
+        return real[0](**args)
+
+    def wrap(fn_real):
+        def call(x, w, **kw):
+            if pending:
+                operands.setdefault(pending.pop(0),
+                                    (x, w, kw.get("out_dtype")))
+            return fn_real(x, w, **kw)
+        return call
+    atn.lookup = lookup
+    dsp.matmul, dsp.grouped_matmul = wrap(real[1]), wrap(real[2])
+    try:
+        with dsp.warnings_suppressed():
+            fn()
+    finally:
+        atn.lookup, dsp.matmul, dsp.grouped_matmul = real
+    return calls, operands
+
+
+def replayed_telemetry(calls):
+    """The hits, misses and stale entries the logged lookups meet on the
+    current cache: what the same run must count on it."""
+    from repro_torch.sparse import autotune as atn
+    reset_telemetry()
+    for c in calls:
+        args = {k: v for k, v in c.items() if k != "key"}
+        atn.lookup(**args)
+    got = telemetry()
+    reset_telemetry()
+    return got
+
+
+def knob_str(kn):
+    return f"{kn['backend']} ({kn['block_m']}, {kn['block_n']}, " \
+           f"{kn['slice_k']})"
+
+
+def sweep_line(row, smi):
+    b, t = row["baseline"], row["tuned"]
+    note = ("the dense arm (torch.matmul) wins" if t["backend"] == "xla"
+            else f"{'K2/K4' if t['backend'] == 'kfused' else 'K1/K3'} wins")
+    return (f"tuning: {row['key']} (M={row['m']} N={row['n']} K={row['k']}"
+            + (f" E={row['e']}" if "e" in row else "") + f"): baseline "
+            f"{knob_str(b)} {b['us']:.1f} us -> {knob_str(t)} "
+            f"{t['us']:.1f} us (x{row['speedup']:.2f}; {len(row['sweep'])} "
+            f"vectors timed: " + ", ".join(
+                f"{knob_str(s)} {s['us']:.0f}" for s in row["sweep"])
+            + f"); {note}; {smi}")
+
+
+def engine_parting(torch, what, model, c, prompts, done, base, tol):
+    """Each request of ``done`` against the baseline engine's ``base``
+    ({uid: request}): equal tokens, or parting where the baseline's top-2
+    logits (its stream fed back at batch 1) are within ``tol``."""
+    notes = []
+    for uid, req in sorted(done.items()):
+        got = torch.tensor([req.output], dtype=torch.int32)
+        ref = torch.tensor([base[uid].output], dtype=torch.int32)
+        if torch.equal(got, ref):
+            notes.append(f"{uid} equal")
+            continue
+        steps = batch1_stream(torch, model, c, prompts[uid],
+                              force=base[uid].output)[1]
+        (note,) = parting_report(torch, f"{what} request {uid}", got, ref,
+                                 steps, tol)
+        notes.append(f"{uid} " + note.split(": ", 1)[1])
+    return "; ".join(notes)
+
+
+def phase_tuning(torch, smi):
+    """Phase 18; see the module docstring.  Returns the sweep's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ServeConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sparse import autotune as atn
+    from repro_torch.sparse import dispatch as dsp
+    from repro_torch.sparse import site, tape
+    from repro_torch.sparse import validate as val
+    from repro_torch.sparse import weights as wts
+    from repro_torch.testing import faults
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
+    model = make_model(torch, cfg)
+    kept = prune_mlps(torch, model, cfg)
+    log(f"tuning: MLPs block-pruned, {statistics.mean(kept):.3f} of their "
+        f"tiles kept")
+    ca = dataclasses.replace(cfg, **MODES["dual"])            # traffic A
+    cd = dataclasses.replace(cfg, **ENGINE_MODES["dual"])     # traffic D
+    batch = traffic_a_batch(torch, cfg)
+    prompts = traffic_d_prompts(torch, cfg)
+    counters = {kn: fn for kn, fn in kernel_counters().items()
+                if kn in ("K1", "K2", "K3", "K4")}
+    serve = dict(slots=D_SLOTS, capacity=D_CAPACITY)
+    atn.reset()
+
+    def gen(c):
+        return serve_loop.generate(model, batch, c,
+                                   max_new_tokens=NEW_TOKENS).cpu()
+
+    def engine(c, rc=None):
+        eng = Engine(model, c, serve=ServeConfig(**serve), rc=rc)
+        done, wall, _ = serve_traffic_d(torch, eng, prompts)
+        return eng, done, wall
+
+    def timed(fn):
+        """(fn(), ms of a second call): the first call warms the path."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {kn: fn.launches for kn, fn in counters.items()}
+
+    # the untuned references: dense and dual generate (dual's logits per
+    # step from the script's own loop, which generate's tokens equal),
+    # the untuned dual engine with its tape (the sites K1 and K3 run)
+    dense_ms = timed(lambda: gen(cfg))[1]
+    dual_toks, dual_ms = timed(lambda: gen(ca))
+    ref = serve_with_plans(torch, model, ca, batch, NEW_TOKENS, None)
+    if not torch.equal(ref["tokens"], dual_toks):
+        raise AssertionError("tuning: generate != its own loop (untuned)")
+    tol = SERVE_RTOL * ref["prefill"].abs().max().item()
+    zero()
+    with tape.collect() as entries:
+        eng_u, done_u, wall_u = engine(cd)
+    st = check_engine_run("tuning: untuned engine", "dual", eng_u, done_u,
+                          read(), False)
+    kernel_sites = {("attn.score:" if e["name"] == "attn.score" else
+                     "attn.value:" if e["name"] == "attn.value" else
+                     "matmul:") + e["name"] for e in tape.summarize(entries)}
+    del eng_u
+    n_tok_a, n_tok_d = PROMPTS * NEW_TOKENS, D_NEW * len(prompts)
+
+    # 1. discover the keys: the engine's own discovery pass, then one
+    # served pass of each traffic on an empty cache, capturing the
+    # operands of every key it consults
+    t0 = time.perf_counter()
+    eng = Engine(model, cd, serve=ServeConfig(**serve))
+    found = eng.autotune_keys(prompt_len=PROMPT_LEN, decode_steps=1)
+    del eng
+    atn.reset()
+    calls_a, ops_a = capture_lookups(
+        lambda: gen(dataclasses.replace(ca, sparse_autotune=True)))
+    calls_d, ops_d = capture_lookups(
+        lambda: engine(dataclasses.replace(cd, sparse_autotune=True)))
+    operands = {**ops_a, **ops_d}
+    consulted = list(dict.fromkeys(c["key"] for c in calls_a + calls_d))
+    if set(consulted) != set(operands):
+        raise AssertionError(f"tuning: keys without operands: "
+                             f"{sorted(set(consulted) - set(operands))}")
+    log(f"tuning: Engine.autotune_keys ({D_SLOTS} slots x {D_CAPACITY}, a "
+        f"{PROMPT_LEN}-token prompt, 1 decode step) finds {len(found)} "
+        f"keys ({sum('|m1|' in k for k in found)} decode at M = 1, "
+        f"{sum('|attn.' in k for k in found)} attention); the served passes "
+        f"(traffic A through generate, traffic D through the engine) consult "
+        f"{len(consulted)} keys in {len(calls_a)} + {len(calls_d)} lookups, "
+        f"{len(set(found) & set(consulted))} of them among autotune_keys'; "
+        f"{(time.perf_counter() - t0):.1f} s")
+
+    # 2. sweep every consulted key on the card (K1/K2 for the matmuls at
+    # the cost model's best vectors and the kfused twin of its pick,
+    # K3/K4 for the decode attention over the block_t lattice)
+    atn.reset()
+    zero()
+    base = atn.knobs_from_config(cd)
+    rows = []
+    t0 = time.perf_counter()
+    for key in consulted:
+        op = key.split("|")[2]
+        if op.startswith("attn."):
+            continue
+        x, w, out_dtype = operands[key]
+        xv, wv = dsp._values(x), dsp._weight_array(w)
+        m, k, n = xv.shape[:-1].numel(), xv.shape[-1], wv.shape[-1]
+        top = atn.candidates(m, n, k, dtype_bytes=2, max_candidates=1)[0]
+        rows.append(atn.tune_matmul(
+            x, w, mode="dual", baseline=base, out_dtype=out_dtype,
+            max_candidates=T_MAX_CANDIDATES,
+            include=(top._replace(backend="kfused"),)))
+        if rows[-1]["key"] != key:
+            raise AssertionError(f"tuning: swept {rows[-1]['key']} for "
+                                 f"{key}")
+    attn_keys = [k for k in consulted if "|attn." in k]
+    fill = int(statistics.mean(D_PROMPT_LENS)) + D_NEW // 2
+    attn_rows = atn.tune_attn(cd, batch=D_SLOTS, capacity=D_CAPACITY,
+                              fill=fill, dtype=torch.bfloat16,
+                              max_candidates=T_MAX_CANDIDATES,
+                              also=("kfused",))
+    # tune_attn files its winners under the sweep's sparsity bucket and
+    # mirrors them into 'any', which the engine's lookups (no hint) read
+    if not all(atn.get_cache().get(k) for k in attn_keys):
+        raise AssertionError(f"tuning: tune_attn ({[r['key'] for r in
+                             attn_rows]}) left the engine's {attn_keys} "
+                             f"unfilled")
+    rows.extend(attn_rows)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    swept = read()
+    if not all(swept.values()):
+        raise AssertionError(f"tuning: the sweep launched {swept}")
+    for r in rows:
+        log(sweep_line(r, smi))
+    path = atn.save_cache(atn.default_cache_path(str(ROOT)))
+    wins = {b: sum(r["tuned"]["backend"] == b for r in rows)
+            for b in atn.BACKENDS}
+    log(f"tuning: {len(rows)} keys swept in {sweep_s:.1f} s (card timer: "
+        f"the whole dispatch call, planning included, median of 3 after a "
+        f"warm-up); launches in the sweep {swept}; winners {wins}; cache "
+        f"saved to {Path(path).relative_to(ROOT)}; {smi}")
+
+    # 3. the saved cache, checked against the card's knobs_valid
+    checked = val.check_tuning_cache(atn.TuningCache().load(path))
+    log(f"tuning: check_tuning_cache: {len(checked)} entries valid on the "
+        f"card's rules")
+
+    # 4. serve on the tuned cache, then on its kernel arm: each key's
+    # fastest K1/K2 (K3/K4) vector of the sweep, so that the served runs
+    # launch the kernels at the swept knobs
+    karm = atn.TuningCache()
+    for r in rows:
+        best = min((v for v in r["sweep"] if v["backend"] != "xla"),
+                   key=lambda v: v["us"])
+        atn.record(r["op"], r["m"], r["n"], r["k"], dtype=r["dtype"],
+                   sparsity=r["sparsity"], knobs=atn.Knobs(
+                       best["backend"], best["block_m"], best["block_n"],
+                       best["slice_k"]), us=best["us"],
+                   baseline_us=r["baseline"]["us"],
+                   extra=f"e{atn.bucket_dim(r['e'])}" if "e" in r else "",
+                   cache=karm, platform="cuda")
+    kpath = karm.save(str(Path(path).with_name("autotune_cache_kernels.json")))
+    val.check_tuning_cache(karm)
+    served = {}
+    for label, cache_path in (("tuned", path), ("kernel arm", kpath)):
+        ta = dataclasses.replace(ca, sparse_autotune=True,
+                                 sparse_tune_cache=cache_path)
+        td = dataclasses.replace(cd, sparse_autotune=True,
+                                 sparse_tune_cache=cache_path)
+        atn.reset()
+        atn.load_cache(cache_path)
+        want_a = replayed_telemetry(calls_a)
+        zero()
+        with tape.collect() as entries:
+            toks = gen(ta)
+        got_a, launches_a = telemetry(), read()
+        if got_a != want_a:
+            raise AssertionError(f"tuning: {label}: traffic A lookups "
+                                 f"{got_a}, the cache predicts {want_a}")
+        rows_a = tape.summarize(entries)
+        kern = sum(launches_a.values())
+        on_kernel = sum(e["executed_steps"] == e["sparse_steps"]
+                        < e["dense_steps"] for e in rows_a)
+        bad = [e for e in rows_a
+               if e["executed_steps"] not in (e["sparse_steps"],
+                                              e["dense_steps"])]
+        if bad or (label == "kernel arm" and (
+                kern != PROJ_PER_FORWARD * NEW_TOKENS or any(
+                    e["executed_steps"] != e["sparse_steps"]
+                    for e in rows_a))):
+            raise AssertionError(f"tuning: {label}: launches {launches_a}, "
+                                 f"executed != counted at {bad[:3]}")
+        note = "; ".join(parting_report(torch, label, toks, ref["tokens"],
+                                        ref["steps"], tol))
+        ms = timed(lambda: gen(ta))[1]
+        held = held_to_plain(torch, None, lambda: gen(ta))
+        n_held = sum(h["n"] for h in held.values())
+        if n_held != kern:
+            raise AssertionError(f"tuning: {label}: {n_held} launches held, "
+                                 f"{launches_a} counted")
+        log(f"tuning: {label}: traffic A through generate: lookups {got_a} "
+            f"as the cache predicts; launches {launches_a}; {len(rows_a)} "
+            f"tape entries, each executing what it counts ({on_kernel} "
+            f"skipping on a kernel, the rest dense); tokens against untuned "
+            f"dual: {note} (tol {tol:.4f}); every launch of a second "
+            f"generate held to its plain walk: " + (", ".join(
+                f"{src} {h['n']} max |kernel - plain| {h['err']:.3e}"
+                for src, h in sorted(held.items())) or "none launched (the "
+                "dense arm won every key traffic A consults)") + f"; {smi}")
+        want_d = replayed_telemetry(calls_d)
+        zero()
+        with tape.collect() as entries:
+            eng_t, done_t, wall_t = engine(td)
+        got_d, launches_d = telemetry(), read()
+        if got_d != want_d:
+            raise AssertionError(f"tuning: {label}: traffic D lookups "
+                                 f"{got_d}, the cache predicts {want_d}")
+        bad = [e for e in tape.summarize(entries)
+               if e["executed_steps"] not in (e["sparse_steps"],
+                                              e["dense_steps"])]
+        st_t = eng_t.stats()
+        short = [u for u, r in done_t.items()
+                 if len(r.output) != D_NEW or r.status != "done"]
+        if bad or short or st_t["pages_free"] != st_t["pages_total"]:
+            raise AssertionError(f"tuning: {label} engine: {short} short, "
+                                 f"{st_t}, executed != counted at "
+                                 f"{bad[:3]}")
+        if label == "kernel arm":
+            proj = PROJ_PER_FORWARD * (st_t["prefill_calls"]
+                                       + st_t["decode_calls"])
+            grouped = 2 * N_LAYERS * st_t["decode_calls"]
+            if (launches_d["K1"] + launches_d["K2"] != proj
+                    or launches_d["K3"] + launches_d["K4"] != grouped):
+                raise AssertionError(f"tuning: kernel arm engine launches "
+                                     f"{launches_d}, expected {proj} K1/K2 "
+                                     f"and {grouped} K3/K4")
+        del eng_t
+        note_d = engine_parting(torch, f"{label} engine", model, cd, prompts,
+                                done_t, done_u, tol)
+        log(f"tuning: {label}: traffic D through the engine: lookups {got_d} "
+            f"as the cache predicts; launches {launches_d}; tokens against "
+            f"the untuned engine: {note_d}; {smi}")
+        served[label] = (ms, wall_t)
+    log(f"time: tuning: traffic A generate, {n_tok_a} tokens: dense "
+        f"{n_tok_a / dense_ms * 1e3:.2f} tokens/s, untuned dual "
+        f"{n_tok_a / dual_ms * 1e3:.2f}, " + ", ".join(
+            f"{label} {n_tok_a / ms * 1e3:.2f}"
+            for label, (ms, _) in served.items())
+        + f" (the second of two calls each, stats tape off); traffic D "
+        f"engine, {n_tok_d} tokens: untuned dual "
+        f"{n_tok_d / wall_u * 1e3:.2f} tokens/s, " + ", ".join(
+            f"{label} {n_tok_d / w * 1e3:.2f}"
+            for label, (_, w) in served.items())
+        + f" (one run each on a warm path, stats tape on); a record, no "
+        f"claim; sweep {sweep_s:.1f} s; {smi}")
+
+    # 5. the cost-model tier on an empty cache
+    atn.reset()
+    cm = dataclasses.replace(ca, sparse_costmodel=True)
+    picked, real_resolve = {}, site.resolve
+
+    def resolve(st, c, **geo):
+        kw = real_resolve(st, c, **geo)
+        picked.setdefault(st.name, (geo["m"], geo["n"], geo["k"],
+                                    kw["use_kernel"], kw.get("condense"),
+                                    kw["block_m"], kw["block_n"],
+                                    kw["slice_k"]))
+        return kw
+    site.resolve = resolve
+    try:
+        cm_toks = gen(cm)
+    finally:
+        site.resolve = real_resolve
+    note = "; ".join(parting_report(torch, "cost model", cm_toks,
+                                    ref["tokens"], ref["steps"], tol))
+    log("tuning: cost-model tier (sparse_costmodel, empty cache), traffic "
+        "A: " + "; ".join(
+            f"{name} at (M={m}, N={n}, K={k}) -> "
+            f"{'K2' if cond else 'K1' if uk else 'dense arm'} "
+            f"({bm}, {bn}, {sk})"
+            for name, (m, n, k, uk, cond, bm, bn, sk) in picked.items())
+        + f"; tokens against untuned dual: {note}")
+    no_quarantine("tuning: tuned and cost-model runs")
+
+    # 6. faults: traffic D under the whole seeded fault matrix
+    with faults.chaos(T_FAULT_SEED, poisoned_uids={T_POISONED}) as inst:
+        eng_f, done_f, _ = engine(cd)
+    quarantined = set(site.quarantine_report())
+    if quarantined != kernel_sites:
+        raise AssertionError(f"faults: quarantined {sorted(quarantined)}, "
+                             f"the sites that ran K1 and K3 "
+                             f"{sorted(kernel_sites)}")
+    bad_req = done_f[T_POISONED]
+    if (bad_req.status, bad_req.error) != ("error", "nonfinite_logits"):
+        raise AssertionError(f"faults: poisoned request {bad_req.status} "
+                             f"{bad_req.error}")
+    others = {u: r for u, r in done_f.items() if u != T_POISONED}
+    short = [u for u, r in others.items()
+             if len(r.output) != D_NEW or r.status != "done"]
+    if short:
+        raise AssertionError(f"faults: requests {short} did not finish")
+    note_f = engine_parting(torch, "faults", model, cd, prompts, others,
+                            done_u, tol)
+    fired = {k: f.fired for k, f in inst.items()}
+    st_f = eng_f.stats()
+    del eng_f
+    site.clear_quarantine()
+    log(f"faults: traffic D under faults.chaos({T_FAULT_SEED}) (kernel "
+        f"faults at rate 1.0, page_alloc 0.25, preemption_storm 0.2, uid "
+        f"{T_POISONED} poisoned): fired {fired}; quarantined exactly the "
+        f"{len(kernel_sites)} sites that ran K1 and K3 "
+        f"({', '.join(sorted(kernel_sites))}); uid {T_POISONED} retired "
+        f"error/nonfinite_logits; the others against the fault-free "
+        f"engine: {note_f}; evictions {st_f['evictions']}, ticks "
+        f"{st_f['ticks']}; quarantine cleared; {smi}")
+
+    # 7. validators: every tick of traffic D validated, then broken copies
+    ticks = []
+    real_validate = Engine.validate_state
+
+    def validate_state(self):
+        ticks.append(self.ticks)
+        real_validate(self)
+    Engine.validate_state = validate_state
+    try:
+        with val.enabled_within(True):
+            eng_v, done_v, _ = engine(cd, rc=RunConfig(validate=True))
+    finally:
+        Engine.validate_state = real_validate
+    if ticks != list(range(1, eng_v.ticks + 1)):
+        raise AssertionError(f"validate: {len(ticks)} checks over "
+                             f"{eng_v.ticks} ticks")
+    pw = wts.plan_weight(model.layers[0].mlp.w_up, slice_k=cfg.sparse_slice_k)
+    val.check_planned_weight(pw, values=True)
+    broken = dataclasses.replace(pw, slice_act=torch.zeros_like(pw.slice_act))
+    raised = []
+    try:
+        val.check_planned_weight(broken, values=True)
+    except val.ValidationError as e:
+        raised.append(str(e))
+    pool = next(c for c in eng_v.caches if hasattr(c, "table"))
+    val.check_paged_kv(pool, table=eng_v.table_host)
+    table = eng_v.table_host.copy()
+    table[0, 0] = table[1, 0] = 1
+    try:
+        val.check_paged_kv(pool, table=table)
+    except val.ValidationError as e:
+        raised.append(str(e))
+    if len(raised) != 2:
+        raise AssertionError(f"validate: broken copies raised {raised}")
+    del eng_v, pw, broken
+    log(f"validate: traffic D with RunConfig(validate=True) and the "
+        f"dispatch boundary checks on: {len(ticks)} ticks validated, no "
+        f"ValidationError; a PlannedWeight with its slice activity zeroed "
+        f"raises ({raised[0]}); a block table mapping page 1 twice raises "
+        f"({raised[1]})")
+    no_quarantine("tuning: validators")
+    atn.reset()
+    del model, operands, ops_a, ops_d
+    torch.cuda.empty_cache()
+    log(f"tuning: phase {time.perf_counter() - t_phase:.0f} s")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5424,46 +5949,63 @@ def main() -> int:
     phase_build()
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
     err, totals = phase_kernels(torch, cfg)
+    no_quarantine("kernels")
     g_err, g_totals = phase_grouped(torch, cfg)
+    no_quarantine("grouped kernels")
     err.update(g_err)
     totals.update(g_totals)
     c_totals = phase_conv_kernels(torch)
+    no_quarantine("conv kernels")
     totals.update(c_totals)
     phase_reference(torch)
     phase_reference_whisper(torch)
+    no_quarantine("reference")
     model = make_model(torch, cfg)
     launches, walls = phase_serving(torch, cfg, model)
+    no_quarantine("serving")
     kv_launches, kv_walls, _ = phase_serving_kv(torch, cfg, model)
+    no_quarantine("serving, sparse KV")
     proj = 13 * NEW_TOKENS
     phase_pruned(torch, "traffic A", cfg, model, traffic_a_batch(torch, cfg),
                  NEW_TOKENS, {"dense": {}, "dual": {"K1": proj},
                               "dual+kc": {"K2": proj}})
+    no_quarantine("pruned serving, traffic A")
     phase_engine(torch, cfg, model, smi)
+    no_quarantine("engine, traffic D")
     del model
     torch.cuda.empty_cache()
     phase_attention_split(torch, cfg)
     wcfg = get_config(WHISPER)
     wmodel, w_launches, w_walls, w_times = phase_serving_whisper(torch, wcfg)
     phase_conv_split(torch, wcfg, wmodel)
+    no_quarantine("serving, whisper")
     n1, conv = whisper_k1_launches(wcfg), {"K5": 2, "K6": 1, "K7": 1}
     phase_pruned(torch, "traffic C", wcfg, wmodel, whisper_batch(torch, wcfg),
                  W_NEW, {"dense": {}, "dual": {"K1": n1, **conv},
                          "dual+kc": {"K2": n1, **conv}})
+    no_quarantine("pruned serving, traffic C")
     del wmodel
     torch.cuda.empty_cache()
     phase_paper(torch)
+    no_quarantine("paper evaluation")
     phase_reference_smoke(torch, (MIXTRAL, QWEN3_MOE), MOE_SMOKE_PROMPT,
                           MOE_SMOKE_NEW)
     moe = phase_moe(torch, smi)
+    no_quarantine("MoE serving, traffic E")
     phase_reference_smoke(torch, DENSE_GQA, 9, 6, int8_kv=True)
     dense_gqa = phase_dense_gqa(torch, smi)
+    no_quarantine("dense GQA, traffic F")
     torch.cuda.empty_cache()
     phase_reference_smoke(torch, (MAMBA2, JAMBA), 9, 6, int8_kv=True,
                           depth={JAMBA: 8})
     hybrid = phase_hybrid(torch, smi)
+    no_quarantine("Mamba2 and the hybrid, traffics G and H")
     torch.cuda.empty_cache()
     phase_reference_smoke(torch, (VLM,), 9, 6, int8_kv=True)
     vlm = serve_vlm(torch, smi)
+    no_quarantine("the VLM, traffic I")
+    torch.cuda.empty_cache()
+    phase_tuning(torch, smi)
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "

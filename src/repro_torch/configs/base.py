@@ -83,6 +83,20 @@ class ModelConfig:
     # (dense mode keeps plain caches).
     sparse_kv: bool = False        # SparseKVCache + bitmap-scheduled decode
     sparse_block_t: int = 32       # cache slots per occupancy block
+    # per-call autotuning (repro_torch.sparse.autotune): consult the
+    # persistent tuning cache per dispatch; the sparse_block_*/slice_k/
+    # use_kernel/kcondense constants above become the fallback tier on a
+    # cache miss.
+    sparse_autotune: bool = False
+    sparse_tune_cache: str = ""    # cache file to load ("" = in-memory)
+    # static activation-sparsity hint the cache keys bucket under
+    # (< 0 = no hint → the 'any' bucket)
+    sparse_tune_sparsity: float = -1.0
+    # OpSite resolution tier 2 (repro_torch.sparse.site): on a
+    # tuning-cache miss, take the cost model's best candidate instead of
+    # the config constants.  Off by default, so an untuned run executes
+    # the hand-set geometry.
+    sparse_costmodel: bool = False
     # norms
     norm_kind: str = "rms"         # rms | layer
     norm_eps: float = 1e-5
@@ -123,6 +137,8 @@ class ModelConfig:
                  "the kernels only run condensed schedules"),
                 ("sparse_kcondense", self.sparse_kcondense,
                  "there is no schedule to condense"),
+                ("sparse_autotune", self.sparse_autotune,
+                 "dense mode never consults the tuning cache"),
             ]
             for flag, value, why in ineffective:
                 if value:
@@ -216,6 +232,10 @@ class RunConfig:
     accum_dtype: str = "float32"   # gradient-accumulator dtype
     optimizer: str = "adamw"       # adamw | adamw_bf16 | adafactor
     kv_quant: bool = False         # int8 KV cache
+    # run the repro_torch.sparse.validate invariant checks at dispatch
+    # boundaries and engine ticks (debug mode; the effect of
+    # REPRO_VALIDATE=1, scoped to this run)
+    validate: bool = False
     attn_chunk: int = 2048         # KV-chunked attention threshold/size
 
 

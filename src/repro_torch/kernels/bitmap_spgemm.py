@@ -195,6 +195,77 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# the tensor-core kernel's cp.async ring depth (csrc/spgemm_mma.cuh
+# kStages); shared memory an H100 block may opt into, for knobs checked
+# where no card is present
+MMA_STAGES = 4
+H100_SMEM_OPTIN = 232448
+
+
+def stage_bytes(kind: str, block_m: int, k: int) -> int:
+    """Shared memory a CUDA block of route ``kind`` stages, K1-K4 alike:
+
+    * ``mma`` — the ring of ``csrc/spgemm_mma.cuh`` (``smem_bytes<BM>``):
+      MMA_STAGES stages of an (R, chunk + 8) A block and a (chunk,
+      MMA_COLS + 8) B block in bf16 plus the chunk's int32 positions, R
+      the smallest of MMA_ROWS that holds block_m (128 beyond), chunk 32
+      at R = 64, else 64;
+    * ``simt`` — ``csrc/spgemm_tile.cuh``'s static float As[32][8·TM + 1]
+      and Bs[32][128], TM the row multiple of block_m (1 to 16);
+    * ``narrow`` — K3/K4's B^T staged whole (``csrc/spgemm_grouped.cuh``):
+      NARROW_N rows of ``narrow_pitch(K)`` bf16;
+    * ``mixed`` — K3/K4's static float red[8][16][32].
+
+    Only block_m (and K on the narrow route) moves it: block_n and
+    slice_k change the grid and the walk, not what a block stages.
+    """
+    if kind == "mma":
+        rows = next((r for r in MMA_ROWS if r >= block_m), MMA_ROWS[-1])
+        chunk = 32 if rows == 64 else 64
+        return MMA_STAGES * ((rows * (chunk + 8) + chunk * (MMA_COLS + 8))
+                             * 2 + chunk * 4)
+    if kind == "simt":
+        tm = next((t for t in (1, 2, 4, 8) if 8 * t >= block_m), 16)
+        return 4 * 32 * (8 * tm + 1) + 4 * 32 * 128
+    if kind == "narrow":
+        return NARROW_N * (-(-k // 64) * 64 + 32) * 2
+    if kind == "mixed":
+        return 4 * 8 * 16 * 32
+    raise ValueError(f"unknown route {kind!r}")
+
+
+def width_routes(dtype_bytes: int, n: int, k: int, grouped: bool
+                 ) -> Tuple[str, ...]:
+    """The routes (:func:`route`) a product with ``dtype_bytes``-byte
+    activations may take: bf16 on both sides, or float32 against a
+    float32 or (K3/K4) a bf16 weight.  Empty for a width no kernel
+    takes."""
+    dt = {2: torch.bfloat16, 4: torch.float32}.get(dtype_bytes)
+    if dt is None:
+        return ()
+    src = GROUPED_SOURCES[0] if grouped else "bitmap_spgemm.cu"
+    pairs = [(dt, dt)]
+    if grouped and dt == torch.float32:
+        pairs.append((dt, torch.bfloat16))
+    return tuple(route(src, a, b, n, k) for a, b in pairs)
+
+
+def smem_budget() -> int:
+    """Shared memory one CUDA block may opt into on the current card
+    (``shared_memory_per_block_optin``); :data:`H100_SMEM_OPTIN` without
+    a card."""
+    if not torch.cuda.is_available():
+        return H100_SMEM_OPTIN
+    return _smem_optin(torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return int(getattr(props, "shared_memory_per_block_optin",
+                       H100_SMEM_OPTIN))
+
+
 def launch(src: str, a, b, sched, counts, block_m, block_n, slice_k,
            out_dtype, geom) -> torch.Tensor:
     """Check what the kernel in ``csrc/<src>`` takes, allocate the

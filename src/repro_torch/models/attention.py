@@ -202,13 +202,17 @@ def attend_sparse(q: torch.Tensor, cache, cfg: ModelConfig, *,
         occ_e = occ[:, None, :].expand(b, kvh, t).reshape(ne, t)
     else:
         sched_e, occ_e = sched, occ
-    # attn.score tiles slot rows at block_m, attn.value slices the slot
-    # contraction at slice_k; both resolve before the operands are built,
-    # which must carry metadata at the served tiles
+    # attn.score keys on (M=T, N=G, K=hd): slots are block rows, so the
+    # served block_m is the slot tile; attn.value on (M=G, N=hd, K=T):
+    # slots are the contraction, so the served slice_k is the value tile.
+    # Both resolve before the operands are built, which must carry
+    # metadata at the served tiles.
     st_s = site.make("attn.score", "attn.score", out_dtype="float32")
     st_v = site.make("attn.value", "attn.value", out_dtype="float32")
-    kw_s = site.resolve(st_s, cfg)
-    kw_v = site.resolve(st_v, cfg)
+    kw_s = site.resolve(st_s, cfg, m=t, n=g, k=hd, e=ne, dtype=q.dtype,
+                        device=q.device)
+    kw_v = site.resolve(st_v, cfg, m=g, n=hd, k=t, e=ne, dtype=q.dtype,
+                        device=q.device)
     bt = pln.effective_slice_k(t, kw_v["slice_k"])
     sk_hd = pln.effective_slice_k(hd, kw_s["slice_k"])
 

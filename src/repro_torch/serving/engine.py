@@ -36,9 +36,18 @@ admission; ``run_to_completion`` watches for progress and raises
 :class:`EngineStalled` with an :meth:`Engine.health` snapshot and the
 unfinished requests rather than dropping in-flight work.
 
-Not ported yet: the invariant validators (``validate_state``), fault
-injection (the ``nan_logits`` poison operand and ``preemption_storm``)
-and ``autotune_keys``.  The JAX engine's legacy per-slot control plane
+Guards: with ``RunConfig.validate`` (or ``REPRO_VALIDATE=1``) every
+tick ends in :meth:`Engine.validate_state` (allocator, page ownership,
+the pools' occupancy, :mod:`repro_torch.sparse.validate`); under
+:mod:`repro_torch.testing.faults` the ``nan_logits`` fault (read at
+construction) poisons the decode logits of its request uids and
+``preemption_storm`` evicts a slot after a tick's admissions.
+:meth:`Engine.autotune_keys` lists the tuning-cache keys the engine's
+forwards consult, and with ``cfg.sparse_autotune`` the engine loads
+``cfg.sparse_tune_cache`` at construction; :meth:`Engine.health` reports
+the sites' quarantines and the cache's hits and misses.
+
+The JAX engine's legacy per-slot control plane
 (``_admit_legacy``, ``_step_legacy``, ``_decode_one``), which the JAX
 package meant for encoder-decoder and cross-attention stacks, is not
 ported: its ``Request`` carries no mel frames or images, and its prefill
@@ -63,9 +72,14 @@ from repro_torch.models import ssm as ssmm
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.scheduler import (PageAllocator, Scheduler,
                                            pack_prefills)
+from repro_torch.sparse import autotune as atn
+from repro_torch.sparse import dispatch as dsp
 from repro_torch.sparse import kvcache as skvc
 from repro_torch.sparse import plan as pln
+from repro_torch.sparse import site as ssite
 from repro_torch.sparse import tape
+from repro_torch.sparse import validate as val
+from repro_torch.testing import faults
 
 
 @dataclasses.dataclass
@@ -176,9 +190,18 @@ class Engine:
         self.tokens_emitted = 0        # progress signal for the watchdog
         self.errored = 0               # terminal error retirements
 
+        # robustness: the invariant validators each tick under
+        # RunConfig.validate (or REPRO_VALIDATE=1); the nan_logits fault
+        # is read once here, as the JAX engine binds it to its decode
+        self._validate = bool(rc and getattr(rc, "validate", False))
+        self._logit_fault = faults.spec("nan_logits")
+
         # static weight-side sparse plans: built once per engine (weights
         # don't change at inference), reused by every prefill and decode
         self.weight_plans = tfm.plan_weight_activities(model, cfg)
+        # the persisted tuning cache, loaded before the first forward
+        if cfg.sparse_autotune and cfg.sparse_tune_cache:
+            atn.load_cache(cfg.sparse_tune_cache)
 
         with torch.inference_mode():
             self.caches = tfm.init_paged_caches(
@@ -228,12 +251,19 @@ class Engine:
         return out
 
     @torch.inference_mode()
-    def _decode_impl(self, toks, pos, caches):
-        """One batched decode step over every serving slot."""
+    def _decode_impl(self, toks, pos, caches, poison=None):
+        """One batched decode step over every serving slot; the rows
+        flagged in ``poison`` (B,) bool get NaN logits (the ``nan_logits``
+        fault), so they retire without touching their siblings' rows."""
         out = self.model({"tokens": toks[:, None]}, self.cfg,
                          caches=caches, positions=pos[:, None], rc=self.rc,
                          weight_plans=self.weight_plans)
-        return (out.caches, *self._greedy(out.logits[:, -1]))
+        logits = out.logits[:, -1]
+        if poison is not None:
+            logits = torch.where(poison[:, None],
+                                 torch.full_like(logits, float("nan")),
+                                 logits)
+        return (out.caches, *self._greedy(logits))
 
     # -- sparsity accounting ------------------------------------------
     @torch.inference_mode()
@@ -278,6 +308,42 @@ class Engine:
         report = tape.summarize(entries)
         report.extend(self._cache_occupancy_entries(caches))
         return report
+
+    @torch.inference_mode()
+    def autotune_keys(self, prompt_len: int = 8,
+                      decode_steps: int = 1) -> List[str]:
+        """The tuning-cache keys this engine's forwards consult.
+
+        One prefill over a synthetic prompt of ``prompt_len`` ones and
+        ``decode_steps`` greedy decode steps at batch 1, with
+        ``sparse_autotune`` forced on, returning the keys the call sites
+        looked up (hit or miss) in that window: the M = 1 decode keys
+        apart from the M = ``prompt_len`` prefill ones, so prefill and
+        decode tune independently.  ``[]`` in dense mode (nothing is
+        routed).  Runs beside the serving state, which it does not touch.
+        """
+        if self.cfg.sparse_mode == "dense":
+            return []
+        cfg = dataclasses.replace(self.cfg, sparse_autotune=True)
+        before = set(atn.OBSERVED)
+        toks = torch.ones((1, prompt_len), dtype=torch.long, device=self.dev)
+        caches = tfm.init_caches(cfg, 1, self.capacity,
+                                 quantized=self.quantized, device=self.dev)
+        with dsp.warnings_suppressed():
+            out = self.model({"tokens": toks}, cfg, caches=caches,
+                             positions=torch.arange(prompt_len,
+                                                    device=self.dev),
+                             rc=self.rc, weight_plans=self.weight_plans)
+            caches, pos = out.caches, prompt_len
+            nxt = out.logits[:, -1].argmax(-1)
+            for _ in range(decode_steps):
+                out = self.model(
+                    {"tokens": nxt[:, None]}, cfg, caches=caches,
+                    positions=torch.tensor([pos], device=self.dev),
+                    rc=self.rc, weight_plans=self.weight_plans)
+                caches, pos = out.caches, pos + 1
+                nxt = out.logits[:, 0].argmax(-1)
+        return sorted(set(atn.OBSERVED) - before)
 
     def _cache_occupancy_entries(self, caches) -> List[dict]:
         """Per-layer sparse-cache occupancy, from the maintained bitmaps,
@@ -373,8 +439,46 @@ class Engine:
             "queue": queue,
             "request_costs": {str(k): v
                               for k, v in self.scheduler._cost.items()},
+            "quarantines": ssite.quarantine_report(),
+            "autotune": {"hits": atn.HITS, "misses": atn.MISSES,
+                         "stale": atn.STALE,
+                         "observed": len(atn.OBSERVED)},
             "pool": self.pool_stats(),
         }
+
+    def validate_state(self) -> None:
+        """The serving invariants against the live engine state: the
+        allocator's free list, page ownership (no page both free and
+        held, held by two slots, or mapped by a slot that does not hold
+        it) and the pools' occupancy against their popcounts and cursors
+        (the first attention layer's pool: every layer's metadata is the
+        same).  Raises :class:`repro_torch.sparse.validate.ValidationError`
+        on a violation."""
+        val.check_allocator(self.allocator)
+        free = set(self.allocator._free)
+        held_all: List[int] = []
+        for slot, held in self.pages_held.items():
+            held_all.extend(held)
+            if free & set(held):
+                raise val.ValidationError(
+                    f"engine: slot {slot} holds pages that are also on "
+                    f"the free list: {sorted(free & set(held))}")
+            row = {int(p) for p in self.table_host[slot] if p > 0}
+            if not row <= set(held):
+                raise val.ValidationError(
+                    f"engine: slot {slot} block table references pages "
+                    f"it does not hold: {sorted(row - set(held))}")
+        if len(held_all) != len(set(held_all)):
+            raise val.ValidationError(
+                "engine: a physical page is held by two slots")
+        for c in self.caches:
+            if isinstance(c, skvc.PagedSparseKVCache):
+                val.check_paged_kv(c, table=self.table_host)
+                break
+
+    def _maybe_validate(self) -> None:
+        if self._validate or val.enabled():
+            self.validate_state()
 
     def _prompt_of(self, req: Request) -> List[int]:
         return req.resume_prompt or req.prompt
@@ -624,17 +728,28 @@ class Engine:
         self._early = []
         finished.extend(self._expire_queued_deadlines())
         finished.extend(self._admit())
+        storm = faults.spec("preemption_storm")
+        if storm is not None and storm.fire():
+            self._evict_one()
         if all(r is None for r in self.active.values()):
+            self._maybe_validate()
             return finished
         self._ensure_pages()
         if all(r is None for r in self.active.values()):
+            self._maybe_validate()
             return finished
         if self._table_dirty:
             self._push_table()
+        poison = None
+        if self._logit_fault is not None:
+            poison = torch.tensor(
+                [r is not None and self._logit_fault.poisons(r.uid)
+                 for r in (self.active[i] for i in range(self.slots))],
+                device=self.dev)
         self.caches, nxt, ok = self._decode_impl(
             torch.tensor(self.last_tok, device=self.dev),
             torch.as_tensor(self.pos, dtype=torch.int32, device=self.dev),
-            self.caches)
+            self.caches, poison)
         self.decode_calls += 1
         for i, req in self.active.items():
             if req is None:
@@ -658,6 +773,7 @@ class Engine:
                 self._retire(i)
             elif self._deadline_blown(req):
                 finished.append(self._error_retire(req, "deadline", i))
+        self._maybe_validate()
         return finished
 
     def _idle(self) -> bool:

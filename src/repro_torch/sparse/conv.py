@@ -151,6 +151,8 @@ def conv2d(
     out_dtype: Optional[torch.dtype] = None,
     collect_stats: bool = False,
     name: str = "conv",
+    autotune: bool = False,
+    tune_sparsity: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Optional[stats.StepCounts]]:
     """2-D convolution with dual-side sparse scheduling (VALID padding).
 
@@ -160,6 +162,9 @@ def conv2d(
     GEMM-equivalent schedule on the tape; ``weight``/``dual`` lower with
     :func:`im2col_sparse` and run one GEMM over all N images through the
     dispatch (K1, or K2 under ``condense="k"``, with ``use_kernel``).
+    ``autotune`` consults the tuning cache under ``op="conv"`` keys, so a
+    conv's lowered GEMM (M = N·OH·OW, K = KH·KW·C, N = F) tunes apart from
+    LM projections of the same bucketed geometry.
     """
     if x.ndim != 4:
         raise ValueError(f"conv2d expects NHWC input, got {tuple(x.shape)}")
@@ -212,5 +217,6 @@ def conv2d(
                            block_n=block_n, slice_k=slice_k,
                            use_kernel=use_kernel, condense=condense,
                            out_dtype=out_dtype, collect_stats=collect_stats,
-                           name=name)
+                           name=name, autotune=autotune,
+                           tune_sparsity=tune_sparsity, op="conv")
     return y2.reshape(n_im, oh, ow, f), steps

@@ -20,9 +20,18 @@ weight-side skips only) and ``dual`` (weight AND activation skips; with
 ``condense="k"``, which plans per contraction index; K3/K4 for the
 grouped form).  All modes compute ``x @ w``: sparsity changes the
 schedule, not the math.
+
+With ``autotune=True`` a call consults the persistent tuning cache
+(:mod:`repro_torch.sparse.autotune`) for its bucketed key; a hit
+overrides the geometry and backend knobs, a miss warns once per key and
+keeps them.  The model's call sites consult through
+:func:`repro_torch.sparse.site.resolve` instead, once per call.  Under
+:func:`repro_torch.sparse.validate.enabled` every call first checks its
+sparse operands' metadata.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import warnings
 from typing import Optional, Tuple, Union
@@ -34,6 +43,7 @@ from repro_torch.kernels import bitmap_spgemm as bsk
 from repro_torch.kernels import grouped_spgemm as gsk
 from repro_torch.sparse import plan as pln
 from repro_torch.sparse import tape
+from repro_torch.sparse import validate
 from repro_torch.sparse.activation import SparseActivation
 from repro_torch.sparse.weights import PlannedWeight
 
@@ -42,6 +52,91 @@ Weight = Union[torch.Tensor, PlannedWeight]
 
 MODES = ("dense", "weight", "dual")
 CONDENSE = (None, "k")
+
+# keys already warned about: a configuration mismatch (a tuning-cache
+# miss, a damaged cache) must be audible, but once per process, not once
+# per matmul
+_WARNED: set = set()
+_SUPPRESS_WARNINGS = False
+
+
+def warn_once(key: str, message: str) -> None:
+    """Emit ``message`` as a RuntimeWarning the first time ``key``
+    fires."""
+    if key not in _WARNED and not _SUPPRESS_WARNINGS:
+        _WARNED.add(key)
+        warnings.warn(message, RuntimeWarning, stacklevel=3)
+
+
+@contextlib.contextmanager
+def warnings_suppressed():
+    """Silence :func:`warn_once` within a region: passes whose purpose is
+    to hit the fallbacks (``Engine.autotune_keys`` discovering keys on an
+    empty cache, where every miss is expected).  Suppressed keys are not
+    marked warned, so a real later miss stays audible."""
+    global _SUPPRESS_WARNINGS
+    prev = _SUPPRESS_WARNINGS
+    _SUPPRESS_WARNINGS = True
+    try:
+        yield
+    finally:
+        _SUPPRESS_WARNINGS = prev
+
+
+def kwargs_from_config(cfg, out_dtype=None) -> dict:
+    """Dispatch kwargs from a ``ModelConfig``'s sparse_* fields: the
+    config-constant tier, for direct dispatch users (tests, sweeps); the
+    model's call sites resolve through
+    :func:`repro_torch.sparse.site.resolve`.  With ``cfg.sparse_autotune``
+    the kwargs also carry the per-call cache consultation
+    (``autotune=True`` and the sparsity hint), the constants staying as
+    the fallback."""
+    kw = dict(mode=cfg.sparse_mode, block_m=cfg.sparse_block_m,
+              block_n=cfg.sparse_block_n, slice_k=cfg.sparse_slice_k,
+              use_kernel=cfg.sparse_use_kernel,
+              condense="k" if cfg.sparse_kcondense else None)
+    if out_dtype is not None:
+        kw["out_dtype"] = out_dtype
+    if getattr(cfg, "sparse_autotune", False):
+        kw["autotune"] = True
+        ts = getattr(cfg, "sparse_tune_sparsity", -1.0)
+        if ts is not None and ts >= 0:
+            kw["tune_sparsity"] = float(ts)
+    return kw
+
+
+def _consult_autotune(op: str, m: int, n: int, k: int, dtype,
+                      tune_sparsity, interp: bool, extra: str = ""):
+    """Probe the tuning cache for one call site: the served
+    :class:`~repro_torch.sparse.autotune.Knobs` or None.  A miss is
+    audible once per bucketed key and falls back to the caller's
+    constants — the cache changes the schedule only, never the math."""
+    from repro_torch.sparse import autotune as atn
+    kn = atn.lookup(op, m, n, k, dtype=dtype, sparsity=tune_sparsity,
+                    interpret=interp, extra=extra)
+    if kn is None:
+        key = atn.make_key(op, m, n, k, dtype=dtype,
+                           sparsity=tune_sparsity,
+                           platform=atn.platform_of(interp), extra=extra)
+        warn_once(
+            f"autotune:miss:{key}",
+            f"sparse.{op}: no tuning-cache entry for {key} — falling "
+            "back to the config constants (sweep it with "
+            "repro_torch.sparse.autotune.tune_matmul / tune_attn)")
+    return kn
+
+
+def _cpu_rules(device) -> bool:
+    """Whether operands on ``device`` take the tuner's CPU rules (the
+    plain walks) rather than the card's."""
+    return torch.device(device).type == "cpu"
+
+
+def _tuned(kw: dict, kn) -> dict:
+    """``kw`` with a served knob vector's geometry and backend."""
+    if kn is None:
+        return kw
+    return dict(kw, **kn.kwargs())
 
 
 def _values(x: Operand) -> torch.Tensor:
@@ -215,6 +310,9 @@ def matmul(
     out_dtype: Optional[torch.dtype] = None,
     collect_stats: bool = False,
     name: str = "matmul",
+    autotune: bool = False,
+    tune_sparsity: Optional[float] = None,
+    op: str = "matmul",
 ) -> Tuple[torch.Tensor, Optional[stats.StepCounts]]:
     """y = x @ w with mode-selectable dual-side sparse scheduling.
 
@@ -222,8 +320,12 @@ def matmul(
     PlannedWeight.  Returns (y (..., N), StepCounts or None); stats are
     computed when ``collect_stats`` or a tape is active.  The kernels run
     on the operands' device: their plain versions on the CPU, K1/K2 on
-    the card.
+    the card.  ``autotune`` consults the tuning cache for this call's
+    key in namespace ``op`` (``"conv"`` for a conv's lowered GEMM),
+    bucketed under the sparsity hint ``tune_sparsity``.
     """
+    if validate.enabled():
+        validate.check_operands(x, w)
     w_arr = _weight_array(w)
     if w_arr.ndim != 2:
         raise ValueError(f"matmul expects 2-D weights, got "
@@ -232,10 +334,14 @@ def matmul(
     lead = xv.shape[:-1]
     x2 = (x.flatten_leading() if isinstance(x, SparseActivation)
           else xv.reshape(-1, xv.shape[-1]))
-    y, steps = _dispatch(x2, w, mode=mode, block_m=block_m, block_n=block_n,
-                         slice_k=slice_k, use_kernel=use_kernel,
-                         condense=condense, out_dtype=out_dtype,
-                         collect_stats=collect_stats, name=name)
+    kw = dict(block_m=block_m, block_n=block_n, slice_k=slice_k,
+              use_kernel=use_kernel, condense=condense)
+    if autotune and mode != "dense":
+        kw = _tuned(kw, _consult_autotune(
+            op, lead.numel(), w_arr.shape[1], xv.shape[-1], xv.dtype,
+            tune_sparsity, _cpu_rules(xv.device)))
+    y, steps = _dispatch(x2, w, mode=mode, out_dtype=out_dtype,
+                         collect_stats=collect_stats, name=name, **kw)
     return y.reshape(*lead, y.shape[-1]), steps
 
 
@@ -252,6 +358,8 @@ def grouped_matmul(
     out_dtype: Optional[torch.dtype] = None,
     collect_stats: bool = False,
     name: str = "grouped_matmul",
+    autotune: bool = False,
+    tune_sparsity: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Optional[stats.StepCounts]]:
     """Stacked-weights matmul: x (E, C, K) @ w (E, K, N) → (E, C, N).
 
@@ -263,16 +371,26 @@ def grouped_matmul(
     ``torch.matmul`` with the same schedule accounting, whose summed
     StepCounts the tape records as one entry.  ``out_dtype`` sets the
     accumulation and output type (f32 for the attention sites).
+    ``autotune``/``tune_sparsity`` as in :func:`matmul`, the key carrying
+    the problem-count bucket.
     """
+    if validate.enabled():
+        validate.check_operands(x, w)
     xv = _values(x)
     w_arr = _weight_array(w)
     if xv.ndim != 3 or w_arr.ndim != 3:
         raise ValueError(f"grouped_matmul expects (E,C,K)×(E,K,N), got "
                          f"{tuple(xv.shape)} × {tuple(w_arr.shape)}")
-    return _dispatch(x, w, mode=mode, block_m=block_m, block_n=block_n,
-                     slice_k=slice_k, use_kernel=use_kernel,
-                     condense=condense, out_dtype=out_dtype,
-                     collect_stats=collect_stats, name=name)
+    kw = dict(block_m=block_m, block_n=block_n, slice_k=slice_k,
+              use_kernel=use_kernel, condense=condense)
+    if autotune and mode != "dense":
+        from repro_torch.sparse import autotune as atn
+        e, c, k = xv.shape
+        kw = _tuned(kw, _consult_autotune(
+            "grouped", c, w_arr.shape[-1], k, xv.dtype, tune_sparsity,
+            _cpu_rules(xv.device), extra=f"e{atn.bucket_dim(e)}"))
+    return _dispatch(x, w, mode=mode, out_dtype=out_dtype,
+                     collect_stats=collect_stats, name=name, **kw)
 
 
 # every knob project may forward to matmul: a typo'd knob must raise
@@ -286,6 +404,7 @@ def project(
     *,
     n_contract: int = 1,
     plan_act: Optional[torch.Tensor] = None,
+    plan_slice_k: Optional[int] = None,
     **kwargs,
 ) -> Tuple[torch.Tensor, Optional[stats.StepCounts]]:
     """Tensor projection through :func:`matmul`.
@@ -294,7 +413,9 @@ def project(
     ``n_contract`` axes of ``w`` and keeps the remaining weight axes —
     ``bsd,dhk->bshk`` (n_contract=1) and ``bshk,hkd->bsd`` (n_contract=2).
     ``plan_act`` is an optional cached (S, prod(out dims)) weight-side
-    slice activity over the flattened contraction axis.
+    slice activity over the flattened contraction axis, built at
+    ``plan_slice_k`` (default: the call's ``slice_k``); a call at another
+    slice_k (a tuned one) re-reduces the weight instead of reading it.
     """
     unknown = set(kwargs) - _MATMUL_KNOBS
     if unknown:
@@ -322,6 +443,7 @@ def project(
             w_in = PlannedWeight(
                 w=w_in, slice_act=plan_act,
                 slice_k=pln.effective_slice_k(
-                    kflat, kwargs.get("slice_k", pln.SLICE_K)))
+                    kflat, plan_slice_k or kwargs.get("slice_k",
+                                                      pln.SLICE_K)))
     y, steps = matmul(x_in, w_in, **kwargs)
     return y.reshape(*y.shape[:-1], *out_dims), steps

@@ -341,3 +341,104 @@ def clamp_geometry(m: int, n: int, k: int, block_m: int, block_n: int,
     block_m = min(block_m, max(MIN_BLOCK, m))
     block_n = min(block_n, max(MIN_BLOCK, n))
     return block_m, block_n, effective_slice_k(k, slice_k)
+
+
+# ---------------------------------------------------------------------------
+# knob validity (the autotuner's contract)
+# ---------------------------------------------------------------------------
+
+SUBLANE = 8     # row unit of block_m and slice_k
+LANE = 128      # block_n unit on the card: the kernels' 128-column CUDA
+                # blocks (kernels/bitmap_spgemm.py MMA_COLS)
+CPU_LANE = 8    # block_n unit on the CPU, where the plain walks run
+F32_BYTES = 4   # accumulator dtype
+# The CPU's panel budget: the JAX package's VMEM rule, kept for the plain
+# walks so that a CPU tuning cache admits what the JAX package's CPU
+# (interpret-mode) cache admits, key for key.
+VMEM_BYTES = 16 * 2 ** 20
+
+
+def _round_up(x: int, unit: int) -> int:
+    return _cdiv(max(x, 1), unit) * unit
+
+
+def kfused_panel_bytes(block_m: int, block_n: int, k: int, slice_k: int,
+                       dtype_bytes: int = 4) -> int:
+    """The CPU rule's footprint of K2/K4 for one output block: full-K
+    (block_m, Kp) and (Kp, block_n) operand panels plus the float32
+    accumulator, Kp = ceil(K / slice_k) · slice_k (the JAX package's TPU
+    kernels keep these panels resident).  On the card K2/K4 stage no
+    panel: they share K1/K3's ring
+    (``kernels/bitmap_spgemm.stage_bytes``), whatever K."""
+    kp = _cdiv(max(k, 1), slice_k) * slice_k
+    return ((block_m * kp + kp * block_n) * dtype_bytes
+            + block_m * block_n * F32_BYTES)
+
+
+def slice_panel_bytes(block_m: int, block_n: int, slice_k: int,
+                      dtype_bytes: int = 4) -> int:
+    """The CPU rule's footprint of K1/K3 for one step: a (block_m,
+    slice_k) A block, a (slice_k, block_n) B block and the float32
+    accumulator (the JAX package's TPU rule)."""
+    return ((block_m * slice_k + slice_k * block_n) * dtype_bytes
+            + block_m * block_n * F32_BYTES)
+
+
+def knobs_valid(m: int, n: int, k: int, block_m: int, block_n: int,
+                slice_k: int, *, use_kernel: bool = False,
+                condense: Optional[str] = None, interpret: bool = False,
+                dtype_bytes: int = 4, grouped: bool = False) -> bool:
+    """Is a (block_m, block_n, slice_k) knob vector valid for an (m, n, k)
+    problem?
+
+    The predicate every served or swept knob vector passes (a stale cache
+    entry must fall back to the config constants, never reach a kernel
+    it cannot launch).  ``interpret`` says where the product runs: True
+    for CPU tensors (the plain walks), False on the card.
+
+    * tile divisibility — block_m and slice_k multiples of 8; block_n a
+      multiple of the lane unit, 128 on the card (the kernels' column
+      blocks), 8 on the CPU;
+    * no over-tiling — each knob at most its dimension rounded up to its
+      unit (``clamp_geometry`` would shrink a larger one, so the served
+      vector would not be the one that was timed);
+    * slice_k <= K rounded up to 8;
+    * for the kernel backends, what a block stages fits: on the card the
+      shared memory of every route the product may take
+      (``kernels/bitmap_spgemm.stage_bytes`` and ``width_routes``,
+      ``grouped`` for K3/K4) within the card's budget, and a width some
+      route takes; on the CPU the JAX package's panel rule
+      (:func:`kfused_panel_bytes` / :func:`slice_panel_bytes` within
+      :data:`VMEM_BYTES`), so CPU keys admit what the JAX package's CPU
+      keys admit.
+
+    On an H100 (232448 B a block may opt into) no route's staging reaches
+    the budget: the largest, the tensor-core ring at 128 rows, is 144384
+    B.  There the card's rule reduces to the unit rules and a route for
+    the width; the budget binds only on a card with less shared memory
+    per block.
+    """
+    if min(m, n, k, block_m, block_n, slice_k) <= 0:
+        return False
+    lane = CPU_LANE if interpret else LANE
+    if block_m % SUBLANE or block_n % lane or slice_k % SUBLANE:
+        return False
+    if block_m > _round_up(m, SUBLANE) or block_n > _round_up(n, lane):
+        return False
+    if slice_k > _round_up(k, SUBLANE):
+        return False
+    if not use_kernel:
+        return True
+    if interpret:
+        if condense == "k":
+            panel = kfused_panel_bytes(block_m, block_n, k, slice_k,
+                                       dtype_bytes)
+        else:
+            panel = slice_panel_bytes(block_m, block_n, slice_k,
+                                      dtype_bytes)
+        return panel <= VMEM_BYTES
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    routes = bsk.width_routes(dtype_bytes, n, k, grouped)
+    budget = bsk.smem_budget()
+    return bool(routes) and all(bsk.stage_bytes(r, block_m, k) <= budget
+                                for r in routes)

@@ -1,7 +1,8 @@
 """K1-K7, the sparse-KV decode, the whisper path, block pruning, the
-MoE expert products, a full-width Mamba block, a tied head and the VLM's
-vision frontend on the card against their plain versions and the CPU (needs an NVIDIA GPU with nvcc;
-skipped elsewhere).  Run there with
+MoE expert products, a full-width Mamba block, a tied head, the VLM's
+vision frontend and every knob vector the tuner admits on the card
+against their plain versions and the CPU, and the tuner's card timer
+(needs an NVIDIA GPU with nvcc; skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -879,3 +880,128 @@ def test_vision_frontend_matches_cpu(cuda):
     assert got.shape == (2, 1601, 8192)
     err = (got.cpu() - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# the tuner on the card: every knob vector knobs_valid admits launches
+# ---------------------------------------------------------------------------
+
+def _admitted(m, n, k, dtype_bytes, grouped):
+    """The card's lattice of the tuner (backend x block_m x block_n x
+    slice_k) as ``knobs_valid`` admits it for the kernel backends."""
+    from repro_torch.sparse import autotune as atn
+    bms, bns, sks = atn.lattice(m, n, k)
+    out = []
+    for backend in ("kernel", "kfused"):
+        for bm in bms:
+            for bn in bns:
+                for sk in sks:
+                    kn = atn.Knobs(backend, bm, bn, sk)
+                    if kn.valid_for(m, n, k, dtype_bytes=dtype_bytes,
+                                    grouped=grouped):
+                        out.append(kn)
+    return out
+
+
+@pytest.mark.parametrize("mnk", [(64, 2048, 2048), (2, 2048, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_admitted_knobs_launch_and_match_plain(cuda, mnk, dtype):
+    """K1/K2 and K3/K4 (E = 4) at every admitted vector of the tuner's
+    lattice — block_m 8..64 (the clamp at M), block_n 128..512, slice_k
+    32..256 — launch and agree with their plain walks."""
+    m, n, k = mnk
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(4, m, k, device=cuda, generator=g).clamp(min=0).square()
+    a[:, :, : k // 4] = 0                        # skipped slices
+    b = torch.randn(4, k, n, device=cuda, generator=g)
+    b[torch.rand(4, k, n, device=cuda, generator=g) < 0.5] = 0
+    b[:, :, :128] = 0                            # counts == 0 tiles
+    a, b = a.to(dtype), b.to(dtype)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2
+    db = 4 if dtype == torch.float32 else 2
+    tried = 0
+    for grouped in (False, True):
+        kns = _admitted(m, n, k, db, grouped)
+        assert {kn.block_n for kn in kns} == {128, 256, 512}
+        assert {kn.slice_k for kn in kns} == {32, 64, 128, 256}
+        for kn in kns:
+            aa, bb = (a, b) if grouped else (a[:1], b[:1])
+            bm, bn, sk = pln.clamp_geometry(m, n, k, kn.block_m, kn.block_n,
+                                            kn.slice_k)
+            geom = dict(block_m=bm, block_n=bn, slice_k=sk)
+            if kn.backend == "kernel":
+                ks, counts = pln.plan_from_activity(
+                    pln.block_reduce_lhs(pln.slice_activity_lhs(aa, sk), bm),
+                    pln.block_reduce_rhs(pln.slice_activity_rhs(bb, sk), bn))
+            else:
+                kp = pln.plan_kcondensed(pln.element_activity_lhs(aa, bm),
+                                         pln.element_activity_rhs(bb, bn),
+                                         sk)
+                ks, counts = kp.gk, kp.counts
+            if grouped:
+                kern = (gsk.grouped_spgemm_planned if kn.backend == "kernel"
+                        else gsk.grouped_spgemm_kfused_planned)
+                y = kern(aa, bb, ks, counts, **geom)
+            else:
+                kern = (bsk.bitmap_spgemm_planned if kn.backend == "kernel"
+                        else bsk.bitmap_spgemm_kfused_planned)
+                y = kern(aa[0], bb[0], ks[0], counts[0], **geom)[None]
+            walk = (bsk.walk_slices if kn.backend == "kernel"
+                    else bsk.walk_gathers)
+            p = walk(aa, bb, ks, counts, **geom)
+            torch.cuda.synchronize()
+            scale = p.float().abs().max().item()
+            err = (y.float() - p.float()).abs().max().item()
+            assert err <= rtol * scale, (kn, grouped, err, scale)
+            tried += 1
+    assert tried >= (96 if m > 8 else 24)
+
+
+def test_card_timer_spans_host_time(cuda, monkeypatch):
+    """The tuner's card timer times the whole dispatch call: a planner
+    stubbed to sleep 5 ms shows up in it."""
+    import time as _time
+    from repro_torch.sparse import autotune as atn
+    from repro_torch.sparse import dispatch as dsp
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(64, 1024, device=cuda, generator=g).clamp(
+        min=0).bfloat16()
+    w = torch.randn(1024, 1024, device=cuda, generator=g).bfloat16()
+
+    def call():
+        dsp.matmul(x, w, mode="dual", use_kernel=True, block_m=64,
+                   block_n=128, slice_k=128)
+    base = atn.card_timer(call, warmup=1, repeat=5)
+    orig = dsp.schedule
+
+    def slow(*a, **kw):
+        _time.sleep(0.005)
+        return orig(*a, **kw)
+    monkeypatch.setattr(dsp, "schedule", slow)
+    slowed = atn.card_timer(call, warmup=1, repeat=5)
+    assert slowed - base >= 4500, (base, slowed)
+
+
+def test_kernel_error_propagates_from_site(cuda):
+    """On the card a kernel's own error leaves ``site.matmul`` and
+    quarantines nothing: K1 writes float32 or bfloat16, so a site pinned
+    to a float16 output makes its wrapper raise."""
+    from repro_torch.sparse import site
+    cfg = dataclasses.replace(smoke_config("nemotron-4-340b"),
+                              sparse_mode="dual", sparse_use_kernel=True)
+    st = site.make("matmul", "card.float16_out", out_dtype="float16")
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(8, 256, device=cuda, generator=g).clamp(min=0).bfloat16()
+    w = torch.randn(256, 256, device=cuda, generator=g).bfloat16()
+    n1 = bsk.bitmap_spgemm_planned.launches
+    with pytest.raises(TypeError, match="kernel writes float32 or bfloat16"):
+        site.matmul(x, w, st, cfg)
+    assert bsk.bitmap_spgemm_planned.launches == n1
+    assert site.quarantine_report() == {}
+
+
+def test_quarantine_report_empty_after_module(cuda):
+    """No site of any test above degraded to its plain arm: on the card a
+    quarantine is a kernel failure."""
+    from repro_torch.sparse import site
+    assert site.quarantine_report() == {}
