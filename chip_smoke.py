@@ -264,6 +264,37 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    (no ``ValidationError``), then a broken ``PlannedWeight`` and a broken
    block table each raising.  Every earlier phase must end with no site
    quarantined.
+19. training on one device, traffic J — (a) one float32 train step (2
+   microbatches, adamw, remat full, TF32 off) of the smoke model of every
+   family the port serves (chatglm3-6b, nemotron-4-340b, qwen1.5-110b,
+   yi-34b, mixtral-8x7b, qwen3-moe-235b-a22b, mamba2-370m,
+   jamba-1.5-large-398b, whisper-base, llama-3.2-vision-90b) on the card
+   against the same step on the CPU: gradients within 1e-4 x max|g|, a
+   finite loss, grad_norm > 0, no kernel launched.  (b) Traffic J:
+   full-width ``chatglm3-6b`` cut to 4 of its 28 layers (1.35 B float32
+   masters, random from a seed) under its ``train_4k`` run config (8
+   microbatches, adamw, a float32 accumulator, bf16 compute copies, remat
+   full), 8 sequences of 4096 tokens of ``SyntheticTokens`` a step: one
+   warm-up and 5 timed steps (the median, tokens/s, 6 N D over the median
+   as a share of 989 TFLOP/s, peak memory), then one step each under remat
+   none and dots; every loss finite; ``make_eval_step`` on the last batch
+   at the parameters the last step started from equal to that step's loss
+   within 1e-2.  (c) The trained masters cast to bf16 and served, 2
+   prompts of 32 tokens of an unseen batch, 4 new: dense, dual (K1) and
+   dual+kc (K2) through ``generate`` and on cached plans, each with exact
+   launches and the same tokens both ways; sparse prefill logits within
+   ``SERVE_RTOL`` x max|dense|, tokens parting only at top-2 ties; every
+   K1 and K2 launch of a cached-plan generate held to its plain walk and
+   replayed for device time.  (d) tests/test_system.py's crash-restart on
+   chatglm3-6b-smoke (2 microbatches, lr 1e-3, warmup 2, 8 x 16 tokens, 6
+   steps, a checkpoint a step through ``CheckpointManager``, a crash
+   before step 3) in a child process with deterministic CUDA: the resumed
+   run's losses within 1e-5 and its parameters within 1e-6 of the
+   uninterrupted run's, and whether they are bitwise equal.  (e) ``python
+   -m repro_torch.launch.train --arch chatglm3-6b --smoke --steps 20
+   --ckpt-every 10`` twice: the second run resumes at step 20 and trains
+   nothing; a train step in dual mode with the kernel raises
+   ``NotImplementedError``, launching nothing.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -5931,6 +5962,427 @@ def phase_tuning(torch, smi):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training on one device, traffic J
+# ---------------------------------------------------------------------------
+
+# every family the port serves: one float32 train step of its smoke model
+# on the card against the CPU
+TRAIN_ARCHS = ("chatglm3-6b", "nemotron-4-340b", "qwen1.5-110b", "yi-34b",
+               "mixtral-8x7b", "qwen3-moe-235b-a22b", "mamba2-370m",
+               "jamba-1.5-large-398b", "whisper-base", "llama-3.2-vision-90b")
+# traffic J, a pretraining step: full-width chatglm3-6b cut to J_LAYERS of
+# its 28 layers (the whole model's float32 masters, two Adam moments and
+# the accumulator, 16 bytes a parameter, would not fit 80 GB) under its
+# train_4k run config (8 microbatches, adamw, a float32 accumulator, bf16
+# compute copies, remat "full"), J_BATCH sequences of J_SEQ tokens (the
+# run config's global batch of 256 cut to one sequence a microbatch); one
+# warm-up step, then J_STEPS timed ones
+J_ARCH = "chatglm3-6b"
+J_LAYERS, J_BATCH, J_SEQ, J_STEPS = 4, 8, 4096, 5
+# the trained model served: J_PROMPTS prompts of J_PROMPT_LEN tokens from
+# a batch of the training stream it never trained on, J_NEW new tokens
+J_PROMPTS, J_PROMPT_LEN, J_NEW, J_SERVE_STEP = 2, 32, 4, 1000
+# the crash-restart run: tests/test_system.py's setup on the card
+R_STEPS, R_CRASH = 6, 3
+
+
+def train_smoke(torch):
+    """Phase 19 (a): one float32 train step of every family's smoke model
+    on the card against the CPU (random qkv biases and VLM gates)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import model_zoo
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    rc = RunConfig(microbatches=2, learning_rate=1e-3, warmup_steps=2,
+                   act_dtype="float32")
+    counters = kernel_counters()
+    reset_launches(counters)
+    rows = []
+    for arch in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        cfg = smoke_config(arch)
+        cpu = model_zoo.build_model(cfg, 0, device="cpu")
+        seed_biases(torch, cpu, torch.Generator().manual_seed(4))
+        seed_gates(torch, cpu, torch.Generator().manual_seed(5))
+        gpu = copy.deepcopy(cpu).to("cuda")
+        batch = {k: torch.from_numpy(v) for k, v in SyntheticTokens(
+            cfg.vocab_size, 4, 16, seed=0).batch_at(0).items()}
+        batch.update(model_zoo.frontend_inputs(cfg, 4, dtype=torch.float32,
+                                               device="cpu"))
+        gbatch = {k: v.cuda() for k, v in batch.items()}
+        grad_fn = tl.make_grad_fn(cfg, rc)
+        g_cpu, _ = grad_fn(cpu.requires_grad_(True), batch)
+        g_gpu, _ = grad_fn(gpu.requires_grad_(True), gbatch)
+        gmax = max(g.abs().max().item() for g in g_cpu.values())
+        err = max((g_gpu[n].cpu() - g).abs().max().item()
+                  for n, g in g_cpu.items())
+        if not err <= 1e-4 * gmax:
+            raise AssertionError(f"training: {arch}-smoke gradients on the "
+                                 f"card vs the CPU: {err} > 1e-4 x {gmax}")
+        step = tl.make_train_step(cfg, rc)
+        m_cpu = step(cpu, opt.init_opt_state(dict(cpu.named_parameters()),
+                                             rc), None, batch)[3]
+        m_gpu = step(gpu, opt.init_opt_state(dict(gpu.named_parameters()),
+                                             rc), None, gbatch)[3]
+        loss, gn = m_gpu["loss"].item(), m_gpu["grad_norm"].item()
+        if not (torch.isfinite(m_gpu["loss"]).item() and gn > 0):
+            raise AssertionError(f"training: {arch}-smoke step loss {loss}, "
+                                 f"grad_norm {gn}")
+        rows.append(f"{arch} loss {loss:.4f} (CPU {m_cpu['loss'].item():.4f}"
+                    f"), grad_norm {gn:.4f} (CPU "
+                    f"{m_cpu['grad_norm'].item():.4f}), max |grad diff| "
+                    f"{err / gmax:.1e} x max|g| in "
+                    f"{time.perf_counter() - t0:.1f} s")
+    check_launches("training, smoke steps", counters, {})
+    log(f"training (a): one float32 train step (2 microbatches of 2 x 16 "
+        f"tokens, adamw, remat full, TF32 off) of each family's smoke model "
+        f"on the card == the CPU's, gradients within 1e-4 x max|g|, no "
+        f"kernel launched: " + "; ".join(rows))
+
+
+def train_traffic_j(torch, smi):
+    """Phase 19 (b) and (c): traffic J's steps under the three remat
+    modes, the eval step, then the trained weights served in bf16 through
+    ``generate`` and the cached-plan loop (K1, K2).  Returns {K-name:
+    numbers} of the held cached-plan runs."""
+    from repro_torch.configs import get_config, get_run_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import roofline
+    from repro_torch.models import model_zoo
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(J_ARCH), n_layers=J_LAYERS)
+    rc = get_run_config(J_ARCH, "train_4k")
+    if (rc.microbatches, rc.optimizer, rc.accum_dtype, rc.act_dtype,
+            rc.remat) != (8, "adamw", "float32", "bfloat16", "full"):
+        raise AssertionError(f"{J_ARCH} train_4k run config {rc}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = model_zoo.build_model(cfg, 0)
+    ostate = opt.init_opt_state(dict(model.named_parameters()), rc)
+    torch.cuda.synchronize()
+    n_params = tfm.count_params(model)
+    log(f"traffic J: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, d_ff "
+        f"{cfg.d_ff} {cfg.mlp_type}, vocab {cfg.vocab_size}, qkv bias, "
+        f"rope {cfg.rope_style}), {J_LAYERS} of 28 layers: "
+        f"{n_params / 1e9:.3f} B parameters, float32 masters and moments "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = SyntheticTokens(cfg.vocab_size, J_BATCH, J_SEQ, seed=0)
+    tokens = J_BATCH * J_SEQ
+    flops = roofline.model_flops(tfm.active_params(cfg, model), tokens,
+                                 "train")
+    # the input embedding is a gather and does no matmul work; a tied head
+    # does
+    embed = 0 if cfg.tie_embeddings else model.embed.numel()
+    flops_mm = roofline.model_flops(tfm.active_params(cfg, model) - embed,
+                                    tokens, "train")
+    counters = kernel_counters()
+    reset_launches(counters)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in data.batch_at(i).items()}
+
+    def timed(step, i):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _, _, _, m = step(model, ostate, None, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        m = {k: v.item() for k, v in m.items()}
+        if not (m["loss"] == m["loss"] and abs(m["loss"]) < float("inf")):
+            raise AssertionError(f"traffic J step {i}: loss {m['loss']}")
+        return m, dt, torch.cuda.max_memory_allocated() / 1e9
+
+    step = tl.make_train_step(cfg, rc)
+    runs = [timed(step, 0)]
+    for i in range(1, J_STEPS + 1):
+        if i == J_STEPS:
+            # the eval step on the last batch, at the parameters the last
+            # step starts from, outside its timing and peak memory
+            eval_loss = tl.make_eval_step(cfg, rc)(model,
+                                                   batch_at(i))["loss"]
+            eval_loss = eval_loss.item()
+        runs.append(timed(step, i))
+    times = [dt for _, dt, _ in runs[1:]]
+    med = statistics.median(times)
+    peak = max(p for _, _, p in runs[1:])
+    last = runs[-1][0]["loss"]
+    if not abs(eval_loss - last) <= 1e-4 * abs(last):
+        raise AssertionError(f"traffic J: eval loss {eval_loss} != the last "
+                             f"step's {last}")
+    share = flops / med / roofline.PEAK_FLOPS
+    log(f"traffic J: remat full, {J_BATCH} x {J_SEQ} tokens a step in "
+        f"{rc.microbatches} microbatches: step median {med * 1e3:.1f} ms "
+        f"over {J_STEPS} (" + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f"; warm-up {runs[0][1] * 1e3:.0f} ms), {tokens / med:.0f} "
+        f"tokens/s, 6 N D = {flops / 1e12:.1f} TFLOP a step, "
+        f"{flops / med / 1e12:.1f} TFLOP/s = {share:.1%} of 989 TFLOP/s "
+        f"(N {tfm.active_params(cfg, model) / 1e9:.3f} B counts the input "
+        f"embedding; without its {embed / 1e9:.3f} B, "
+        f"{flops_mm / 1e12:.1f} TFLOP a step, "
+        f"{flops_mm / med / roofline.PEAK_FLOPS:.1%}); peak memory {peak:.1f} GB; losses "
+        + ", ".join(f"{m['loss']:.4f}" for m, _, _ in runs)
+        + f", grad_norm {runs[-1][0]['grad_norm']:.3f}, lr "
+        f"{runs[-1][0]['lr']:.3g}; eval step on the last batch {eval_loss:.4f}"
+        f" (the step's {last:.4f}, |diff| {abs(eval_loss - last):.2e}); "
+        f"{smi}")
+    j = dict(step_ms=med * 1e3, tokens_per_s=tokens / med, peak_share=share,
+             peak_share_no_embed=flops_mm / med / roofline.PEAK_FLOPS,
+             peak_gb=peak, flops=flops)
+    for remat in ("none", "dots"):
+        m, dt, p = timed(tl.make_train_step(
+            cfg, dataclasses.replace(rc, remat=remat)), J_STEPS + 1)
+        j[remat] = dict(step_ms=dt * 1e3, peak_gb=p)
+        log(f"traffic J: remat {remat}, one step {dt * 1e3:.1f} ms "
+            f"({tokens / dt:.0f} tokens/s, {flops / dt / 1e12:.1f} TFLOP/s)"
+            f", peak memory {p:.1f} GB, loss {m['loss']:.4f}; {smi}")
+    check_launches("traffic J training", counters, {})
+
+    # (c) the trained masters cast to bf16 and served
+    del ostate
+    model.requires_grad_(False).to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    prompts = batch_at(J_SERVE_STEP)["tokens"][:J_PROMPTS, :J_PROMPT_LEN]
+    batch = {"tokens": prompts}
+    per_forward = stack_launches(cfg)[0]
+    expect = {"dense": {}, "dual": {"K1": per_forward * J_NEW},
+              "dual+kc": {"K2": per_forward * J_NEW}}
+    served, plans = {}, {}
+    for mode, knobs in MODES.items():
+        c = dataclasses.replace(cfg, **knobs)
+        plans[mode] = tfm.plan_weight_activities(model, c)
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        toks = serve_loop.generate(model, batch, c, max_new_tokens=J_NEW)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = check_launches(f"traffic J {mode} generate", counters,
+                             expect[mode])
+        reset_launches(counters)
+        r = served[mode] = serve_with_plans(torch, model, c, batch, J_NEW,
+                                            plans[mode])
+        check_launches(f"traffic J {mode} cached plans", counters,
+                       expect[mode])
+        if not torch.equal(toks.cpu(), r["tokens"]):
+            raise AssertionError(f"traffic J {mode}: generate's tokens != "
+                                 "the cached-plan run's")
+        line = (f"traffic J: the trained weights in bf16, {mode} through "
+                f"generate ({wall:.0f} ms, launches {got}) and on cached "
+                "plans, the same tokens")
+        if mode != "dense":
+            dense = served["dense"]
+            tol = SERVE_RTOL * dense["prefill"].abs().max().item()
+            err = (r["prefill"] - dense["prefill"]).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"traffic J {mode}: prefill logits "
+                                     f"differ from dense by {err} > {tol}")
+            line += (f"; prefill logits within {err:.4f} of dense (<= "
+                     f"{tol:.4f}); " + "; ".join(parting_report(
+                         torch, f"traffic J {mode}", r["tokens"],
+                         dense["tokens"], dense["steps"], tol)))
+        log(line)
+    numbers = {}
+    for mode, kn, src in (("dual", "K1", "bitmap_spgemm.cu"),
+                          ("dual+kc", "K2", "bitmap_spgemm_kfused.cu")):
+        c = dataclasses.replace(cfg, **MODES[mode])
+        got = held_generate(torch, f"traffic J {mode}", model, c, batch,
+                            plans[mode], None, None, J_NEW, ((kn, src),))
+        t = numbers[kn] = got[kn]
+        if t["launches"] != expect[mode][kn]:
+            raise AssertionError(f"traffic J: {t['launches']} {kn} launches "
+                                 f"held, {expect[mode][kn]} counted")
+        kernel_numbers_line(f"traffic J: {mode}", kn, t, smi)
+    del model, plans, served
+    torch.cuda.empty_cache()
+    log(f"traffic J: phase {time.perf_counter() - t_phase:.0f} s")
+    return numbers, j
+
+
+def train_restart_child(workdir):
+    """The crash-restart run of phase 19 (d), in a process of its own whose
+    CUDA is deterministic (``torch.use_deterministic_algorithms`` here,
+    ``CUBLAS_WORKSPACE_CONFIG`` from the parent, before cuBLAS first runs):
+    tests/test_system.py's chatglm3-6b-smoke setup with a checkpoint after
+    every step, uninterrupted and crashed before step ``R_CRASH`` then
+    resumed.  Prints one JSON line."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import model_zoo
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.fault_tolerance import CheckpointManager
+    from repro_torch.training.train_loop import (load_state,
+                                                 make_train_step, state_tree)
+    cfg = smoke_config("chatglm3-6b")
+    rc = RunConfig(microbatches=2, learning_rate=1e-3, warmup_steps=2)
+
+    def run(name, crash_at=None):
+        model = model_zoo.build_model(cfg, 0)
+        ostate = opt.init_opt_state(dict(model.named_parameters()), rc)
+        step = make_train_step(cfg, rc)
+        data = SyntheticTokens(cfg.vocab_size, 8, 16, seed=0)
+        mgr = CheckpointManager(str(Path(workdir) / name), keep=2,
+                                async_save=False)
+        restored = mgr.restore_latest(state_tree(model, ostate))
+        start = 0
+        if restored is not None:
+            ostate, start = load_state(model, restored[0]), \
+                restored[1]["step"]
+        losses = {}
+        for i in range(start, R_STEPS):
+            if i == crash_at:
+                raise RuntimeError("injected node failure")
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in data.batch_at(i).items()}
+            model, ostate, _, m = step(model, ostate, None, batch)
+            losses[i] = m["loss"].item()
+            mgr.save(i + 1, state_tree(model, ostate))
+        mgr.wait()
+        return model, losses, start
+
+    ref, ref_losses, _ = run("ref")
+    try:
+        run("ft", crash_at=R_CRASH)
+        raise AssertionError("the injected crash did not happen")
+    except RuntimeError:
+        pass
+    ft, ft_losses, start = run("ft")
+    pairs = list(zip(ref.parameters(), ft.parameters()))
+    print(json.dumps(dict(
+        start=start, steps=sorted(ft_losses),
+        losses=[ref_losses[s] for s in sorted(ft_losses)],
+        loss_rel_err=max(abs(ft_losses[s] - ref_losses[s])
+                         / abs(ref_losses[s]) for s in ft_losses),
+        param_err=max((a - b).abs().max().item() for a, b in pairs),
+        bitwise=all(ft_losses[s] == ref_losses[s] for s in ft_losses)
+        and all(torch.equal(a, b) for a, b in pairs))), flush=True)
+    return 0
+
+
+def train_launcher_runs(ckpt_dir):
+    """Phase 19 (e): the training launcher twice on the smoke config; the
+    second run resumes at its last step and trains nothing.  Returns the
+    two runs' output lines."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "chatglm3-6b", "--smoke", "--steps", "20", "--ckpt-every", "10",
+           "--ckpt-dir", str(ckpt_dir)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    outs = []
+    for _ in range(2):
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                           env=env)
+        if r.returncode:
+            raise AssertionError(f"launcher failed:\n{r.stderr[-3000:]}")
+        outs.append(r.stdout.strip().splitlines())
+    first, second = outs
+    if not (first[0].startswith("step    0  loss")
+            and first[1].startswith("step   10  loss")
+            and first[-1] == "training complete"
+            and second == ["resumed from step 20", "training complete"]
+            and sorted(os.listdir(ckpt_dir)) == ["step_00000010",
+                                                 "step_00000020"]):
+        raise AssertionError(f"launcher: {first} / {second}")
+    return first, second
+
+
+def train_restart_and_launcher(torch):
+    """Phase 19 (d) and (e): the deterministic crash-restart in a child
+    process, the training launcher twice (the second run resumes at its
+    last step and trains nothing), and a train step through K1 refused."""
+    import os
+    import shutil
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model_zoo
+    from repro_torch.sparse import site
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    work = ROOT / "build" / "repro_torch" / "training"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    # the restart child runs beside the launcher's runs (its own process,
+    # its own deterministic CUDA context)
+    child = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-restart",
+         str(work / "restart")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    try:
+        launched = train_launcher_runs(work / "launch")
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    if child.returncode:
+        raise AssertionError(f"training restart: child failed:\n"
+                             f"{stderr[-3000:]}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    if not (res["start"] == R_CRASH and res["steps"] == list(
+            range(R_CRASH, R_STEPS)) and res["loss_rel_err"] <= 1e-5
+            and res["param_err"] <= 1e-6):
+        raise AssertionError(f"training restart: {res}")
+    log(f"training (d): chatglm3-6b-smoke, 2 microbatches of 4 x 16 tokens, "
+        f"lr 1e-3, warmup 2, a checkpoint a step, crashed before step "
+        f"{R_CRASH} and resumed there: losses of steps {res['steps']} "
+        + ", ".join(f"{x:.6f}" for x in res["losses"])
+        + f", relative difference {res['loss_rel_err']:.1e} (<= 1e-5), "
+        f"parameters within {res['param_err']:.1e} (<= 1e-6) of the "
+        f"uninterrupted run; bitwise equal: {res['bitwise']} (deterministic "
+        f"CUDA, CUBLAS_WORKSPACE_CONFIG=:4096:8)")
+    first, second = launched
+    log(f"training (e): python -m repro_torch.launch.train --arch "
+        f"chatglm3-6b --smoke --steps 20 --ckpt-every 10 on the card: "
+        f"{first[0].strip()} | {first[1].strip()} | {first[-1]}; run again: "
+        f"{' | '.join(second)}; (d) and (e) "
+        f"{time.perf_counter() - t0:.0f} s")
+
+    cfg = dataclasses.replace(smoke_config("nemotron-4-340b"), **MODES["dual"])
+    rc = RunConfig(act_dtype="float32")
+    model = model_zoo.build_model(cfg, 0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), device="cuda")
+    counters = kernel_counters()
+    reset_launches(counters)
+    try:
+        tl.make_train_step(cfg, rc)(
+            model, opt.init_opt_state(dict(model.named_parameters()), rc),
+            None, {"tokens": toks, "labels": toks})
+        raise AssertionError("a train step through K1 did not raise")
+    except NotImplementedError as e:
+        refused = str(e)
+    check_launches("training guard", counters, {})
+    no_quarantine("training guard")
+    log(f"training (e): a train step in dual mode with the kernel raises "
+        f"NotImplementedError ({refused}); no launch, no site quarantined")
+
+
+def phase_training(torch, smi):
+    """Phase 19 (see the module docstring).  Returns ({K-name: numbers} of
+    the trained model's held cached-plan runs, traffic J's numbers)."""
+    t_phase = time.perf_counter()
+    train_smoke(torch)
+    no_quarantine("training, smoke")
+    numbers, j = train_traffic_j(torch, smi)
+    no_quarantine("traffic J")
+    train_restart_and_launcher(torch)
+    log(f"training: phase {time.perf_counter() - t_phase:.0f} s")
+    return numbers, j
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5942,6 +6394,8 @@ def main() -> int:
               "root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--train-restart"]:
+        return train_restart_child(sys.argv[2])
     from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
@@ -6006,6 +6460,8 @@ def main() -> int:
     no_quarantine("the VLM, traffic I")
     torch.cuda.empty_cache()
     phase_tuning(torch, smi)
+    trained, _ = phase_training(torch, smi)
+    no_quarantine("training, traffic J")
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -6096,7 +6552,8 @@ def main() -> int:
         for group, nums in (("traffic_f", dense_gqa),
                             ("traffic_g", hybrid["traffic_g"]),
                             ("traffic_h", hybrid["traffic_h"]),
-                            ("traffic_i", vlm)):
+                            ("traffic_i", vlm),
+                            ("traffic_j", trained)):
             if kn in nums:
                 m = nums[kn]
                 rows[-1][group] = {
@@ -6134,7 +6591,11 @@ def main() -> int:
         f"{F_PROMPT_LEN} tokens and a 560 x 560 image each) in dual+kv (K1, "
         f"K3) and dual+kc+kv (K2, K4), and K5 and K7 over the generate's one "
         f"launch each (the patch conv), ms CUDA events, device_ms the "
-        f"profiler's, library_ms F.unfold (K7); total "
+        f"profiler's, library_ms F.unfold (K7); under \"traffic_j\", K1 "
+        f"and K2 over one cached-plan dual and dual+kc generate of {J_ARCH} "
+        f"({J_LAYERS} layers) on the weights phase 19 trained, cast to bf16 "
+        f"({J_PROMPTS} x {J_PROMPT_LEN} tokens, {J_NEW} new), replayed "
+        f"alike, library_ms torch.bmm over the product; total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -224,12 +224,20 @@ SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Execution knobs per (arch x shape).  Serving reads ``act_dtype``,
-    ``kv_quant`` and ``attn_chunk``; the training fields are kept so that
-    the run table is the JAX package's, and nothing reads them yet."""
+    """Execution knobs per (arch x shape): the JAX package's, less its XLA
+    and mesh knobs (``scan_unroll``, ``decode_2d``, ``seq_shard``,
+    ``latency_flags``).  Serving reads ``act_dtype``, ``kv_quant`` and
+    ``attn_chunk``; training (:mod:`repro_torch.training`) reads
+    ``microbatches``, ``act_dtype`` (bf16 compute copies of the float32
+    masters), ``accum_dtype``, ``remat``, ``optimizer`` and the schedule's
+    ``learning_rate``, ``weight_decay``, ``warmup_steps`` and
+    ``grad_clip``.  The masters are always float32, so the JAX package's
+    ``param_dtype`` (which only its dry-run cost model reads) has no
+    counterpart."""
     microbatches: int = 1          # gradient-accumulation steps
     act_dtype: str = "bfloat16"    # bfloat16 | float32
     accum_dtype: str = "float32"   # gradient-accumulator dtype
+    remat: str = "full"            # full | dots | none
     optimizer: str = "adamw"       # adamw | adamw_bf16 | adafactor
     kv_quant: bool = False         # int8 KV cache
     # run the repro_torch.sparse.validate invariant checks at dispatch
@@ -237,6 +245,10 @@ class RunConfig:
     # REPRO_VALIDATE=1, scoped to this run)
     validate: bool = False
     attn_chunk: int = 2048         # KV-chunked attention threshold/size
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    grad_clip: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

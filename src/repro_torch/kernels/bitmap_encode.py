@@ -83,7 +83,8 @@ def bitmap_encode_plain(x: torch.Tensor
 def bitmap_encode(x: torch.Tensor, *, device=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: x (N, C, H, W), any strides → (bits (N, C, H, ceil(W/32))
-    int32, cond (N, C, H, W) contiguous, x's dtype)."""
+    int32, cond (N, C, H, W) contiguous, x's dtype).  No backward."""
+    devmod.refuse_grad("bitmap_encode.cu", x)
     dev = devmod.resolve(device)
     devmod.check_on(x, dev, "x")
     if x.ndim != 4:

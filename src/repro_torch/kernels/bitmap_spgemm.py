@@ -378,7 +378,9 @@ def run(src: str, plain, a, b, sched, counts, *, kfused: bool,
         ) -> torch.Tensor:
     """The body of every wrapper: (E, ...) operands on ``device`` (None:
     the card) → the plain walk for CPU tensors, else the kernel in
-    ``csrc/<src>``; there is no fallback."""
+    ``csrc/<src>``; there is no fallback, and no backward (a gradient
+    through it raises ``NotImplementedError``)."""
+    devmod.refuse_grad(src, a, b)
     dev = devmod.resolve(device)
     devmod.check_all_on(dev, a=a, b=b, schedule=sched, counts=counts)
     kw = dict(block_m=block_m, block_n=block_n, slice_k=slice_k)

@@ -166,6 +166,7 @@ def _launch(src: str, cond, bits, kh, kw, stride):
 
 
 def _run(src, plain, cond, bits, kh, kw, stride, device):
+    devmod.refuse_grad(src, cond)
     dev = devmod.resolve(device)
     devmod.check_on(cond, dev, "cond")
     devmod.check_on(bits, dev, "bits")

@@ -73,24 +73,34 @@ def _attend_block(q, k, v, qpos, kpos, window):
     (B, ·) leading dim (the per-slot serving decode).  Returns (acc
     (B,Sq,KV,G,hd) f32, row max m, row sumexp l), the last two (B, Sq, KV,
     G).
+
+    Without a gradient to take, the score-sized temporaries are updated in
+    place, so a long prefill's chunk holds two of them at most; autograd
+    rejects a backward through those updates, so when grad mode is on and
+    an input requires grad the same values are computed out of place.
     """
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
                           k.to(torch.float32))
-    scores.mul_(q.shape[-1] ** -0.5)
     kp = kpos[..., None, :]
     qp = qpos[..., :, None]
     valid = (kp >= 0) & (kp <= qp)
     if window is not None:
         valid &= kp > (qp - window)
-    # (1|B, 1, 1, Sq, Skv); the score-sized temporaries are updated in
-    # place, so a long prefill's chunk holds two of them at most
+    # (1|B, 1, 1, Sq, Skv)
     hidden = ~(valid[:, None, None] if valid.ndim == 3
                else valid[None, None, None])
-    scores.masked_fill_(hidden, NEG_INF)
-    m = scores.amax(-1)                          # (B, KV, G, Sq)
-    e = torch.exp(scores.sub_(m[..., None]))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        scores = (scores * q.shape[-1] ** -0.5).masked_fill(hidden, NEG_INF)
+        m = scores.amax(-1)
+        e = torch.exp(scores - m[..., None]).masked_fill(hidden, 0.0)
+    else:
+        scores.mul_(q.shape[-1] ** -0.5)
+        scores.masked_fill_(hidden, NEG_INF)
+        m = scores.amax(-1)                      # (B, KV, G, Sq)
+        e = torch.exp(scores.sub_(m[..., None]))
+        e.masked_fill_(hidden, 0.0)
     del scores
-    e.masked_fill_(hidden, 0.0)
     l = e.sum(-1)
     acc = torch.einsum("bkgqs,bskd->bqkgd", e, v.to(torch.float32))
     return acc, m.movedim(3, 1), l.movedim(3, 1)

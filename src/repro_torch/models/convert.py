@@ -1,6 +1,7 @@
 """Load the JAX package's parameters into the port: ``init_model``
-trees (:func:`from_jax_params`) and ``init_sparse_linear`` dicts
-(:func:`sparse_linear_from_jax`).
+trees (:func:`from_jax_params`), ``init_sparse_linear`` dicts
+(:func:`sparse_linear_from_jax`) and optimizer states
+(:func:`opt_state_from_jax`).
 
 The JAX pytree is layer-stacked by period position:
 ``params["layers"][f"pos{p}"][...]`` has a leading axis over the periods,
@@ -23,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import device as devmod
 from repro_torch.models.transformer import Transformer
+from repro_torch.training import optimizer as opt
 
 MAMBA_KEYS = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D", "norm",
               "out_proj")
@@ -108,3 +110,40 @@ def sparse_linear_from_jax(params, device=None,
         out["b"] = torch.from_numpy(np.asarray(params["b"], np.float32).copy()
                                     ).to(dev, dtype)
     return out
+
+
+def opt_state_from_jax(state, model: Transformer, cfg: ModelConfig,
+                       device=None) -> opt.OptState:
+    """The port's :class:`~repro_torch.training.optimizer.OptState` for
+    ``model``'s parameters from a JAX ``OptState`` of numpy-convertible
+    leaves (``m``/``v`` trees over ``init_model``'s, ``step``), on
+    ``device`` (None: the card).  Each moment keeps its dtype (bf16 or
+    float32).  A factored ``{"row", "col"}`` leaf is split by layer like
+    any stacked leaf, except a stacked 1-D leaf's ``col``, which all the
+    layers of its period position share: each gets a copy."""
+    dev = devmod.resolve(device)
+
+    def leaf(tree, name):
+        key, j = opt.stacked_leaf(name, cfg.period)
+        for part in key.split("."):
+            tree = tree[part]
+        return tree, j
+
+    def put(a, j=None):
+        a = np.asarray(a)
+        dt = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+        a = np.asarray(a if j is None else a[j], np.float32)
+        return torch.from_numpy(a.copy()).to(dev, dt)
+
+    m, v = {}, {}
+    for n, p in model.named_parameters():
+        a, j = leaf(state.m, n)
+        m[n] = put(a, j)
+        a, j = leaf(state.v, n)
+        if isinstance(a, dict):
+            v[n] = {"row": put(a["row"], j),
+                    "col": put(a["col"], None if p.ndim == 1 else j)}
+        else:
+            v[n] = put(a, j)
+    return opt.OptState(m=m, v=v, step=torch.tensor(
+        int(np.asarray(state.step)), dtype=torch.int32, device=dev))

@@ -145,7 +145,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bmat/cmat: (B, S, G, N), S a multiple of the chunk.  Returns (y (B,
     S, H, P) float32, final state (B, H, P, N) float32).  Heads are
     group-major: head j belongs to group j // (H / G).
+
+    Without a gradient to take, the score-sized and state-sized buffers
+    are updated in place; when grad mode is on and an input requires grad
+    the same values are computed out of place (autograd rejects a backward
+    through those updates, and a checkpointed layer's recompute would not
+    notice them).
     """
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, dt, a, bmat, cmat, init_state))
     b, s, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     hg = h // g
@@ -170,11 +179,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cb = torch.einsum("bclgn,bcmgn->bcglm", cc, bc)
     mask = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
     att = cums[..., None] - cums.permute(0, 1, 3, 4, 2)[:, :, None]
-    att.masked_fill_(~mask[None, None, :, None, None, :], -math.inf)
-    att.exp_()
-    att.mul_(cb.permute(0, 1, 3, 2, 4)[:, :, :, :, None, :])
+    hidden = ~mask[None, None, :, None, None, :]
+    cb = cb.permute(0, 1, 3, 2, 4)[:, :, :, :, None, :]
+    dtm = dtc.permute(0, 1, 3, 4, 2)[:, :, None]
+    if grad:
+        att = torch.exp(att.masked_fill(hidden, -math.inf)) * cb * dtm
+    else:
+        att.masked_fill_(hidden, -math.inf)
+        att.exp_()
+        att.mul_(cb)
+        att.mul_(dtm)
     del cb
-    att.mul_(dtc.permute(0, 1, 3, 4, 2)[:, :, None])
     y = torch.einsum("bclghm,bcmghp->bclghp", att, xc)
     del att
 
@@ -189,17 +204,26 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     carry = (torch.zeros(b, g, hg, p, n, dtype=f32, device=x.device)
              if init_state is None
              else init_state.reshape(b, g, hg, p, n).to(f32))
+    ins = []
     for c in range(nc):
         nxt = carry * chunk_decay[:, c, :, :, None, None] + states[:, c]
-        states[:, c] = carry
+        if grad:
+            ins.append(carry)
+        else:
+            states[:, c] = carry
         carry = nxt
+    if grad:
+        states = torch.stack(ins, dim=1)
 
     # ---- off-diagonal contribution of the incoming state: contract C
     # with it over n, then scale by exp(cums) ----
     y_off = torch.einsum("bclgn,bcghpn->bclghp", cc, states)
     del states
-    y_off.mul_(torch.exp(cums)[..., None])
-    y.add_(y_off)
+    if grad:
+        y = y + y_off * torch.exp(cums)[..., None]
+    else:
+        y_off.mul_(torch.exp(cums)[..., None])
+        y.add_(y_off)
     return y.reshape(b, s, h, p), carry.reshape(b, h, p, n)
 
 

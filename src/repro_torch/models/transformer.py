@@ -11,8 +11,12 @@ asks for ``n_periods``, so a depth that is not a multiple of the period
 (a hybrid cut to its first two positions) runs too.
 ``Transformer.forward`` is the JAX package's ``forward`` and
 ``DecoderLayer.forward`` its ``_apply_layer``.  The forward sums the MoE
-layers' auxiliary losses.  A tied model has no ``lm_head``: its head is
-``embed.T``, which the sparse modes plan per call.
+layers' auxiliary losses; :func:`lm_loss` is the training loss.  Every
+parameter is built with ``requires_grad=False``, which serving keeps;
+training turns them on (``model.requires_grad_(True)``), and a cacheless
+forward under autograd then checkpoints each layer by ``rc.remat``.  A
+tied model has no ``lm_head``: its head is ``embed.T``, which the sparse
+modes plan per call.
 
 The memory is built at prefill (and in a cacheless forward) only: the
 conv frontend over ``batch["mel"]`` / ``batch["images"]``, or, without
@@ -27,10 +31,13 @@ layer's cross cache, and decode reads them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import device as devmod
@@ -224,7 +231,8 @@ class Transformer(nn.Module):
 
     def memory(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                dtype, weight_plans: Optional[Dict] = None,
-               chunk: int = 0) -> Optional[torch.Tensor]:
+               chunk: int = 0, rc: Optional[RunConfig] = None
+               ) -> Optional[torch.Tensor]:
         """The memory the cross layers read, or None when ``batch`` holds
         no modality input (a decode step, or a decoder-only model): the
         conv frontend over ``"mel"`` / ``"images"``, else the stub's
@@ -240,12 +248,12 @@ class Transformer(nn.Module):
         else:
             memory = batch[key].to(dtype)
         if cfg.is_encoder_decoder:
-            memory = self.encode(memory, cfg, weight_plans, chunk)
+            memory = self.encode(memory, cfg, weight_plans, chunk, rc)
         return memory
 
     def encode(self, memory: torch.Tensor, cfg: ModelConfig,
-               weight_plans: Optional[Dict] = None,
-               chunk: int = 0) -> torch.Tensor:
+               weight_plans: Optional[Dict] = None, chunk: int = 0,
+               rc: Optional[RunConfig] = None) -> torch.Tensor:
         """The encoder over the frontend's ``memory`` (B, M, d):
         sinusoidal positions, the non-causal encoder stack, its norm."""
         wp = weight_plans or {}
@@ -254,10 +262,33 @@ class Transformer(nn.Module):
         x = memory + sinusoidal_positions(pos, cfg.d_model,
                                           memory.dtype)[None]
         plans = wp.get("enc_layers") or [None] * len(self.enc_layers)
+        run = self._runner(rc, None)
         for layer, lp in zip(self.enc_layers, plans):
-            x, _, _ = layer(x, cfg, positions=pos, plans=lp, causal=False,
-                            chunk=chunk)
+            x, _, _ = run(layer, x, cfg, positions=pos, plans=lp,
+                          causal=False, chunk=chunk)
         return apply_norm(self.enc_final_norm, x, cfg.norm_eps)
+
+    def _runner(self, rc: Optional[RunConfig], caches):
+        """How each layer runs: called as it is, or, when a gradient is
+        being taken of a cacheless forward (training), under one
+        non-reentrant ``torch.utils.checkpoint`` per layer with
+        ``rc.remat``'s policy (:func:`remat_context`; ``full`` without
+        ``rc``, as in the JAX package)."""
+        kind = rc.remat if rc else "full"
+        if (kind == "none" or caches is not None
+                or not torch.is_grad_enabled()
+                or not any(p.requires_grad for p in self.parameters())):
+            return lambda layer, *args, **kw: layer(*args, **kw)
+        context = remat_context(kind)
+
+        def run(layer, *args, **kw):
+            # the recompute runs after the forward returns, when a caller's
+            # functional_call no longer holds its tensors in the layer: so
+            # the layer's tensors of now are the checkpoint's inputs
+            return checkpoint(_call_with, layer,
+                              dict(layer.named_parameters()), args, kw,
+                              use_reentrant=False, context_fn=context)
+        return run
 
     def forward(self, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                 caches: Optional[List[Any]] = None,
@@ -275,7 +306,9 @@ class Transformer(nn.Module):
         (optional: without them the sparse modes plan the weights per
         call).  ``aux_loss`` is the sum of the MoE layers' load-balancing
         losses.  Attention runs KV-chunked at ``rc.attn_chunk`` (2048
-        without ``rc``)."""
+        without ``rc``).  A cacheless forward whose gradient is taken
+        (grad mode on, parameters requiring grad) checkpoints each layer
+        by ``rc.remat``."""
         tokens = batch["tokens"]
         s = tokens.shape[1]
         chunk = rc.attn_chunk if rc else 2048
@@ -284,7 +317,7 @@ class Transformer(nn.Module):
         x = self.embed[tokens].to(act_dtype)
         if positions is None:
             positions = torch.arange(s, device=tokens.device)
-        memory = self.memory(batch, cfg, act_dtype, weight_plans, chunk)
+        memory = self.memory(batch, cfg, act_dtype, weight_plans, chunk, rc)
         if (memory is None and caches is None
                 and (cfg.is_encoder_decoder or cfg.cross_attn_every)):
             key = MEMORY_INPUTS[(cfg.frontend, cfg.frontend_conv)]
@@ -298,11 +331,11 @@ class Transformer(nn.Module):
                        else [None] * len(self.layers))
         new_caches = [] if caches is not None else None
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        run = self._runner(rc, caches)
         for i, layer in enumerate(self.layers):
-            x, c, aux = layer(x, cfg, positions=positions,
-                              cache=caches[i] if caches is not None else None,
-                              plans=layer_plans[i], memory=memory,
-                              chunk=chunk)
+            x, c, aux = run(layer, x, cfg, positions=positions,
+                            cache=caches[i] if caches is not None else None,
+                            plans=layer_plans[i], memory=memory, chunk=chunk)
             if aux is not None:
                 aux_total = aux_total + aux
             if new_caches is not None:
@@ -326,6 +359,74 @@ class Transformer(nn.Module):
                 head_site, cfg)
         return ModelOutputs(logits=logits, caches=new_caches,
                             aux_loss=aux_total)
+
+
+def _call_with(layer: nn.Module, params: Dict[str, torch.Tensor], args,
+               kw):
+    return torch.func.functional_call(layer, params, args, kw)
+
+
+# the products ``checkpoint_dots`` saves: the matmuls and batched einsums
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context(kind: str) -> Callable:
+    """``torch.utils.checkpoint``'s ``context_fn`` for ``rc.remat``:
+    ``full`` saves nothing of a layer (the JAX package's
+    ``nothing_saveable``), ``dots`` saves the outputs of its matmuls and
+    recomputes the rest (``checkpoint_dots``)."""
+    if kind == "full":
+        return noop_context_fn
+    if kind == "dots":
+        return lambda: create_selective_checkpoint_contexts(_save_dots)
+    raise ValueError(f"remat must be full, dots or none, not {kind!r}")
+
+
+def lm_loss(model: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, rc: Optional[RunConfig] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (``batch["labels"]``, the tokens shifted
+    by the caller; labels < 0 are masked): a float32 log-sum-exp over the
+    logits, plus 0.01 x the MoE auxiliary loss.  Returns (total, {"loss",
+    "aux_loss", "tokens"}): the JAX package's ``lm_loss``."""
+    return loss_of(model(batch, cfg, rc=rc), batch["labels"])
+
+
+def loss_of(out: ModelOutputs, labels: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`lm_loss` of a forward's outputs."""
+    logits = out.logits.to(torch.float32)
+    mask = (labels >= 0).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    loss = nll.sum() / mask.sum().clamp(min=1.0)
+    total = loss + 0.01 * out.aux_loss
+    return total, {"loss": loss, "aux_loss": out.aux_loss,
+                   "tokens": mask.sum()}
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def active_params(cfg: ModelConfig, model: nn.Module) -> float:
+    """Parameter count with the MoE experts' weights (not the routers)
+    scaled to the active fraction ``n_experts_active / n_experts``."""
+    total = count_params(model)
+    if not cfg.n_experts:
+        return float(total)
+    e_params = sum(p.numel() for name, p in model.named_parameters()
+                   if "moe" in name and any(w in name for w in (
+                       "w_up", "w_down", "w_gate")))
+    frac = cfg.n_experts_active / cfg.n_experts
+    return float(total - e_params + e_params * frac)
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,

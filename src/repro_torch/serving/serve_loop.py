@@ -54,6 +54,7 @@ def make_decode_step(cfg: ModelConfig, rc: Optional[RunConfig] = None):
     return decode
 
 
+@torch.no_grad()
 def generate(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
              cfg: ModelConfig, *, max_new_tokens: int,
              capacity: Optional[int] = None, rc: Optional[RunConfig] = None,
@@ -66,7 +67,9 @@ def generate(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
     or "frames" for an encoder-decoder, "images" (B, H, W, C) or
     "image_embeds" for a VLM.  ``rc.kv_quant`` makes the self-attention
     caches int8 (a cross cache stays bf16).  ``device=None`` means the
-    card; the model must live on ``device``.
+    card; the model must live on ``device``.  It runs without autograd, so
+    a model whose parameters require grad (after training) serves as one
+    that does not.
     """
     dev = devmod.resolve(device)
     devmod.check_on(model.embed, dev, "the model")

@@ -51,6 +51,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import device as devmod
 from repro_torch.core import im2col as i2c
 from repro_torch.sparse import conv as scv
 from repro_torch.sparse import dispatch as dsp
@@ -134,7 +135,11 @@ def _degrade(st: OpSite, kw: dict) -> dict:
 def _quarantinable(e: Exception, device) -> bool:
     """Whether a kernel-arm failure may degrade its site: on CPU operands,
     or an injected fault anywhere.  On the card a real kernel error
-    propagates."""
+    propagates, and so does a gradient asked of a kernel
+    (``devmod.NoBackward``) on either device, as ``jax.grad`` raises
+    through ``pallas_call``."""
+    if isinstance(e, devmod.NoBackward):
+        return False
     if torch.device(device).type == "cpu":
         return True
     from repro_torch.testing.faults import FaultInjected

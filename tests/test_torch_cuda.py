@@ -1,8 +1,10 @@
 """K1-K7, the sparse-KV decode, the whisper path, block pruning, the
 MoE expert products, a full-width Mamba block, a tied head, the VLM's
 vision frontend and every knob vector the tuner admits on the card
-against their plain versions and the CPU, and the tuner's card timer
-(needs an NVIDIA GPU with nvcc; skipped elsewhere).  Run there with
+against their plain versions and the CPU, the tuner's card timer, a
+smoke train step against the CPU's, the refusal of a gradient through a
+kernel and a bitwise restart of the launcher (needs an NVIDIA GPU with
+nvcc; skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -998,6 +1000,109 @@ def test_kernel_error_propagates_from_site(cuda):
         site.matmul(x, w, st, cfg)
     assert bsk.bitmap_spgemm_planned.launches == n1
     assert site.quarantine_report() == {}
+
+
+TRAIN_ARCHS = ("chatglm3-6b", "mixtral-8x7b", "mamba2-370m", "whisper-base",
+               "llama-3.2-vision-90b")
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_matches_cpu(cuda, arch, monkeypatch):
+    """One train step of the smoke model in float32 compute (TF32 off) on
+    the card against the CPU: gradients within 1e-4 x max|g|, the loss
+    and the updated parameters alike."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import model_zoo
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = smoke_config(arch)
+    rc = RunConfig(microbatches=2, learning_rate=1e-3, warmup_steps=2,
+                   act_dtype="float32")
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticTokens(
+        cfg.vocab_size, 4, 16, seed=0).batch_at(0).items()}
+    batch.update(model_zoo.frontend_inputs(cfg, 4, dtype=torch.float32,
+                                           device="cpu"))
+    cpu = model_zoo.build_model(cfg, 0, device="cpu")
+    gpu = model_zoo.build_model(cfg, 0, device="cpu").to(cuda)
+    g_cpu, l_cpu = tl.make_grad_fn(cfg, rc)(cpu.requires_grad_(True), batch)
+    g_gpu, l_gpu = tl.make_grad_fn(cfg, rc)(
+        gpu.requires_grad_(True), {k: v.to(cuda) for k, v in batch.items()})
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    for n, g in g_cpu.items():
+        assert (g_gpu[n].cpu() - g).abs().max().item() <= 1e-4 * gmax, n
+    assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
+    step = tl.make_train_step(cfg, rc)
+    states = [opt.init_opt_state(dict(m.named_parameters()), rc)
+              for m in (cpu, gpu)]
+    _, _, _, m_cpu = step(cpu, states[0], None, batch)
+    _, _, _, m_gpu = step(gpu, states[1], None,
+                          {k: v.to(cuda) for k, v in batch.items()})
+    assert torch.isfinite(m_gpu["loss"]) and m_gpu["grad_norm"].item() > 0
+    assert abs(m_gpu["grad_norm"].item() - m_cpu["grad_norm"].item()) <= \
+        1e-4 * gmax
+
+
+def test_gradient_through_a_kernel_raises_on_card(cuda):
+    """As ``jax.grad`` raises through ``pallas_call``: the train step in
+    dual mode with the kernel raises, K1 launches nothing and no site is
+    quarantined; serving the same weights still launches K1."""
+    from repro_torch.models import model_zoo
+    from repro_torch.sparse import site
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    cfg = dataclasses.replace(smoke_config("nemotron-4-340b"),
+                              sparse_mode="dual", sparse_use_kernel=True)
+    rc = RunConfig(act_dtype="float32")
+    model = model_zoo.build_model(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda)
+    batch = {"tokens": toks, "labels": toks}
+    state = opt.init_opt_state(dict(model.named_parameters()), rc)
+    n1 = bsk.bitmap_spgemm_planned.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tl.make_train_step(cfg, rc)(model, state, None, batch)
+    assert bsk.bitmap_spgemm_planned.launches == n1
+    assert site.quarantine_report() == {}
+    out = serve_loop.generate(model, {"tokens": toks}, cfg, max_new_tokens=2,
+                              rc=rc, device=cuda)
+    assert out.shape == (2, 2) and bsk.bitmap_spgemm_planned.launches > n1
+
+
+RESTART_CHILD = """
+import os, sys
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+import numpy as np, torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.launch import train
+root = sys.argv[1]
+args = ["--arch", "chatglm3-6b", "--smoke", "--global-batch", "8", "--seq",
+        "16", "--ckpt-every", "1"]
+train.main(args + ["--steps", "6", "--ckpt-dir", root + "/ref"])
+train.main(args + ["--steps", "3", "--ckpt-dir", root + "/ft"])
+train.main(args + ["--steps", "6", "--ckpt-dir", root + "/ft"])
+ref = np.load(root + "/ref/step_00000006/arrays-00000.npz")
+ft = np.load(root + "/ft/step_00000006/arrays-00000.npz")
+assert sorted(ref.files) == sorted(ft.files)
+print("bitwise", all(np.array_equal(ref[k], ft[k]) for k in ref.files))
+"""
+
+
+def test_deterministic_restart_on_card(cuda, tmp_path):
+    """The launcher stopped after 3 of 6 steps and resumed ends in the
+    state the uninterrupted run ends in, bit for bit, with deterministic
+    CUDA (set in a fresh process, before cuBLAS first runs)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", RESTART_CHILD, str(tmp_path)],
+                         env=dict(os.environ, PYTHONPATH=str(src)),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "resumed from step 3" in out.stdout
+    assert out.stdout.rstrip().endswith("bitwise True"), out.stdout
 
 
 def test_quarantine_report_empty_after_module(cuda):
