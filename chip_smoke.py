@@ -295,6 +295,35 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    --ckpt-every 10`` twice: the second run resumes at step 20 and trains
    nothing; a train step in dual mode with the kernel raises
    ``NotImplementedError``, launching nothing.
+20. expert-parallel serving on ``torch.distributed``, traffic K — the
+   kernels built above, each rank a subprocess with the ``torchrun``
+   variables set, failing the phase if it fails.  (a) ``python -m
+   repro_torch.launch.serve --arch qwen3-moe-235b-a22b --smoke`` in a
+   one-rank NCCL group serves the tokens of the same command with no
+   group.  (b) Four ranks over gloo on the one card (NCCL refuses two
+   ranks on one device), ``repro_torch.testing.sharded_moe``'s float32
+   cases at tests/test_moe_sharded.py's shapes, TF32 off: 4 experts on
+   mesh (1, 4) in dense, dual (K3), weight and dual+kc (K4), each within
+   1e-4 of the rank's local dense ``moe_forward``, executed == counted,
+   the mesh-total counted steps 4 x the local run's, dual < weight <
+   dense; 6 experts tensor-parallel at d_ff 32 (the ``w_down`` k-plan
+   warning once, within 1e-4); mesh (2, 2), within 1e-4 of the local
+   output on each half of the batch and the aux loss of the halves' mean;
+   every K1-K4 launch of every rank held to its plain walk; which
+   collectives took CUDA tensors as they were and which went through the
+   host.  (c) Traffic K: full-width qwen3-moe-235b-a22b (128 experts,
+   top-8) cut to 2 of its 94 layers, bf16, random from seed 0, expert
+   parallel over four ranks on the card (gloo, mesh (1, 4) under
+   ``make_rules("decode")``, 32 experts a rank), traffic E's 2 x 32 prompt
+   tokens and 8 new on cached plans in dense, dual (K1, K3) and dual+kc
+   (K2, K4), against the same runs in this process: every rank's tokens
+   alike, rank 0's prefill logits within ``SERVE_RTOL`` x max|dense| on
+   the tokens routed alike and its tokens parting only where a routing
+   flip within ``GATE_MARGIN`` accounts for it; exact launches and
+   executed == counted on every rank; every K1-K4 launch of every rank
+   held to its plain walk; tokens/s, memory by rank, one prefill MoE
+   block split into collectives, K3/K4 and the rest, and each rank's
+   K3/K4 launches replayed alone.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -6383,6 +6412,553 @@ def phase_training(torch, smi):
     return numbers, j
 
 
+# ---------------------------------------------------------------------------
+# phase 20: expert-parallel serving on torch.distributed, traffic K
+# ---------------------------------------------------------------------------
+
+# ranks over one card: gloo (NCCL refuses two ranks on one device); the
+# expert-parallel layout of traffic K, 32 of qwen3-moe's 128 experts a rank
+K_WORLD = 4
+K_RULES = "decode"
+K_MODES = ("dense", "dual", "dual+kc")
+DIST_DIR = ROOT / "build" / "repro_torch" / "distributed"
+RANK_TIMEOUT = 600
+# K3/K4's sources, whose launches phase 20 holds and times per rank
+GROUPED_SOURCES = ("grouped_spgemm.cu", "grouped_spgemm_kfused.cu")
+# the sharded MoE's collectives (repro_torch.distributed.comm), timed in
+# traffic K's split of a MoE block
+COMM_OPS = ("all_to_all", "all_gather", "all_reduce")
+
+
+def dist_env():
+    import os
+    return dict(os.environ, PYTHONPATH=str(SRC))
+
+
+def req_lines(out):
+    return [line for line in out.splitlines() if line.startswith("req ")]
+
+
+def launcher_nccl():
+    """Phase 20 (a): ``launch/serve.py --smoke`` on qwen3-moe in a one-rank
+    NCCL group beside the same command with no group (the second process
+    started first, the two running together).  Returns the group's
+    backend line and the requests' lines."""
+    from repro_torch.testing import sharded_moe as sm
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           QWEN3_MOE, "--smoke"]
+    alone = subprocess.Popen(cmd, env=dist_env(), cwd=ROOT, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        ranked = sm.spawn(cmd, 1, timeout=RANK_TIMEOUT, env=dist_env(),
+                          cwd=ROOT)[0]
+        out, err = alone.communicate(timeout=RANK_TIMEOUT)
+    finally:
+        if alone.poll() is None:
+            alone.kill()
+            alone.communicate()
+    if alone.returncode:
+        raise AssertionError(f"serve with no group failed:\n{err[-3000:]}")
+    backend = [line for line in ranked.splitlines()
+               if line.startswith("torch.distributed:")]
+    if not (backend and "1 ranks over nccl" in backend[0]):
+        raise AssertionError(f"one-rank group: {backend or ranked[-2000:]}")
+    got, want = req_lines(ranked), req_lines(out)
+    if not (len(want) == 4 and got == want):
+        raise AssertionError(f"one-rank NCCL tokens {got} != no group's "
+                             f"{want}")
+    return backend[0], want
+
+
+def rank_moe(out_dir):
+    """A rank of phase 20 (b): :mod:`repro_torch.testing.sharded_moe`'s
+    cases with every K1-K4 launch held to its plain walk; writes
+    ``held<rank>.json``."""
+    import os
+    import torch
+    from repro_torch.testing import sharded_moe as sm
+    d = Path(out_dir)
+    held = held_to_plain(torch, None, lambda: sm.main(
+        ["--inputs", str(d / "inputs.npz"), "--out", str(d)]), "smoke")
+    (d / f"held{os.environ['RANK']}.json").write_text(json.dumps(
+        {src: dict(n=v["n"], err=v["err"]) for src, v in held.items()}))
+    return 0
+
+
+def sharded_smoke():
+    """Phase 20 (b) (see the module docstring), started in the background:
+    returns a function that waits for the ranks and checks them."""
+    import shutil
+    import threading
+    from repro_torch.testing import sharded_moe as sm
+    d = DIST_DIR / "smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    sm.write_inputs(d / "inputs.npz")
+    box = {}
+
+    def ranks():
+        try:
+            box["outs"] = sm.spawn(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-moe",
+                 str(d)], sm.WORLD, timeout=RANK_TIMEOUT, env=dist_env(),
+                cwd=ROOT)
+        except Exception as e:       # re-raised by finish()
+            box["error"] = e
+    thread = threading.Thread(target=ranks)
+    thread.start()
+
+    def finish():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return check_sharded_smoke(d, sm)
+    return finish
+
+
+def check_sharded_smoke(d, sm):
+    """The checks of phase 20 (b) on every rank's numbers; returns
+    its lines."""
+    import numpy as np
+    lines = []
+    for r, (a, m) in enumerate(sm.load(d)):
+        held = json.loads((d / f"held{r}.json").read_text())
+        for src in GROUPED_SOURCES:
+            if not held.get(src, {}).get("n"):
+                raise AssertionError(f"smoke rank {r}: no {src} launch held")
+
+        def err(got, want):
+            return float(np.abs(got - want).max())
+        per = []
+        for case, (_, _, shape, modes) in sm.CASES.items():
+            halves = case == "dp"
+            ref = (np.concatenate([a[f"local.dp.dense.half{h}.y"]
+                                   for h in range(2)]) if halves
+                   else a[f"local.{case}.dense.y"])
+            for mode in modes:
+                e = err(a[f"{case}.{mode}.y"], ref)
+                if not e <= 1e-4:
+                    raise AssertionError(f"smoke rank {r} {case} {mode}: "
+                                         f"max |y - local dense| {e:.2e}")
+                tape = m[f"{case}.{mode}.tape"]
+                if any(t["executed_steps"] != t["sparse_steps"]
+                       for t in tape):
+                    raise AssertionError(f"smoke rank {r} {case} {mode}: "
+                                         f"executed != counted: {tape}")
+                if case == "ep" and mode != "dense":
+                    local = {t["name"]: t["sparse_steps"]
+                             for t in m[f"local.ep.{mode}.tape"]}
+                    if any(t["sparse_steps"] != sm.WORLD * local[t["name"]]
+                           for t in tape):
+                        raise AssertionError(
+                            f"smoke rank {r} ep {mode}: mesh-total counted "
+                            f"{tape} != {sm.WORLD} x local {local}")
+                per.append(f"{case} {mode} {e:.1e}")
+            if halves:
+                aux = float(a["dp.dual.aux"])
+                mean = (float(a["local.dp.dense.half0.aux"])
+                        + float(a["local.dp.dense.half1.aux"])) / 2
+                if not abs(aux - mean) <= 1e-4:
+                    raise AssertionError(f"smoke rank {r}: (2, 2) aux "
+                                         f"{aux} != halves' mean {mean}")
+
+        def total(mode, key="sparse_steps"):
+            return sum(t[key] for t in m[f"ep.{mode}.tape"])
+        if not total("dual") < total("weight") < total("dual",
+                                                       "dense_steps"):
+            raise AssertionError(f"smoke rank {r}: steps dual "
+                                 f"{total('dual')}, weight "
+                                 f"{total('weight')}, dense "
+                                 f"{total('dual', 'dense_steps')}")
+        first, second = m["tp.dual.warnings0"], m["tp.dual.warnings1"]
+        if not (len(first) == 1 and "w_down k-plan" in first[0]
+                and not second):
+            raise AssertionError(f"smoke rank {r}: TP warnings {first} / "
+                                 f"{second}")
+        if r == 0:
+            lines.append(
+                "max |y - local dense| (the (2, 2) mesh: each data half's) "
+                + ", ".join(per) + f"; ep mesh-total counted steps dual "
+                f"{total('dual')} = {sm.WORLD} x local, weight "
+                f"{total('weight')}, dense {total('dual', 'dense_steps')}; "
+                f"(2, 2) aux {float(a['dp.dual.aux']):.6f}")
+        lines.append(f"rank {r}: " + ", ".join(
+            f"{src} {v['n']} launches held (max err {v['err']:.1e})"
+            for src, v in sorted(held.items())))
+    return lines
+
+
+def moe_block_split(torch, fn):
+    """``fn()`` with its first sharded MoE block timed and split:
+    collectives (host clock, the card synchronized on both sides of each),
+    K3/K4 (CUDA events around each launch) and the rest of the block (its
+    host time, synchronized, less the two).  Returns the ms of each."""
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import bitmap_spgemm as bsk
+    from repro_torch.models import moe as moem
+    real_block, real_run = moem._moe_shard_map, bsk.run
+    real_comm = {op: getattr(comm, op) for op in COMM_OPS}
+    parts = dict(coll=0.0, n_coll=0, block=None)
+    events, active = [], [False]
+
+    def timed(real):
+        def call(t, group, *args, **kw):
+            if not active[0] or comm._single(group):
+                return real(t, group, *args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = real(t, group, *args, **kw)
+            torch.cuda.synchronize()
+            parts["coll"] += (time.perf_counter() - t0) * 1e3
+            parts["n_coll"] += 1
+            return y
+        return call
+
+    def run(src, *args, **kw):
+        if not (active[0] and src in GROUPED_SOURCES):
+            return real_run(src, *args, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = real_run(src, *args, **kw)
+        end.record()
+        events.append((start, end))
+        return y
+
+    def block(*args, **kw):
+        if parts["block"] is not None:
+            return real_block(*args, **kw)
+        torch.cuda.synchronize()
+        active[0] = True
+        t0 = time.perf_counter()
+        try:
+            y = real_block(*args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            active[0] = False
+        parts["block"] = (time.perf_counter() - t0) * 1e3
+        return y
+    moem._moe_shard_map, bsk.run = block, run
+    for op, real in real_comm.items():
+        setattr(comm, op, timed(real))
+    try:
+        fn()
+    finally:
+        moem._moe_shard_map, bsk.run = real_block, real_run
+        for op, real in real_comm.items():
+            setattr(comm, op, real)
+    parts["k34"] = sum(s.elapsed_time(e) for s, e in events)
+    parts["rest"] = parts["block"] - parts["coll"] - parts["k34"]
+    return parts
+
+
+def k_model(torch, cfg):
+    """Traffic K's model on this process: ``make_model``'s draws."""
+    from repro_torch.models import transformer as tfm
+    return tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          dtype=torch.bfloat16)
+
+
+def rank_traffic_k(out_dir):
+    """A rank of phase 20 (c): traffic K on the (1, K_WORLD) mesh, each
+    mode timed (tape and launch counts on), then held to the plain walks,
+    one prefill's MoE block split, and (rank by rank, the others waiting)
+    the K3/K4 launches replayed.  Writes ``k<rank>.json``; rank 0 also its
+    tokens, logits and routing (``k0.pt``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models import moe as moem
+    from repro_torch.models import nn as tnn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sparse import tape
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = Path(out_dir)
+    meshmod.init_distributed()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = dataclasses.replace(get_config(QWEN3_MOE), n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = k_model(torch, cfg)
+    whole_gb = torch.cuda.memory_allocated() / 1e9
+    mesh = meshmod.make_mesh((1, world))
+    rules = shd.make_rules(K_RULES)
+    # cut with the kcondensed mode's plans, so that dual+kc keeps its
+    # element activities as the single process does
+    moem.shard_moe_layers_(model, dataclasses.replace(
+        cfg, **MODES["dual+kc"]), mesh, rules)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    info = dict(rank=rank, backend=dist.get_backend(), whole_gb=whole_gb,
+                sharded_gb=torch.cuda.memory_allocated() / 1e9,
+                w_up=list(model.layers[0].moe.w_up.shape),
+                build_s=time.perf_counter() - t0, modes={})
+    batch = traffic_a_batch(torch, cfg)
+    b, s = batch["tokens"].shape
+    k1f, k3f, _ = stack_launches(cfg)
+    counters = kernel_counters()
+    saved = {}
+    with tnn.axis_rules(rules, mesh=mesh):
+        plans = {m: tfm.plan_weight_activities(
+            model, dataclasses.replace(cfg, **MODES[m])) for m in K_MODES}
+        for mode in K_MODES:        # untimed: first products at the shapes
+            serve_with_plans(torch, model, dataclasses.replace(
+                cfg, **MODES[mode]), batch, 2, plans[mode])
+        for mode in K_MODES:
+            c = dataclasses.replace(cfg, **MODES[mode])
+            r = info["modes"][mode] = {}
+
+            def serve():
+                return serve_with_plans(torch, model, c, batch, NEW_TOKENS,
+                                        plans[mode])
+            reset_launches(counters)
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with tape.collect() as entries:
+                out, routing = record_routing(serve)
+            wall = (time.perf_counter() - t0) * 1e3
+            want = {}
+            if mode == "dual":
+                want = dict(K1=k1f * NEW_TOKENS, K3=k3f * NEW_TOKENS)
+            elif mode == "dual+kc":
+                want = dict(K2=k1f * NEW_TOKENS, K4=k3f * NEW_TOKENS)
+            r["launches"] = check_launches(f"traffic K rank {rank} {mode}",
+                                           counters, want)
+            rows = tape_rows(tape, entries)
+            if mode != "dense":
+                bad = [row for row in rows if row[2] != row[3]]
+                if bad or len(rows) != (k1f + k3f) * NEW_TOKENS:
+                    raise AssertionError(f"traffic K rank {rank} {mode}: "
+                                         f"{len(rows)} entries, executed "
+                                         f"!= counted at {bad[:3]}")
+            moe_rows = [row for row in rows if row[0].startswith("moe.")]
+            r.update(wall_ms=wall, times=out["times"],
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     tokens=out["tokens"].tolist(),
+                     moe_counted=sum(row[2] for row in moe_rows),
+                     moe_dense=sum(row[1] for row in moe_rows))
+            if rank == 0:
+                saved[mode] = dict(tokens=out["tokens"],
+                                   prefill=out["prefill"].cpu(),
+                                   steps=[t.cpu() for t in out["steps"]],
+                                   routing=routing)
+            if mode == "dense":
+                continue
+            kn = "K4" if mode == "dual+kc" else "K3"
+            src = MOE_SOURCES[kn]
+            held = held_to_plain(torch, None, serve, "traffic K")
+            r["held"] = {k: dict(n=v["n"], err=v["err"])
+                         for k, v in held.items()}
+            if held.get(src, {}).get("n") != k3f * NEW_TOKENS:
+                raise AssertionError(f"traffic K rank {rank} {mode}: "
+                                     f"{held.get(src)} {src} launches held")
+            caches = tfm.init_caches(c, b, s + NEW_TOKENS)
+            r["split"] = moe_block_split(torch, lambda: model(
+                batch, c, caches=caches,
+                positions=torch.arange(s, device="cuda"),
+                weight_plans=plans[mode]))
+            launches = record_launches(torch, serve)
+            for turn in range(world):
+                if turn == rank:
+                    r["numbers"] = {kn: dict(replayed_numbers(
+                        torch, src, launches[src]), launches=len(
+                            launches[src]))}
+                    r["numbers"][kn].pop("shapes")
+                dist.barrier()
+            del launches
+    (d / f"k{rank}.json").write_text(json.dumps(info))
+    if rank == 0:
+        torch.save(saved, d / "k0.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def traffic_k_reference(torch, cfg):
+    """Phase 20 (c)'s single-process run: traffic K's modes on the whole
+    model (phase 14's traffic E on qwen3-moe, with dual+kc), each on
+    cached plans after an untimed pass.  Returns {mode: tokens, logits,
+    routing, wall, moe counted}."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sparse import tape
+    model = k_model(torch, cfg)
+    batch = traffic_a_batch(torch, cfg)
+    base = {}
+    for mode in K_MODES:
+        c = dataclasses.replace(cfg, **MODES[mode])
+        plans = tfm.plan_weight_activities(model, c)
+        serve_with_plans(torch, model, c, batch, 2, plans)
+        t0 = time.perf_counter()
+        with tape.collect() as entries:
+            out, routing = record_routing(lambda: serve_with_plans(
+                torch, model, c, batch, NEW_TOKENS, plans))
+        wall = (time.perf_counter() - t0) * 1e3
+        moe = [row for row in tape_rows(tape, entries)
+               if row[0].startswith("moe.")]
+        base[mode] = dict(out, prefill=out["prefill"].cpu(),
+                          steps=[t.cpu() for t in out["steps"]],
+                          routing=routing, wall_ms=wall,
+                          moe_counted=sum(row[2] for row in moe))
+        del plans
+    del model
+    torch.cuda.empty_cache()
+    return base
+
+
+def check_traffic_k(torch, cfg, d, base, smi):
+    """Phase 20 (c)'s checks and lines: every rank's tokens alike, rank
+    0's logits and tokens against the single-process run, per-rank
+    numbers.  Returns {K-name: numbers} for the kernels line."""
+    ranks = [json.loads((d / f"k{r}.json").read_text())
+             for r in range(K_WORLD)]
+    saved = torch.load(d / "k0.pt")
+    b, s = PROMPTS, PROMPT_LEN
+    scale = base["dense"]["prefill"].abs().max().item()
+    tol = SERVE_RTOL * scale
+    numbers = {}
+    for mode in K_MODES:
+        for r in ranks[1:]:
+            if r["modes"][mode]["tokens"] != ranks[0]["modes"][mode][
+                    "tokens"]:
+                raise AssertionError(f"traffic K {mode}: rank {r['rank']}'s "
+                                     "tokens differ from rank 0's")
+        got, ref = saved[mode], base[mode]
+        parted = parted_at(got["tokens"], ref["tokens"])
+        flips, first, flipped = routing_flips(
+            torch, cfg, b, s, ref["routing"], got["routing"], parted)
+        keep = torch.ones(b, s, dtype=torch.bool)
+        for row, pos in flipped:
+            keep[row, pos] = False
+        diff = (got["prefill"] - ref["prefill"]).abs().amax(-1)
+        err = diff[keep].max().item()
+        if not err <= tol:
+            raise AssertionError(f"traffic K {mode}: prefill logits differ "
+                                 f"from the single process by {err:.4f} > "
+                                 f"{tol:.4f}")
+        agree = moe_parting(torch, f"traffic K {mode}", got["tokens"],
+                            ref["tokens"], ref["steps"], tol, first)
+        r0 = ranks[0]["modes"][mode]
+        tps = b * NEW_TOKENS / r0["wall_ms"] * 1e3
+        log(f"distributed (c): traffic K {mode}: {tps:.2f} tokens/s over "
+            f"{K_WORLD} ranks ({r0['wall_ms']:.0f} ms a generate, prefill "
+            f"{r0['times'][0]:.1f} ms, decode median "
+            f"{statistics.median(r0['times'][1:]):.1f} ms, stats tape on), "
+            f"single process {b * NEW_TOKENS / ref['wall_ms'] * 1e3:.2f} "
+            f"tokens/s; launches a rank {r0['launches']}; moe.* mesh-total "
+            f"counted steps {r0['moe_counted']} of {r0['moe_dense']} (the "
+            f"single process counted {ref['moe_counted']}); prefill logits "
+            f"max |diff| {err:.4f} <= {tol:.4f} ({SERVE_RTOL} x max|dense| "
+            f"{scale:.2f}) on {int(keep.sum())} of {b * s} tokens, "
+            f"{len(flips)} routing flips; " + "; ".join(agree)
+            + "; peak memory by rank "
+            + ", ".join(f"{r['modes'][mode]['peak_gb']:.2f}" for r in ranks)
+            + f" GB; {smi}")
+        if mode == "dense":
+            continue
+        kn = "K4" if mode == "dual+kc" else "K3"
+        for r in ranks:
+            m = r["modes"][mode]
+            sp, t = m["split"], m["numbers"][kn]
+            held = ", ".join(f"{src} {v['n']} (max err {v['err']:.1e})"
+                             for src, v in sorted(m["held"].items()))
+            log(f"distributed (c): traffic K {mode} rank {r['rank']}: one "
+                f"prefill MoE block {sp['block']:.2f} ms = collectives "
+                f"{sp['coll']:.2f} ms ({sp['n_coll']} calls, host clock, "
+                f"synchronized) + {kn} {sp['k34']:.3f} ms (CUDA events) + "
+                f"the rest {sp['rest']:.2f} ms, the {K_WORLD} ranks sharing "
+                f"the card, so each time holds the others' work too; its "
+                f"{t['launches']} {kn} launches replayed alone (the other "
+                f"ranks waiting): {t['ms']:.3f} ms events, device "
+                f"{fmt_ms(t['device_ms'])}, plain {t['plain_ms']:.1f} ms, "
+                f"torch.bmm over its experts {t['library_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.4f} ms by {t['bound_by']}; held to plain: "
+                f"{held}; {smi}")
+        r0 = ranks[0]["modes"][mode]
+        errs = [r["modes"][mode]["held"][MOE_SOURCES[kn]]["err"]
+                for r in ranks]
+        numbers[kn] = dict(r0["numbers"][kn], max_abs_err=max(errs),
+                           launches=r0["launches"][kn], ranks=[
+                               dict(ms=r["modes"][mode]["numbers"][kn]["ms"],
+                                    device_ms=r["modes"][mode]["numbers"][
+                                        kn]["device_ms"],
+                                    launches=r["modes"][mode]["launches"][
+                                        kn]) for r in ranks])
+    r0 = ranks[0]
+    log(f"distributed (c): {K_WORLD} ranks over {r0['backend']} on one "
+        f"card, mesh (1, {K_WORLD}) under make_rules({K_RULES!r}): "
+        f"{cfg.n_experts // K_WORLD} of {cfg.n_experts} experts a rank "
+        f"(w_up block {r0['w_up']}); {MOE_LAYERS} of qwen3-moe's 94 layers "
+        f"(the whole model does not fit one card, and the {K_WORLD} ranks "
+        f"share this one), and every rank computes the attention, the "
+        f"router and the head of all tokens (the dense layers' compute "
+        f"repeated {K_WORLD} times on the card); memory by rank: whole model "
+        + ", ".join(f"{r['whole_gb']:.2f}" for r in ranks)
+        + " GB before sharding, "
+        + ", ".join(f"{r['sharded_gb']:.2f}" for r in ranks)
+        + " GB after (built and sharded in "
+        + ", ".join(f"{r['build_s']:.1f}" for r in ranks)
+        + " s); the collectives take the CUDA tensors as they are (gloo "
+        "collective times on one card are host copies and loopback, not "
+        "NVLink times)")
+    return numbers
+
+
+def phase_distributed(torch, smi):
+    """Phase 20 (see the module docstring).  Returns {K-name: numbers} of
+    traffic K's K3/K4 launches (rank 0's, with every rank's times)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.testing import sharded_moe as sm
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(QWEN3_MOE), n_layers=MOE_LAYERS)
+    # (a) and (b) in the background while this process runs traffic K's
+    # single-process reference
+    nccl = {}
+
+    def run_a():
+        try:
+            nccl["out"] = launcher_nccl()
+        except Exception as e:       # re-raised below
+            nccl["error"] = e
+    import threading
+    a_thread = threading.Thread(target=run_a)
+    a_thread.start()
+    finish_b = sharded_smoke()
+    base = traffic_k_reference(torch, cfg)
+    t_ref = time.perf_counter()
+    a_thread.join()
+    if "error" in nccl:
+        raise nccl["error"]
+    backend, lines = nccl["out"]
+    log(f"distributed (a): python -m repro_torch.launch.serve --arch "
+        f"{QWEN3_MOE} --smoke in a one-rank group ({backend}) serves the "
+        f"tokens of the same command with no group: " + "; ".join(lines))
+    b_lines = finish_b()
+    log(f"distributed (b): {sm.WORLD} ranks over gloo on the card, float32, "
+        f"TF32 off, tests/test_moe_sharded.py's shapes (4 experts on mesh "
+        f"(1, 4) in dense / dual (K3) / weight / dual+kc (K4); 6 experts "
+        f"tensor-parallel at d_ff 32, the w_down k-plan warning once; mesh "
+        f"(2, 2)): " + "; ".join(b_lines) + "; the collectives take the "
+        "CUDA tensors as they are")
+    t_b = time.perf_counter()
+    d = DIST_DIR / "traffic_k"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    sm.spawn([sys.executable, str(ROOT / "chip_smoke.py"), "--rank-traffic-k",
+              str(d)], K_WORLD, timeout=RANK_TIMEOUT, env=dist_env(),
+             cwd=ROOT)
+    t_c = time.perf_counter()
+    numbers = check_traffic_k(torch, cfg, d, base, smi)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    log(f"distributed: phase {time.perf_counter() - t_phase:.0f} s "
+        f"(single-process reference, with (a) and (b) beside it, "
+        f"{t_ref - t_phase:.0f} s; (b) done {t_b - t_phase:.0f} s in; "
+        f"traffic K's ranks {t_c - t_b:.0f} s)")
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6396,6 +6972,10 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if sys.argv[1:2] == ["--train-restart"]:
         return train_restart_child(sys.argv[2])
+    if sys.argv[1:2] == ["--rank-moe"]:
+        return rank_moe(sys.argv[2])
+    if sys.argv[1:2] == ["--rank-traffic-k"]:
+        return rank_traffic_k(sys.argv[2])
     from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
@@ -6462,6 +7042,9 @@ def main() -> int:
     phase_tuning(torch, smi)
     trained, _ = phase_training(torch, smi)
     no_quarantine("training, traffic J")
+    torch.cuda.empty_cache()
+    distributed = phase_distributed(torch, smi)
+    no_quarantine("expert-parallel serving, traffic K")
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -6553,7 +7136,8 @@ def main() -> int:
                             ("traffic_g", hybrid["traffic_g"]),
                             ("traffic_h", hybrid["traffic_h"]),
                             ("traffic_i", vlm),
-                            ("traffic_j", trained)):
+                            ("traffic_j", trained),
+                            ("traffic_k", distributed)):
             if kn in nums:
                 m = nums[kn]
                 rows[-1][group] = {
@@ -6562,6 +7146,8 @@ def main() -> int:
                     "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
                     "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                     "library_ms": m["library_ms"]}
+                if "ranks" in m:
+                    rows[-1][group]["ranks"] = m["ranks"]
     log(f"kernels line: ms, plain_ms, bound_ms and library_ms are summed "
         f"over one generate's launches at the served types: K1/K2 bf16 over "
         f"{13 * NEW_TOKENS} dispatches (1 prefill of {PROMPTS * PROMPT_LEN} "
@@ -6595,7 +7181,13 @@ def main() -> int:
         f"and K2 over one cached-plan dual and dual+kc generate of {J_ARCH} "
         f"({J_LAYERS} layers) on the weights phase 19 trained, cast to bf16 "
         f"({J_PROMPTS} x {J_PROMPT_LEN} tokens, {J_NEW} new), replayed "
-        f"alike, library_ms torch.bmm over the product; total "
+        f"alike, library_ms torch.bmm over the product; under "
+        f"\"traffic_k\", K3 and K4 over one cached-plan dual and dual+kc "
+        f"generate of {QWEN3_MOE} ({MOE_LAYERS} layers) expert-parallel "
+        f"over {K_WORLD} ranks on the card (gloo), rank 0's launches "
+        f"replayed alone, max_abs_err over every rank's held launches, "
+        f"\"ranks\" each rank's ms and launches, library_ms torch.bmm "
+        f"over the rank's experts; total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

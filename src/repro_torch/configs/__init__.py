@@ -4,8 +4,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs.base import (ModelConfig, RunConfig, SHAPES,
-                                      SHAPES_BY_NAME, ServeConfig,
+from repro_torch.configs.base import (MeshConfig, ModelConfig, RunConfig,
+                                      SHAPES, SHAPES_BY_NAME, ServeConfig,
                                       ShapeConfig)
 
 _REGISTRY: Dict[str, ModelConfig] = {}
@@ -59,6 +59,7 @@ def _ensure_loaded():
         whisper_base, yi_34b)
 
 
-__all__ = ["ModelConfig", "RunConfig", "SHAPES", "SHAPES_BY_NAME",
-           "ServeConfig", "ShapeConfig", "get_config", "get_run_config",
-           "list_archs", "register", "runnable_shapes", "smoke_config"]
+__all__ = ["MeshConfig", "ModelConfig", "RunConfig", "SHAPES",
+           "SHAPES_BY_NAME", "ServeConfig", "ShapeConfig", "get_config",
+           "get_run_config", "list_archs", "register", "runnable_shapes",
+           "smoke_config"]

@@ -252,6 +252,21 @@ class RunConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names: (16, 16) over ("data",
+    "model") is one pod, (2, 16, 16) over ("pod", "data", "model") two."""
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Continuous-batching engine knobs (:mod:`repro_torch.serving`).
 

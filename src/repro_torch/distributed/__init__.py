@@ -1,5 +1,6 @@
-"""Distribution substrate: gradient compression (tensor arithmetic, no
-process group).  Sharding waits for the port's multi-card work."""
-from repro_torch.distributed import compression
+"""Distribution: gradient compression (tensor arithmetic, no process
+group), the sharding rules and specs, and the collectives of the sharded
+MoE."""
+from repro_torch.distributed import comm, compression, sharding
 
-__all__ = ["compression"]
+__all__ = ["comm", "compression", "sharding"]

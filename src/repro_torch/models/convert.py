@@ -15,8 +15,18 @@ VLM cross layer's scalar ``gate_attn``.  A conv frontend's leaves
 (``conv1``/``b1``/``conv2``/``b2``, or ``patch``/``bias``/``pos`` and
 ``cls``) go to ``model.frontend``.  A tied model has no ``lm_head``.
 Layouts are the same on both sides, so each leaf is a plain copy.
+
+The name map: :func:`repro_torch.training.optimizer.stacked_leaf` gives
+the JAX leaf (and stacking index) of a port parameter, and
+:func:`param_axes` its logical axes, the JAX
+package's ``init_model`` specs without the stacking axis ``"layers"``
+(``layers.posP.attn.wq`` has ``("layers", "embed", "heads",
+"head_dim")``; the port's ``layers.i.attn.wq`` has ``("embed", "heads",
+"head_dim")``).
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +38,52 @@ from repro_torch.training import optimizer as opt
 
 MAMBA_KEYS = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D", "norm",
               "out_proj")
+
+_ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"),
+              "wo": ("heads", "head_dim", "embed"),
+              "bq": ("heads", "head_dim"),
+              "bk": ("kv_heads", "head_dim"),
+              "bv": ("kv_heads", "head_dim")}
+# the JAX package's logical axes of each leaf, by the block that holds it
+# (a layer's, without "layers"); a norm block's leaves are ("embed",)
+_BLOCK_AXES = {
+    "attn": _ATTN_AXES,
+    "cross_attn": _ATTN_AXES,
+    "mlp": {"w_up": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")},
+    "moe": {"router": ("embed", "experts"),
+            "w_up": ("experts", "embed", "mlp"),
+            "w_gate": ("experts", "embed", "mlp"),
+            "w_down": ("experts", "mlp", "embed")},
+    "mamba": {"A_log": ("ssm_heads",), "D": ("ssm_heads",),
+              "dt_bias": ("ssm_heads",), "conv_b": ("ssm_inner",),
+              "conv_w": (None, "ssm_inner"),
+              "in_proj": ("embed", "ssm_inner"), "norm": ("ssm_inner",),
+              "out_proj": ("ssm_inner", "embed")},
+    "frontend": {"conv1": (None, None, None, "embed"),
+                 "conv2": (None, None, None, "embed"),
+                 "patch": (None, None, None, "embed"),
+                 "b1": ("embed",), "b2": ("embed",), "bias": ("embed",),
+                 "cls": ("embed",), "pos": (None, "embed")},
+}
+_TOP_AXES = {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+             "gate_attn": ()}
+
+
+def param_axes(name: str) -> Tuple[Optional[str], ...]:
+    """The logical axes of port parameter ``name`` (one per dimension)."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "enc_layers"):
+        parts = parts[2:]
+    leaf = parts[-1]
+    if len(parts) == 1:
+        return _TOP_AXES[leaf]
+    block = parts[-2]
+    if block.endswith("norm") or block.startswith("norm"):
+        return ("embed",)
+    return _BLOCK_AXES[block][leaf]
 
 
 def from_jax_params(tree, cfg: ModelConfig, device=None,

@@ -3,18 +3,20 @@ package's ``models/model_zoo.py``.
 
 Where the JAX package returns ``jax.ShapeDtypeStruct`` stand-ins, these
 return tensors on the ``meta`` device, which carry a shape and a dtype
-and allocate nothing.  The logical sharding specs of ``build_model`` and
-``abstract_params`` wait for the port's sharding.
+and allocate nothing.  ``abstract_params`` returns the logical specs
+beside them, keyed by the port's parameter names
+(``convert.param_axes``), for ``distributed.sharding.tree_pspecs``.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import device as devmod
 from repro_torch.models import transformer
+from repro_torch.models.convert import param_axes
 
 META = torch.device("meta")
 
@@ -30,10 +32,13 @@ def build_model(cfg: ModelConfig, seed: int = 0, *, device=None
         dtype=torch.float32)
 
 
-def abstract_params(cfg: ModelConfig) -> transformer.Transformer:
-    """The float32 model of ``cfg`` on the meta device: every parameter's
-    shape and dtype, no storage."""
-    return transformer.Transformer(cfg, device=META, dtype=torch.float32)
+def abstract_params(cfg: ModelConfig
+                    ) -> Tuple[transformer.Transformer, Dict[str, tuple]]:
+    """(the float32 model of ``cfg`` on the meta device: every parameter's
+    shape and dtype, no storage; {parameter name: logical axes}), as the
+    JAX package returns (shapes, logical specs)."""
+    model = transformer.Transformer(cfg, device=META, dtype=torch.float32)
+    return model, {n: param_axes(n) for n, _ in model.named_parameters()}
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig

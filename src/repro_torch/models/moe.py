@@ -12,22 +12,37 @@ all experts in one launch.  Empty capacity slots are zero rows, so an
 expert no token picked has ``counts == 0`` in every block and its weights
 are never read: dual-side sparsity the gating makes, with no pruning.
 
-``moe_forward`` is the JAX package's local path: its ``shard_map``
-expert parallelism waits for the port's multi-card work.
+Under a mesh (:func:`repro_torch.models.nn.axis_rules` with ``mesh=``)
+``moe_forward`` runs the JAX package's ``shard_map`` MoE on
+``torch.distributed`` (:func:`_moe_shard_map`): experts split over the
+``"experts"`` rule's mesh axis when they divide it (expert parallelism,
+the capacity buffers and their bitmaps through ``all_to_all``), the FFN
+dimension split otherwise (tensor parallelism, the partial products
+summed with ``all_reduce``), the batch over the ``"batch"`` rule's axes.
+A module runs sharded once :func:`shard_moe_` has cut its router, its
+expert weights and their cached plans to the rank's blocks.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import stats
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import nn as tnn
 from repro_torch.models.mlp import _activate
 from repro_torch.sparse import activation as act
+from repro_torch.sparse import dispatch as dsp
 from repro_torch.sparse import plan as pln
 from repro_torch.sparse import site
+from repro_torch.sparse import tape
+from repro_torch.sparse import weights as spw
 from repro_torch.sparse.weights import planned_or_array
 
 
@@ -47,6 +62,8 @@ class MoE(nn.Module):
         self.w_up = param(e, d, f)
         self.w_down = param(e, f, d)
         self.w_gate = param(e, d, f) if cfg.mlp_type == "swiglu" else None
+        # how the parameters are cut over a mesh (None: held whole)
+        self.shard: Optional[MoEShard] = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's stddevs, drawn in its order."""
@@ -84,42 +101,67 @@ def moe_site(key: str) -> site.OpSite:
     return site.make("grouped", name, axes=axes)
 
 
-def _expert_ffn(moe: MoE, xe: torch.Tensor, cfg: ModelConfig,
-                plans: Optional[Dict] = None) -> torch.Tensor:
-    """The batched expert FFN over the stacked weights: xe (E, cap, d) →
-    (E, cap, d).
+def _expert_ffn(w: Dict[str, torch.Tensor], xe, cfg: ModelConfig,
+                plans: Optional[Dict] = None, *, collect_stats: bool = False,
+                out_dtype=None) -> Tuple[torch.Tensor, Dict]:
+    """The batched expert FFN over stacked weights ``w`` (by their JAX
+    keys): xe (E, cap, d) → ye (E, cap, d).
 
     Dense mode multiplies every expert's buffer with ``torch.bmm`` (the
     JAX einsum); a sparse mode routes each projection through
     :func:`repro_torch.sparse.site.grouped_matmul`, planning the weights
-    per call unless ``plans`` carries their cached activities."""
-    w = moe.weights()
-    dt = xe.dtype
-    if cfg.sparse_mode == "dense":
-        h = torch.bmm(xe, w["w_up"].to(dt))
-        gate = torch.bmm(xe, w["w_gate"].to(dt)) if "w_gate" in w else None
-        return torch.bmm(_activate(h, gate, cfg.mlp_type),
-                         w["w_down"].to(dt))
+    per call unless ``plans`` carries their cached activities.  ``xe`` may
+    be a :class:`~repro_torch.sparse.activation.SparseActivation` whose
+    bitmap came through the expert ``all_to_all`` (the sharded MoE): it
+    is never encoded again, and the dense branch reads its values.
 
-    # weight mode never reads activation metadata: skip the encode
-    x_in = (act.sparsify(xe, slice_k=pln.effective_slice_k(
-        xe.shape[-1], cfg.sparse_slice_k))
-        if cfg.sparse_mode == "dual" else xe)
+    This is the shard-local FFN: the sharded MoE calls it on the rank's
+    buffers and its blocks of the weights and plans.  Returns ``(ye,
+    steps)``: ``steps`` maps tape names to each routed product's
+    StepCounts when ``collect_stats`` (the sharded MoE sums them over the
+    mesh and records the totals), empty otherwise.  ``out_dtype``
+    (optional) pins every routed product's accumulation type.
+    """
+    xv = dsp._values(xe)
+    dt = xv.dtype
+    steps: Dict[str, object] = {}
+    if cfg.sparse_mode == "dense":
+        h = torch.bmm(xv, w["w_up"].to(dt))
+        gate = torch.bmm(xv, w["w_gate"].to(dt)) if "w_gate" in w else None
+        return torch.bmm(_activate(h, gate, cfg.mlp_type),
+                         w["w_down"].to(dt)), steps
+
+    # weight mode never reads activation metadata, so skip the encode; an
+    # xe that is already a SparseActivation carries the bitmap encoded
+    # before the permute: never encode it again
+    if isinstance(xe, act.SparseActivation):
+        x_in = xe if cfg.sparse_mode == "dual" else xe.values
+    else:
+        x_in = (act.sparsify(xe, slice_k=pln.effective_slice_k(
+            xe.shape[-1], cfg.sparse_slice_k))
+            if cfg.sparse_mode == "dual" else xe)
     ebn = cfg.sparse_block_n if cfg.sparse_kcondense else 0
 
     def grouped(key: str, x_op):
         st = moe_site(key)
-        y, _ = site.grouped_matmul(
+        xv = dsp._values(x_op)
+        kwr = site.resolve(st, cfg, m=xv.shape[1], n=w[key].shape[-1],
+                           k=xv.shape[-1], e=xv.shape[0], dtype=dt,
+                           device=xv.device)
+        if out_dtype is not None:
+            kwr["out_dtype"] = out_dtype
+        y, steps[st.name] = site.grouped_matmul(
             x_op, planned_or_array(w[key], plans, key, dt, cfg.sparse_slice_k,
                                    block_n=ebn, site=st),
-            st, cfg)
+            st, cfg, collect_stats=collect_stats, resolved=kwr)
         return y
 
     h = grouped("w_up", x_in)
     gate = grouped("w_gate", x_in) if "w_gate" in w else None
     h = act.activate(h, cfg.mlp_type, slice_k=pln.effective_slice_k(
         h.shape[-1], cfg.sparse_slice_k), gate=gate)
-    return grouped("w_down", h)
+    ye = grouped("w_down", h)
+    return ye, {k: v for k, v in steps.items() if v is not None}
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -186,20 +228,344 @@ def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
                 plans: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) → (y (B, S, d), the float32 auxiliary loss), dropping
-    picks past each expert's capacity: the JAX package's ``_moe_local``.
-    ``plans`` carries the cached weight activities of the expert
-    projections (optional: without them the sparse modes plan the weights
-    per call)."""
+    picks past each expert's capacity.  ``plans`` carries the cached
+    weight activities of the expert projections (optional: without them
+    the sparse modes plan the weights per call).
+
+    Under a mesh (``nn.axis_rules(rules, mesh=mesh)``) it runs sharded
+    (:func:`_moe_shard_map`, on a module :func:`shard_moe_` has cut for
+    that mesh); otherwise on the whole module (:func:`_moe_local`)."""
+    if tnn.current_mesh() is not None:
+        return _moe_shard_map(moe, x, cfg, plans=plans)
+    if moe.shard is not None:
+        raise ValueError("moe_forward: this MoE holds one rank's blocks of "
+                         "its weights; run it under nn.axis_rules(rules, "
+                         "mesh=...) with the mesh it was sharded for")
+    return _moe_local(moe, x, cfg, plans=plans)
+
+
+def _moe_local(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+               plans: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_moe_local``: one device, the whole batch."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
     xt = x.reshape(b * s, d)
     gates = router_gates(moe, xt)
     xe, dest_e, dest_p, kept, top_g, top_i = _dispatch_local(
         xt, gates, e, k, capacity(cfg, b * s))
-    ye = _expert_ffn(moe, xe, cfg, plans=plans)
+    ye, _ = _expert_ffn(moe.weights(), xe, cfg, plans=plans)
     y = _combine_local(ye, dest_e, dest_p, kept, top_g, e, x.dtype)
-    # the Switch-style load-balancing loss: the density counts each
-    # token's first pick
+    return y.reshape(b, s, d), _aux_loss(gates, top_i, e)
+
+
+def _aux_loss(gates: torch.Tensor, top_i: torch.Tensor, e: int
+              ) -> torch.Tensor:
+    """The Switch-style load-balancing loss: the density counts each
+    token's first pick."""
     density = F.one_hot(top_i[:, 0], e).to(torch.float32).mean(0)
-    aux = e * torch.sum(density * gates.mean(0))
+    return e * torch.sum(density * gates.mean(0))
+
+
+# ---------------------------------------------------------------------------
+# the sharded MoE on torch.distributed
+# ---------------------------------------------------------------------------
+
+_PLAN_KEYS = ("w_up", "w_gate", "w_down")
+
+
+def _mesh_axes(rule, mesh) -> Tuple[str, ...]:
+    """A rule's mesh axes that the mesh has."""
+    parts = shd._parts(rule)
+    return tuple(p for p in parts if p in mesh.mesh_dim_names)
+
+
+def _size(mesh, axes: Tuple[str, ...]) -> int:
+    """The number of blocks over mesh ``axes`` (1 for none)."""
+    sizes, n = shd.mesh_sizes(mesh), 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _mesh_key(mesh) -> tuple:
+    return (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.shape),
+            tuple(mesh.mesh_dim_names))
+
+
+@dataclasses.dataclass
+class MoEShard:
+    """How a MoE's parameters are cut over a mesh (:func:`shard_moe_`).
+
+    ``tp_axes``: the mesh axes of the ``"experts"`` rule, ``tp`` their
+    size; ``dp_axes``/``dp`` those of the ``"batch"`` rule.  Expert
+    parallel (``ep_mode``: E divides by tp > 1) holds E/tp whole experts;
+    tensor parallel holds every expert's 1/tp of the FFN dimension.  The
+    router, ``w_up`` and ``w_gate`` are cut along d over the data axes
+    (gathered at each call).  ``key`` names the mesh; ``plans``: the
+    rank's blocks of the cached plan activities at
+    ``slice_k`` (``w_down``'s dropped when ``down_ok`` is false: its
+    tensor-parallel k-plan cannot be sliced, so it is planned per call
+    from the local block), and under kcondense their ``"<key>@elem"``
+    element activities at ``block_n`` (0: none cached)."""
+    key: tuple
+    tp_axes: Tuple[str, ...]
+    dp_axes: Tuple[str, ...]
+    tp: int
+    dp: int
+    ep_mode: bool
+    down_ok: bool
+    plans: Dict[str, torch.Tensor]
+    slice_k: int
+    block_n: int
+
+
+def moe_specs(cfg: ModelConfig, mesh, rules: Dict[str, Any]
+              ) -> Tuple[Dict[str, shd.PartitionSpec], bool, tuple, tuple]:
+    """(each parameter's spec, ep_mode, tp_axes, dp_axes) of the sharded
+    MoE under ``rules`` on ``mesh``: the JAX package's ``shard_map``
+    in_specs for x's data axes at their full size."""
+    tp_axes = _mesh_axes(rules.get("experts"), mesh)
+    dp_axes = _mesh_axes(rules.get("batch"), mesh)
+    tp = _size(mesh, tp_axes)
+    ep_mode = cfg.n_experts % tp == 0 and tp > 1
+    ep, dp = shd._entry(tp_axes), shd._entry(dp_axes)
+    if ep_mode:
+        up = shd.PartitionSpec(ep, dp, None)
+        down = shd.PartitionSpec(ep, None, None)
+    else:
+        up = shd.PartitionSpec(None, dp, ep)
+        down = shd.PartitionSpec(None, ep, None)
+    specs = {"router": shd.PartitionSpec(dp, None), "w_up": up,
+             "w_down": down}
+    if cfg.mlp_type == "swiglu":
+        specs["w_gate"] = up
+    return specs, ep_mode, tp_axes, dp_axes
+
+
+@torch.no_grad()
+def shard_moe_(moe: MoE, cfg: ModelConfig, mesh, rules: Dict[str, Any]
+               ) -> MoE:
+    """Cut ``moe`` in place to this rank's blocks under ``rules`` on
+    ``mesh``: its router, expert weights and the cached plan activities
+    of its expert projections (planned from the whole weights at
+    ``cfg.sparse_slice_k``, and under ``cfg.sparse_kcondense`` their
+    element activities at ``cfg.sparse_block_n``, then cut by the plan
+    specs: ``sharding.plan_specs_from_sites``).  The whole tensors are dropped,
+    so a rank's expert memory falls by the expert-parallel factor.
+    Returns ``moe``."""
+    if moe.shard is not None:
+        raise ValueError("shard_moe_: the MoE is already sharded")
+    specs, ep_mode, tp_axes, dp_axes = moe_specs(cfg, mesh, rules)
+    for axes in (tp_axes, dp_axes):
+        # the collectives take blocks in group-rank order
+        order = comm.group_order(mesh, axes) if axes else []
+        if order != sorted(order):
+            raise ValueError(f"shard_moe_: mesh axes {axes} must follow "
+                             f"the mesh's order {mesh.mesh_dim_names}")
+    tp, dp = _size(mesh, tp_axes), _size(mesh, dp_axes)
+    f, sk = cfg.d_ff, cfg.sparse_slice_k
+    down_ok = ep_mode or pln.kplan_shardable(f, tp, sk)
+    bn = cfg.sparse_block_n if cfg.sparse_kcondense else 0
+    whole = spw.plan_layer_weights(moe.weights(), slice_k=sk,
+                                   block_n=bn or None)
+    sites = {k: moe_site(k) for k in _PLAN_KEYS}
+    plan_specs = shd.plan_specs_from_sites(
+        sites, shd._entry(tp_axes), ep_mode=ep_mode, k_shardable=down_ok)
+    # an element activity (…, K, N/block_n) is exact per row of K, so it
+    # cuts like its weight along K; along N (tensor-parallel w_up and
+    # w_gate) only at whole column blocks
+    elem_specs = shd.plan_specs_from_sites(
+        sites, shd._entry(tp_axes), ep_mode=ep_mode, k_shardable=True)
+    n_cut_ok = ep_mode or bool(bn) and (f // tp) % bn == 0
+    plans = {}
+    for key, a in whole.items():
+        base, _, elem = key.partition("@")
+        if base == "w_down" and not down_ok:
+            continue
+        if elem and base != "w_down" and not n_cut_ok:
+            continue
+        spec = elem_specs[base] if elem else plan_specs[base]
+        plans[key] = shd.local_slice(a, spec, mesh).clone()
+    for name, spec in specs.items():
+        block = shd.local_slice(getattr(moe, name), spec, mesh).clone()
+        setattr(moe, name, nn.Parameter(block, requires_grad=False))
+    moe.shard = MoEShard(key=_mesh_key(mesh), tp_axes=tp_axes,
+                         dp_axes=dp_axes, tp=tp, dp=dp, ep_mode=ep_mode,
+                         down_ok=down_ok, plans=plans, slice_k=sk,
+                         block_n=bn)
+    return moe
+
+
+def shard_moe_layers_(model: nn.Module, cfg: ModelConfig, mesh,
+                      rules: Dict[str, Any]) -> int:
+    """:func:`shard_moe_` on every MoE of ``model``; returns how many."""
+    n = 0
+    for module in model.modules():
+        if isinstance(module, MoE):
+            shard_moe_(module, cfg, mesh, rules)
+            n += 1
+    return n
+
+
+def shard_plans(moe: MoE, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The cached plan activities of a sharded MoE, the rank's blocks
+    (``transformer.plan_weight_activities`` of a sharded model); the
+    element activities only under kcondense at the ``block_n`` they were
+    cut at."""
+    sh = moe.shard
+    if cfg.sparse_slice_k != sh.slice_k:
+        raise ValueError(f"the MoE was sharded with plans at slice_k "
+                         f"{sh.slice_k}, not {cfg.sparse_slice_k}")
+    elem = cfg.sparse_kcondense and cfg.sparse_block_n == sh.block_n
+    return {k: v for k, v in sh.plans.items() if elem or "@" not in k}
+
+
+def _check_shard(moe: MoE, mesh, rules: Dict[str, Any]) -> "MoEShard":
+    sh = moe.shard
+    if (sh is None or sh.key != _mesh_key(mesh)
+            or sh.tp_axes != _mesh_axes(rules.get("experts"), mesh)
+            or sh.dp_axes != _mesh_axes(rules.get("batch"), mesh)):
+        raise ValueError("moe_forward: the MoE is not sharded for the "
+                         "active mesh and rules; call "
+                         "moe.shard_moe_(module, cfg, mesh, rules) first")
+    return sh
+
+
+def _to_experts(v: torch.Tensor, group, tp: int) -> torch.Tensor:
+    """(E, cap, ...) on every rank → (E/tp, tp·cap, ...): each rank's
+    local experts, the capacity buffers of every source rank side by side
+    in rank order (``all_to_all``, split 0, concat 1)."""
+    out = comm.all_to_all(v, group)
+    el, rest = v.shape[0] // tp, v.shape[1:]
+    return out.reshape(tp, el, *rest).transpose(0, 1).reshape(
+        el, tp * rest[0], *rest[1:])
+
+
+def _from_experts(y: torch.Tensor, group, tp: int) -> torch.Tensor:
+    """The inverse permute: (E/tp, tp·cap, ...) → (E, cap, ...), each
+    source rank's capacity slice back to it (split 1, concat 0)."""
+    el, cap = y.shape[0], y.shape[1] // tp
+    v = y.reshape(el, tp, cap, *y.shape[2:]).transpose(0, 1).reshape(
+        tp * el, cap, *y.shape[2:])
+    return comm.all_to_all(v, group)
+
+
+def _sum_steps(steps: Dict[str, stats.StepCounts], group, dev
+               ) -> Dict[str, stats.StepCounts]:
+    """Each StepCounts summed over ``group`` (the whole mesh)."""
+    out = {}
+    for name, sc in steps.items():
+        t = torch.stack([torch.as_tensor(v, device=dev).to(torch.int64)
+                         for v in sc])
+        t = comm.all_reduce(t, group)
+        out[name] = stats.StepCounts(dense=t[0], sparse=t[1],
+                                     tiles_skipped=t[2])
+    return out
+
+
+def _moe_shard_map(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+                   plans: Optional[Dict] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's expert-parallel / tensor-parallel MoE block
+    (``_moe_shard_map``) on ``torch.distributed``.  Every rank holds the
+    whole ``x``.
+
+    * the data axes — the largest of the ``"batch"`` rule's mesh axes
+      that divide B split the batch: a rank dispatches its own rows with
+      the capacity of its own tokens.  The router and the up/gate weights,
+      held cut along d over the data axes, are gathered
+      (``all_gather``), the aux loss is averaged over them, and the
+      outputs gathered back;
+    * EP branch (E divides by tp > 1) — in a sparse ``dual`` mode the
+      capacity buffers are encoded *before* the expert ``all_to_all``; the
+      packed bitmap and the slice activity (as uint8) ride a second one
+      through the same permute, so the local experts (K3, K4 under
+      ``sparse_kcondense``) plan from that metadata without encoding
+      again.  The outputs come back through a third;
+    * TP branch — experts replicated, FFN dimension split; the partial
+      down-projections are summed (``all_reduce``).  A cached ``w_down``
+      k-plan that cannot be sliced (``plan.kplan_shardable``) was
+      dropped at :func:`shard_moe_`; passing plans warns once and the
+      weight is planned per call from the local block;
+    * StepCounts are collected with the tape suppressed, summed over the
+      whole mesh, and recorded after the block, so the tape shows the
+      mesh totals (``Engine.profile_sparsity``).  Every rank must run
+      with a tape alike: the sum is a collective.
+    """
+    mesh, rules = tnn.current_mesh(), tnn.current_rules()
+    sh = _check_shard(moe, mesh, rules)
+    e, k = cfg.n_experts, cfg.n_experts_active
+    b, s, d = x.shape
+    # the data axes of this call: the largest run of the batch rule's
+    # axes whose size divides B (b=16 on ("pod","data")=2×16 → "data")
+    dpc = shd._best_divisible(sh.dp_axes, b, shd.mesh_sizes(mesh))
+    dpn = _size(mesh, dpc)
+    cap = capacity(cfg, (b // dpn) * s)
+    sparse_on = cfg.sparse_mode != "dense"
+    collect = sparse_on and tape.active()
+    if plans is not None and sparse_on and not sh.down_ok:
+        dsp.warn_once(
+            f"moe:w_down-plan-unshardable:{cfg.d_ff}:{sh.tp}:"
+            f"{cfg.sparse_slice_k}",
+            f"moe shard_map: cached w_down k-plan cannot be sliced over "
+            f"{sh.tp} tensor-parallel shards (d_ff={cfg.d_ff} does not "
+            f"align with slice_k={cfg.sparse_slice_k} boundaries); "
+            "re-planning from the local weight shard instead (the same "
+            "schedule, stats unchanged)")
+    ploc = plans if sparse_on else None
+
+    if dpc:
+        lo, hi = shd.block_range(b, shd._entry(dpc), mesh)
+        x_blk = x[lo:hi]
+    else:
+        x_blk = x
+    xt = x_blk.reshape(-1, d)
+    g_dp = comm.axis_group(mesh, sh.dp_axes) if sh.dp > 1 else None
+    w = {"w_up": comm.all_gather(moe.w_up, g_dp, dim=1),
+         "w_down": moe.w_down}
+    if moe.w_gate is not None:
+        w["w_gate"] = comm.all_gather(moe.w_gate, g_dp, dim=1)
+    router = comm.all_gather(moe.router, g_dp, dim=0)
+    gates = torch.softmax(xt.to(torch.float32) @ router.to(torch.float32),
+                          dim=-1)
+    xe, dest_e, dest_p, kept, top_g, top_i = _dispatch_local(
+        xt, gates, e, k, cap)
+
+    g_tp = comm.axis_group(mesh, sh.tp_axes) if sh.tp > 1 else None
+    with tnn.manual_axes(), tape.suppress():
+        if sh.ep_mode:
+            if cfg.sparse_mode == "dual":
+                sk = pln.effective_slice_k(d, cfg.sparse_slice_k)
+                xs = act.sparsify(xe, slice_k=sk)
+                xr = act.SparseActivation(
+                    values=_to_experts(xs.values, g_tp, sh.tp),
+                    bitmap=_to_experts(xs.bitmap, g_tp, sh.tp),
+                    slice_act=_to_experts(xs.slice_act.to(torch.uint8),
+                                          g_tp, sh.tp).to(torch.bool),
+                    slice_k=sk)
+            else:
+                xr = _to_experts(xe, g_tp, sh.tp)
+            yr, st = _expert_ffn(w, xr, cfg, plans=ploc,
+                                 collect_stats=collect)
+            ye = _from_experts(yr, g_tp, sh.tp)
+        else:
+            ye, st = _expert_ffn(w, xe, cfg, plans=ploc,
+                                 collect_stats=collect)
+            ye = comm.all_reduce(ye, g_tp)
+
+    y = _combine_local(ye, dest_e, dest_p, kept, top_g, e, x.dtype)
+    aux = _aux_loss(gates, top_i, e)
+    if dpc:
+        g = comm.axis_group(mesh, dpc)
+        aux = comm.all_reduce(aux, g) / dpn
+        y = comm.all_gather(y.reshape(x_blk.shape), g, dim=0)
+    if collect:
+        # the mesh-total schedule: every rank's counted steps summed,
+        # recorded outside the block
+        st = _sum_steps(st, comm.axis_group(mesh, mesh.mesh_dim_names),
+                        x.device)
+        for name, sc in st.items():
+            tape.record(name, sc, sc.sparse if cfg.sparse_use_kernel
+                        else None)
     return y.reshape(b, s, d), aux

@@ -1,15 +1,27 @@
-"""Norms and positions: the JAX package's ``models/nn.py`` without
-the sharding helpers.
+"""Norms, positions and the logical-axis context: the JAX package's
+``models/nn.py``.
 
 Norm parameters are ``nn.ParameterDict``s with a ``scale`` (and, for
 layer norm, a ``bias``), mirroring the JAX parameter dicts.
+
+The launcher installs logical → mesh axis rules with :func:`axis_rules`,
+and with a mesh the MoE runs sharded (``moe._moe_shard_map``).
+:func:`shard_act` returns its input unchanged: the JAX package's
+``with_sharding_constraint`` only moves where a value lives, never what
+it is, and in the port every rank holds the activations whole.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+
+from repro_torch.distributed.sharding import (_best_divisible,  # noqa: F401
+                                              mesh_sizes, spec_from_axes)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -64,3 +76,110 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int,
     pe[..., 0::2] = torch.sin(pos * div)
     pe[..., 1::2] = torch.cos(pos * div)
     return pe.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# logical-axis rules context
+# ---------------------------------------------------------------------------
+
+_RULES: contextvars.ContextVar[Optional[Dict[str, Any]]] = \
+    contextvars.ContextVar("logical_axis_rules", default=None)
+_AXIS_SIZES: contextvars.ContextVar[Optional[Dict[str, int]]] = \
+    contextvars.ContextVar("mesh_axis_sizes", default=None)
+_MESH: contextvars.ContextVar[Optional[Any]] = \
+    contextvars.ContextVar("mesh", default=None)
+_MANUAL: contextvars.ContextVar[bool] = \
+    contextvars.ContextVar("shard_map_manual", default=False)
+
+
+@contextlib.contextmanager
+def axis_rules(rules: Dict[str, Any],
+               axis_sizes: Optional[Dict[str, int]] = None,
+               mesh: Optional[Any] = None):
+    """Install logical → mesh axis rules, e.g. {"batch": "data", ...}.
+
+    ``axis_sizes`` (mesh axis name → size; default the mesh's) makes
+    :func:`resolve_spec` divisibility-aware; ``mesh`` (a ``DeviceMesh``)
+    runs the MoE sharded over it.
+    """
+    token = _RULES.set(rules)
+    token2 = _AXIS_SIZES.set(axis_sizes if axis_sizes is not None
+                             else (mesh_sizes(mesh) if mesh is not None
+                                   else None))
+    token3 = _MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _RULES.reset(token)
+        _AXIS_SIZES.reset(token2)
+        _MESH.reset(token3)
+
+
+def resolve_spec(axes: Sequence[Optional[str]],
+                 shape: Optional[Sequence[int]] = None):
+    """Logical axis names → PartitionSpec under the current rules (None
+    without rules): a mesh axis at most once per spec, and with ``shape``
+    the mesh axes that do not divide a dim dropped."""
+    rules = _RULES.get()
+    if rules is None:
+        return None
+    sizes = _AXIS_SIZES.get() or {}
+    return spec_from_axes(axes, rules, shape if sizes else None,
+                          sizes if shape is not None and sizes else None)
+
+
+@contextlib.contextmanager
+def manual_axes():
+    """Mark a region as a sharded block's body, where every tensor is the
+    rank's own block: :func:`shard_act` is a no-op there (as it is
+    everywhere in the port)."""
+    token = _MANUAL.set(True)
+    try:
+        yield
+    finally:
+        _MANUAL.reset(token)
+
+
+def current_mesh():
+    return _MESH.get()
+
+
+def current_rules() -> Optional[Dict[str, Any]]:
+    return _RULES.get()
+
+
+def mesh_axis_size(name) -> int:
+    """The product of the sizes of mesh axis ``name`` (or a tuple of
+    names) under the current rules (1 for None or an unknown axis)."""
+    sizes = _AXIS_SIZES.get() or {}
+    if name is None:
+        return 1
+    parts = tuple(name) if isinstance(name, (tuple, list)) else (name,)
+    prod = 1
+    for p in parts:
+        prod *= sizes.get(p, 1)
+    return prod
+
+
+def shard_act(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """``x`` unchanged.  The JAX package constrains the activation's
+    placement here (``with_sharding_constraint`` under the rules), which
+    changes no value; the port keeps activations whole on every rank."""
+    return x
+
+
+def dim_shardable(size: int, logical: str) -> bool:
+    """True if ``size`` divides evenly over the mesh axes of ``logical``
+    under the current rules (True when no rules are installed)."""
+    rules = _RULES.get()
+    sizes = _AXIS_SIZES.get()
+    if rules is None or sizes is None:
+        return True
+    m = rules.get(logical)
+    if m is None:
+        return True
+    parts = tuple(m) if isinstance(m, (tuple, list)) else (m,)
+    prod = 1
+    for p in parts:
+        prod *= sizes.get(p, 1)
+    return size % prod == 0

@@ -43,6 +43,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import device as devmod
 from repro_torch.models import cache as kvc
 from repro_torch.models import frontend as fem
+from repro_torch.models import moe as moem
 from repro_torch.models import ssm as ssmm
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
@@ -451,7 +452,9 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
     weights flattened to their 2-D dispatch shapes (a VLM cross layer's
     under ``"attn"``), a MoE's over its stacked (E, K, N) expert weights;
     an encoder-decoder adds ``"enc_layers"``, and a conv frontend its
-    convs' ``"frontend"`` (the stem's or the patch's).  A Mamba block
+    convs' ``"frontend"`` (the stem's or the patch's).  A sharded MoE
+    (``moe.shard_moe_``) gives the rank's blocks of its plans, cut from
+    the whole weights' when it was sharded.  A Mamba block
     plans nothing (its projections are plain matmuls, as in the JAX
     package), and a tied head has no ``"lm_head"`` entry: it is planned
     per call.
@@ -474,7 +477,9 @@ def plan_weight_activities(model: Transformer, cfg: ModelConfig
         out: Dict[str, Any] = {}
         if layer.kind != "mamba":
             out["attn"] = attn_plans(layer.attn)
-        if layer.ffn is not None:
+        if layer.ffn_key == "moe" and layer.moe.shard is not None:
+            out["moe"] = moem.shard_plans(layer.moe, cfg)
+        elif layer.ffn is not None:
             out[layer.ffn_key] = spw.plan_layer_weights(
                 layer.ffn.weights(), slice_k=sk,
                 block_n=cfg.sparse_block_n if cfg.sparse_kcondense else None)

@@ -281,7 +281,9 @@ class Engine:
         per batch row, and the report ends with one
         ``kvcache.posP.layerI`` occupancy entry per sparse cache.  Runs
         beside the serving state, which it does not touch.  ``[]`` in
-        dense mode (nothing is routed).
+        dense mode (nothing is routed).  Inside ``nn.axis_rules(rules,
+        mesh=mesh)`` on every rank, a sharded MoE's ``moe.*`` entries are
+        the mesh totals: every rank's counted steps summed.
         """
         if self.cfg.sparse_mode == "dense":
             return []

@@ -328,6 +328,45 @@ def effective_slice_k(k: int, slice_k: int = SLICE_K) -> int:
     return min(slice_k, max(8, k))
 
 
+# ---------------------------------------------------------------------------
+# shard-local plans
+# ---------------------------------------------------------------------------
+
+def shard_plan(ks: torch.Tensor, counts: torch.Tensor, start: int,
+               size: int, axis: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Restrict a front-packed schedule to a contiguous fiber range.
+
+    ks (..., S) / counts (...) along a leading fiber axis (the expert axis
+    of a grouped plan, or the block-row axis of a 2-D plan).  Because
+    :func:`front_pack` is independent per fiber, slicing the *plan* along
+    a fiber axis is exactly the plan of the sliced *activity*: each rank's
+    block of the global plan is its local plan, with no re-planning (the
+    identity the sharded MoE rests on)."""
+    return (ks.narrow(axis, start, size), counts.narrow(axis, start, size))
+
+
+def kplan_shardable(k: int, n_shards: int, slice_k: int = SLICE_K) -> bool:
+    """Can a cached k-side slice activity be viewed per shard?
+
+    When a weight's contraction axis of depth ``k`` is split ``n_shards``
+    ways (tensor-parallel ``w_down``), the cached ``(…, S, N)`` activity
+    slices along S into valid per-shard plans only if shard boundaries
+    align with slice boundaries *and* the dispatch clamps to the same
+    granularity locally as globally (:func:`effective_slice_k`).  Fibers
+    along S are not independent under :func:`front_pack`, so this slices
+    the *activity*, never a packed schedule.  False when the view would
+    be invalid: callers then drop the cache and plan from the local weight
+    shard (the same schedule, planned per call)."""
+    if n_shards <= 1:
+        return True
+    if k % n_shards:
+        return False
+    k_loc = k // n_shards
+    sk = effective_slice_k(k, slice_k)
+    return effective_slice_k(k_loc, slice_k) == sk and k_loc % sk == 0
+
+
 def clamp_geometry(m: int, n: int, k: int, block_m: int, block_n: int,
                    slice_k: int) -> Tuple[int, int, int]:
     """Shrink blocks to small problems, never below :data:`MIN_BLOCK`.

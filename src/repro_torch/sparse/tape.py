@@ -34,6 +34,21 @@ def collect():
         _TAPE.reset(token)
 
 
+@contextlib.contextmanager
+def suppress():
+    """Deactivate the tape for a region (recording becomes a no-op).
+
+    The sharded MoE runs its expert products with ``collect_stats=True``
+    under ``suppress()``, sums the returned StepCounts over the mesh, and
+    records the totals after the block, so that the tape holds one
+    mesh-total entry per projection instead of each rank's share."""
+    token = _TAPE.set(None)
+    try:
+        yield
+    finally:
+        _TAPE.reset(token)
+
+
 def active() -> bool:
     return _TAPE.get() is not None
 

@@ -3,7 +3,8 @@ MoE expert products, a full-width Mamba block, a tied head, the VLM's
 vision frontend and every knob vector the tuner admits on the card
 against their plain versions and the CPU, the tuner's card timer, a
 smoke train step against the CPU's, the refusal of a gradient through a
-kernel and a bitwise restart of the launcher (needs an NVIDIA GPU with
+kernel, a bitwise restart of the launcher and a one-rank NCCL group's
+sharded MoE against the whole one (needs an NVIDIA GPU with
 nvcc; skipped elsewhere).  Run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
@@ -1103,6 +1104,76 @@ def test_deterministic_restart_on_card(cuda, tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert "resumed from step 3" in out.stdout
     assert out.stdout.rstrip().endswith("bitwise True"), out.stdout
+
+
+NCCL_CHILD = """
+import dataclasses
+import torch
+from repro_torch.configs import smoke_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import bitmap_spgemm as bsk
+from repro_torch.kernels import grouped_spgemm as gsk
+from repro_torch.launch import mesh as meshmod
+from repro_torch.models import moe as moem
+from repro_torch.models import nn as tnn
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = meshmod.init_distributed("cuda")
+assert torch.distributed.get_backend() == "nccl"
+mesh = meshmod.make_host_mesh()
+rules = shd.make_rules("decode")
+cfg = dataclasses.replace(smoke_config("qwen3-moe-235b-a22b"),
+                          sparse_mode="dual", sparse_use_kernel=True)
+g = torch.Generator(device=dev).manual_seed(0)
+whole = moem.MoE(cfg, device=dev, dtype=torch.float32)
+whole.reset_parameters(g)
+sharded = moem.MoE(cfg, device=dev, dtype=torch.float32)
+with torch.no_grad():
+    for a, b in zip(sharded.parameters(), whole.parameters()):
+        a.copy_(b)
+moem.shard_moe_(sharded, cfg, mesh, rules)
+x = torch.randn(2, 7, cfg.d_model, device=dev, generator=g)
+y0, aux0 = moem.moe_forward(whole, x, cfg)
+real, held = bsk.run, []
+def run(src, plain, a, b, sched, counts, **kw):
+    y = real(src, plain, a, b, sched, counts, **kw)
+    kw.pop("kfused"), kw.pop("device")
+    p = plain(a, b, sched, counts, **kw)
+    held.append((src, float((y - p).abs().max() / p.abs().max().clamp(min=1e-30))))
+    return y
+bsk.run = run
+n3 = gsk.grouped_spgemm_planned.launches
+with tnn.axis_rules(rules, mesh=mesh):
+    y1, aux1 = moem.moe_forward(sharded, x, cfg,
+                                plans=moem.shard_plans(sharded, cfg))
+bsk.run = real
+assert gsk.grouped_spgemm_planned.launches - n3 == 3, held
+assert [h[0] for h in held] == ["grouped_spgemm.cu"] * 3, held
+assert max(h[1] for h in held) <= 1e-5, held
+err = float((y1 - y0).abs().max() / y0.abs().max())
+assert err <= 1e-5 and abs(float(aux1 - aux0)) <= 1e-6, (err, aux0, aux1)
+torch.distributed.destroy_process_group()
+print("ok", err)
+"""
+
+
+def test_one_rank_nccl_moe_matches_no_mesh(cuda):
+    """A one-rank NCCL group's MoE under the host mesh and the decode
+    rules (the TP branch at tp = 1) equals the same MoE with no mesh, and
+    each of its K3 launches equals K3's plain walk."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    from repro_torch.testing import sharded_moe as sm
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(sm.free_port()))
+    out = subprocess.run([sys.executable, "-c", NCCL_CHILD], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "1 ranks over nccl" in out.stdout
+    assert out.stdout.split()[-2] == "ok", out.stdout
 
 
 def test_quarantine_report_empty_after_module(cuda):

@@ -245,7 +245,7 @@ def test_remat_context_rejects_unknown():
 def test_param_counts_match_jax(arch):
     for name in (arch, f"{arch}-smoke"):
         tcfg, jcfg = tconfigs.get_config(name), jconfigs.get_config(name)
-        tmodel = tzoo.abstract_params(tcfg)
+        tmodel, _ = tzoo.abstract_params(tcfg)
         assert {p.device.type for p in tmodel.parameters()} == {"meta"}
         shapes, _ = jzoo.abstract_params(jcfg)
         assert ttfm.count_params(tmodel) == jtfm.count_params(shapes)
