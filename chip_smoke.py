@@ -324,6 +324,36 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    held to its plain walk; tokens/s, memory by rank, one prefill MoE
    block split into collectives, K3/K4 and the rest, and each rank's
    K3/K4 launches replayed alone.
+21. sharded training on ``torch.distributed``, traffic L — ranks as in
+   20, four over gloo on the one card, every float32 master, moment and
+   gradient the rank's block under the train rules.  (a)
+   ``repro_torch.testing.sharded_train``'s smoke cases (two steps each,
+   float32, TF32 off): chatglm3-6b-smoke with adamw on meshes (4, 1),
+   (2, 2) and (1, 4) (and bf16 compute on (2, 2)), nemotron-4-340b-smoke
+   with Adafactor on (2, 2), with and without ``compress_grads``,
+   mixtral-8x7b-smoke (MoE, dense mode) on (4, 1) and (1, 4); each held
+   to the same steps in this process (for the MoE on a split batch, the
+   mean of each data block's gradients) by ``sharded_train.compare``;
+   a checkpoint saved on (4, 1) restored onto (2, 2) and into one
+   process, bit-equal and the third step alike.  (b) Traffic L:
+   full-width chatglm3-6b cut to 1 of its 28 layers (two do not fit four
+   ranks on the card), ``train_4k`` (8 microbatches, remat full, adamw
+   float32, bf16 compute), 32 x 4096 tokens a step, on the launcher's
+   host mesh (4, 1): two steps, a sharded checkpoint, a restore onto
+   (2, 2) for step 3 (16 microbatches of 2 rows, one a rank: two rows a
+   rank do not fit) and another into one process, against the same
+   three steps in this process, run first and written to disk while the
+   ranks start; each step's loss and grad norm, and after step 3 the
+   parameters' distance to the one process's over the distance the
+   steps moved them, each held to a limit that the same steps on half
+   of every microbatch's rows (a planted fault, run in this process)
+   must exceed; step times and tokens/s of a rank and of one process,
+   the collectives' share of a rank's step (host clock; gloo on one
+   card: host copies and loopback, not NVLink), each rank's bytes of
+   masters and moments, its peak memory and where its time went.  (c) The
+   weights restored into one process served in bf16 through
+   ``generate`` in dense, dual (K1) and dual+kc (K2), every K1/K2 launch
+   held to its plain walk, as in 19.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -335,7 +365,9 @@ import array
 import copy
 import dataclasses
 import functools
+import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -576,38 +608,73 @@ def cuda_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def device_ms_by_kernel(torch, fn, reps=20):
+# torch.cuda._sleep's kernel, launched around a traced call: a trace can
+# lose the events of the kernels launched first after it starts (one, or
+# on an H100 up to a hundred), so a spin kernel and a pause on the host
+# come first; the spin kernels' events are left out
+SPIN_KERNEL, SPIN_CYCLES, TRACE_SETTLE_S = "spin_kernel", 1000, 0.02
+
+
+def device_trace(torch, fn, activities):
+    """``fn()`` under a ``torch.profiler`` trace of ``activities``: ({name:
+    device us}, {name: events}) of the card's events, the spin kernels
+    around ``fn()`` left out.  Read from the raw Kineto events: the
+    profiler's event tree takes tens of seconds to build for a trace of
+    thousands of launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    with profile(activities=activities) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+        fn()
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+    us, count = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and SPIN_KERNEL not in e.name():
+            us[e.name()] = us.get(e.name(), 0.0) + e.duration_ns() / 1e3
+            count[e.name()] = count.get(e.name(), 0) + 1
+    return us, count
+
+
+def device_ms_by_kernel(torch, fn, reps=20, expect=None):
     """Device time per call of each kernel ``fn`` launches, by name, from a
     ``torch.profiler`` (CUPTI) trace of ``reps`` calls: the card's own
     time, without the host's time in the wrapper, which CUDA events around
-    a call of a microsecond-scale kernel mostly measure.  None when three
-    traces hold no device event: with the host's activity, with the
-    device's alone (late in a long run a trace of a kernel launched
-    through ctypes can come back empty with the host's activity on),
-    then with both again."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    a call of a microsecond-scale kernel mostly measure.  ``expect`` =
+    (name parts, n): a call launches at least n kernels whose names hold
+    one of the parts (any kernel, for no parts), and a trace that holds
+    fewer than ``reps`` x n of them lost events and is not taken.  None
+    when six traces hold no device event (or too few), by turns with the
+    host's activity and with the device's alone (late in a long run a
+    trace of a kernel launched through ctypes can come back empty with the
+    host's activity on)."""
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
     both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for activities in (both, [ProfilerActivity.CUDA], both):
-        with profile(activities=activities) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        per = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                per[e.name] = per.get(e.name, 0.0) + e.device_time_total
+
+    def calls():
+        for _ in range(reps):
+            fn()
+    for activities in (both, [ProfilerActivity.CUDA]) * 3:
+        per, count = device_trace(torch, calls, activities)
+        if expect is not None:
+            parts, n = expect
+            if sum(c for k, c in count.items()
+                   if (any(p in k for p in parts) if parts
+                       else not k.startswith("Mem"))) < reps * n:
+                continue
         if sum(per.values()) > 0:
             return {k: us / reps / 1e3 for k, us in per.items()}
     return None
 
 
-def device_ms(torch, fn, reps=20):
+def device_ms(torch, fn, reps=20, expect=None):
     """Device time per call of all the kernels ``fn`` launches (see
     :func:`device_ms_by_kernel`), or None."""
-    per = device_ms_by_kernel(torch, fn, reps)
+    per = device_ms_by_kernel(torch, fn, reps, expect)
     return None if per is None else sum(per.values())
 
 
@@ -2142,6 +2209,10 @@ def phase_conv_split(torch, cfg, model):
 PRUNE_SPARSITY = 0.5
 # the kernels K1 and K2 launch (their split sums included)
 K1K2_KERNELS = ("spgemm_mma_kernel", "spgemm_tile_kernel", "split_sum_kernel")
+# the kernel that each launch of K1-K4 starts (beside it a split schedule's
+# split_sum_kernel): a trace holds one of these a launch
+SPGEMM_MAIN = ("spgemm_mma_kernel", "spgemm_tile_kernel", "narrow_kernel",
+               "mixed_kernel")
 
 
 def serve_with_plans(torch, model, c, batch, new, plans, rc=None,
@@ -2212,12 +2283,12 @@ def planning_ms(torch, fn):
 
 def k1k2_device_and_bound(torch, fn):
     """K1/K2's device time during one ``fn()`` (a ``torch.profiler``
-    trace; None when the trace holds no device time) and their bound: over
-    every dispatch, the larger of the bytes its data needs over 3.35 TB/s
-    and its flops over the bf16 peak (:func:`needed_work` on the schedule
-    the dispatch built), in ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    trace; None when no trace holds every K1/K2 launch) and their bound:
+    over every dispatch, the larger of the bytes its data needs over 3.35
+    TB/s and its flops over the bf16 peak (:func:`needed_work` on the
+    schedule the dispatch built), in ms.  Two passes: the bound's, then
+    the traced one, whose trace then holds the served launches alone."""
+    from torch.profiler import ProfilerActivity
     from repro_torch.sparse import dispatch as dsp
     orig, bound = dsp.schedule, [0.0]
 
@@ -2234,27 +2305,26 @@ def k1k2_device_and_bound(torch, fn):
             bound[0] += max(nb / HBM_BYTES_PER_S,
                             fl / PEAK_FLOPS["bfloat16"]) * 1e3
         return sched, counts
+    dsp.schedule = hooked
+    try:
+        fn()
+    finally:
+        dsp.schedule = orig
+    counters = kernel_counters()
     # the device's activity alone keeps the trace small; with the host's
     # too where that traces nothing
     for activities in ([ProfilerActivity.CUDA],
                        [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        bound[0] = 0.0
         torch.cuda.synchronize()
-        dsp.schedule = hooked
-        try:
-            with profile(activities=activities) as prof:
-                fn()
-                torch.cuda.synchronize()
-        finally:
-            dsp.schedule = orig
-        total, k1k2 = 0.0, 0.0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                total += e.device_time_total
-                if any(k in e.name for k in K1K2_KERNELS):
-                    k1k2 += e.device_time_total
-        if total > 0:
-            return k1k2 / 1e3, bound[0]
+        reset_launches(counters)
+        per, count = device_trace(torch, fn, activities)
+        launched = sum(counters[kn].launches for kn in ("K1", "K2", "K3",
+                                                         "K4"))
+        traced = sum(c for k, c in count.items()
+                     if any(p in k for p in SPGEMM_MAIN))
+        if sum(per.values()) > 0 and traced >= launched:
+            return sum(us for k, us in per.items()
+                       if any(p in k for p in K1K2_KERNELS)) / 1e3, bound[0]
     return None, bound[0]
 
 
@@ -3891,13 +3961,24 @@ def replayed_numbers(torch, src, launches, plain=True):
         for a, b in lib_ops:
             torch.bmm(a, b)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, op_s
+    bound_ms = max(t_bytes, t_ops) * 1e3
+
+    def above_bound(what, dev):
+        if dev is not None and dev < bound_ms:
+            # under the least time the card can take: not a measurement
+            log(f"{src}: a trace of {what} read {dev:.4f} ms of device "
+                f"time, under the bound of {bound_ms:.4f} ms; not measured")
+            return None
+        return dev
     return dict(n=len(launches), shapes=shapes, sched_mb=sched_bytes / 1e6,
                 ms=cuda_ms(torch, kernels, 3),
-                device_ms=device_ms(torch, kernels, 3),
+                device_ms=above_bound(f"{len(launches)} launches", device_ms(
+                    torch, kernels, 3, (SPGEMM_MAIN, len(launches)))),
                 plain_ms=cuda_ms(torch, plains, 1) if plain else None,
                 library_ms=cuda_ms(torch, library, 3),
-                library_device_ms=device_ms(torch, library, 3),
-                bound_ms=max(t_bytes, t_ops) * 1e3,
+                library_device_ms=above_bound("torch.bmm", device_ms(
+                    torch, library, 3, ((), len(lib_ops)))),
+                bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 nbytes=nbytes, b_bytes=b_bytes, flops=flops)
 
@@ -6082,7 +6163,6 @@ def train_traffic_j(torch, smi):
     from repro_torch.launch import roofline
     from repro_torch.models import model_zoo
     from repro_torch.models import transformer as tfm
-    from repro_torch.serving import serve_loop
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train_loop as tl
     t_phase = time.perf_counter()
@@ -6180,33 +6260,51 @@ def train_traffic_j(torch, smi):
 
     # (c) the trained masters cast to bf16 and served
     del ostate
+    prompts = batch_at(J_SERVE_STEP)["tokens"][:J_PROMPTS, :J_PROMPT_LEN]
+    numbers = serve_trained(torch, "traffic J", model, cfg, prompts, J_NEW,
+                            smi)
+    del model
+    torch.cuda.empty_cache()
+    log(f"traffic J: phase {time.perf_counter() - t_phase:.0f} s")
+    return numbers, j
+
+
+def serve_trained(torch, what, model, cfg, prompts, new, smi):
+    """Phases 19 (c) and 21 (c): the trained float32 masters of ``model``
+    cast to bf16 and served through ``generate`` and on cached plans in
+    dense, dual (K1) and dual+kc (K2), each sparse mode's prefill logits
+    and tokens held to dense, then every K1/K2 launch of a cached-plan
+    generate held to its plain walk and replayed.  Returns {K-name:
+    numbers}."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_loop
     model.requires_grad_(False).to(torch.bfloat16)
     torch.cuda.empty_cache()
-    prompts = batch_at(J_SERVE_STEP)["tokens"][:J_PROMPTS, :J_PROMPT_LEN]
+    counters = kernel_counters()
     batch = {"tokens": prompts}
     per_forward = stack_launches(cfg)[0]
-    expect = {"dense": {}, "dual": {"K1": per_forward * J_NEW},
-              "dual+kc": {"K2": per_forward * J_NEW}}
+    expect = {"dense": {}, "dual": {"K1": per_forward * new},
+              "dual+kc": {"K2": per_forward * new}}
     served, plans = {}, {}
     for mode, knobs in MODES.items():
         c = dataclasses.replace(cfg, **knobs)
         plans[mode] = tfm.plan_weight_activities(model, c)
         reset_launches(counters)
         t0 = time.perf_counter()
-        toks = serve_loop.generate(model, batch, c, max_new_tokens=J_NEW)
+        toks = serve_loop.generate(model, batch, c, max_new_tokens=new)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        got = check_launches(f"traffic J {mode} generate", counters,
+        got = check_launches(f"{what} {mode} generate", counters,
                              expect[mode])
         reset_launches(counters)
-        r = served[mode] = serve_with_plans(torch, model, c, batch, J_NEW,
+        r = served[mode] = serve_with_plans(torch, model, c, batch, new,
                                             plans[mode])
-        check_launches(f"traffic J {mode} cached plans", counters,
+        check_launches(f"{what} {mode} cached plans", counters,
                        expect[mode])
         if not torch.equal(toks.cpu(), r["tokens"]):
-            raise AssertionError(f"traffic J {mode}: generate's tokens != "
+            raise AssertionError(f"{what} {mode}: generate's tokens != "
                                  "the cached-plan run's")
-        line = (f"traffic J: the trained weights in bf16, {mode} through "
+        line = (f"{what}: the trained weights in bf16, {mode} through "
                 f"generate ({wall:.0f} ms, launches {got}) and on cached "
                 "plans, the same tokens")
         if mode != "dense":
@@ -6214,28 +6312,27 @@ def train_traffic_j(torch, smi):
             tol = SERVE_RTOL * dense["prefill"].abs().max().item()
             err = (r["prefill"] - dense["prefill"]).abs().max().item()
             if not err <= tol:
-                raise AssertionError(f"traffic J {mode}: prefill logits "
+                raise AssertionError(f"{what} {mode}: prefill logits "
                                      f"differ from dense by {err} > {tol}")
             line += (f"; prefill logits within {err:.4f} of dense (<= "
                      f"{tol:.4f}); " + "; ".join(parting_report(
-                         torch, f"traffic J {mode}", r["tokens"],
+                         torch, f"{what} {mode}", r["tokens"],
                          dense["tokens"], dense["steps"], tol)))
         log(line)
     numbers = {}
     for mode, kn, src in (("dual", "K1", "bitmap_spgemm.cu"),
                           ("dual+kc", "K2", "bitmap_spgemm_kfused.cu")):
         c = dataclasses.replace(cfg, **MODES[mode])
-        got = held_generate(torch, f"traffic J {mode}", model, c, batch,
-                            plans[mode], None, None, J_NEW, ((kn, src),))
+        got = held_generate(torch, f"{what} {mode}", model, c, batch,
+                            plans[mode], None, None, new, ((kn, src),))
         t = numbers[kn] = got[kn]
         if t["launches"] != expect[mode][kn]:
-            raise AssertionError(f"traffic J: {t['launches']} {kn} launches "
+            raise AssertionError(f"{what}: {t['launches']} {kn} launches "
                                  f"held, {expect[mode][kn]} counted")
-        kernel_numbers_line(f"traffic J: {mode}", kn, t, smi)
-    del model, plans, served
+        kernel_numbers_line(f"{what}: {mode}", kn, t, smi)
+    del plans, served
     torch.cuda.empty_cache()
-    log(f"traffic J: phase {time.perf_counter() - t_phase:.0f} s")
-    return numbers, j
+    return numbers
 
 
 def train_restart_child(workdir):
@@ -6958,6 +7055,576 @@ def phase_distributed(torch, smi):
         f"traffic K's ranks {t_c - t_b:.0f} s)")
     return numbers
 
+# ---------------------------------------------------------------------------
+# phase 21: sharded training on torch.distributed, traffic L
+# ---------------------------------------------------------------------------
+
+# traffic L, a pretraining step over four ranks: full-width chatglm3-6b
+# cut to L_LAYERS of its 28 layers under its train_4k run config, a global
+# batch of L_BATCH sequences of L_SEQ tokens (one row a rank in each of
+# the 8 microbatches), on the launcher's host mesh (every rank on data);
+# L_STEPS steps, a checkpoint, then step L_STEPS + 1 restored onto
+# L_RESTORE_MESH and into one process.  Four ranks share the card's 79
+# GiB: two layers do not fit (a rank holds the whole bf16 copies, a whole
+# float32 accumulator and one row's float32 logits and attention scores),
+# so one layer; and the restored step runs L_RESTORE_MICRO microbatches
+# of 2 rows, one a rank as on (4, 1) (two rows a rank do not fit either):
+# for a dense model the same step, the mean gradient of the same tokens
+L_ARCH, L_LAYERS, L_BATCH, L_SEQ = "chatglm3-6b", 1, 32, 4096
+L_WORLD, L_STEPS, L_RESTORE_MESH, L_RESTORE_MICRO = 4, 2, (2, 2), 16
+L_PROMPTS, L_PROMPT_LEN, L_NEW, L_SERVE_STEP = 2, 32, 4, 1000
+TRAIN_DIR = ROOT / "build" / "repro_torch" / "sharded_train"
+# traffic L's limits against the one process, relative: each step's loss
+# and grad norm, and the parameters' distance after the restored step over
+# the distance the steps moved them.  Each lies between the sound runs'
+# readings (1.9e-6, 8.6e-6, 1.0e-2) and the planted fault's (1.05e-3,
+# 0.29, 0.63) on an H100 (PERF.md, traffic L)
+L_LOSS_RTOL, L_NORM_RTOL, L_DP_RTOL = 3e-5, 1e-3, 0.08
+# the collectives of the sharded train step (repro_torch.distributed.comm)
+TRAIN_COMM = ("all_gather", "all_reduce", "all_to_all", "sum_grad")
+
+
+def rank_train_smoke(out_dir):
+    """A rank of phase 21 (a): :mod:`repro_torch.testing.sharded_train`'s
+    cases on the card; no kernel may launch."""
+    from repro_torch.testing import sharded_train as st
+    d = Path(out_dir)
+    counters = kernel_counters()
+    reset_launches(counters)
+    st.main(["--inputs", str(d / "inputs.npz"), "--out", str(d)])
+    check_launches("sharded training, smoke", counters, {})
+    return 0
+
+
+def background_ranks(cmd, world, env):
+    """``spawn`` of ``world`` ranks of ``cmd`` on a thread: returns a
+    function that waits for them (re-raising a rank's failure)."""
+    import threading
+    from repro_torch.testing import sharded_train as st
+    box = {}
+
+    def ranks():
+        try:
+            box["outs"] = st.spawn(cmd, world, timeout=RANK_TIMEOUT, env=env,
+                                   cwd=ROOT)
+        except Exception as e:       # re-raised by wait()
+            box["error"] = e
+    thread = threading.Thread(target=ranks)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["outs"]
+    return wait
+
+
+def sharded_train_smoke():
+    """Phase 21 (a), started in the background: returns a function that
+    waits for the ranks and holds every case to its one-process run on
+    the card."""
+    import shutil
+    from repro_torch.testing import sharded_train as st
+    d = TRAIN_DIR / "smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    st.write_port_inputs(d / "inputs.npz")
+    wait = background_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--rank-train-smoke", str(d)], st.WORLD,
+                            dist_env())
+
+    def finish(torch):
+        import numpy as np
+        wait()
+        inputs = np.load(d / "inputs.npz")
+        loaded = st.load(d)
+        rows = []
+        for case in st.CASES:
+            got = st.compare(case, loaded, st.reference(case, inputs,
+                                                        "cuda"))
+            meta = loaded[0][1]
+            rows.append(f"{case} losses " + ", ".join(
+                f"{x:.6f}" for x in meta[f"{case}.loss"])
+                + f" (max rel err {got['loss_err']:.1e}), params "
+                f"{got['param_err']:.1e} x max|p|"
+                + (f" ({got['off']} codes rounded apart)"
+                   if st.CASES[case][3] else "")
+                + f", {meta[f'{case}.bytes'] / 1e3:.1f} kB a rank")
+        arrays, meta = loaded[0]
+        if not (all(m["restore.2x2.bit_equal"] for _, m in loaded)
+                and meta["restore.none.bit_equal"]):
+            raise AssertionError("sharded training: restored arrays differ "
+                                 "from the saved ones")
+        head = f"{st.RESTORE}.p3."
+        keys = [k for k in arrays if k.startswith(head)]
+        scale = max(float(np.abs(arrays[k]).max()) for k in keys)
+        for tag in ("restore.2x2", "restore.none"):
+            # the third step from the restored state against the
+            # uninterrupted run's, relative to the model's largest value:
+            # Adam's update of a gradient at rounding level (a zero-init
+            # bias's, say) moves with the summation order of another mesh
+            err = max(float(np.abs(arrays[f"{tag}.p3.{k[len(head):]}"]
+                                   - arrays[k]).max()) for k in keys) / scale
+            if not (err <= 1e-4 and abs(meta[f"{tag}.loss3"]
+                                        - meta[f"{st.RESTORE}.loss3"])
+                    <= 1e-5 * abs(meta[f"{st.RESTORE}.loss3"])):
+                raise AssertionError(f"sharded training: {tag} step 3 "
+                                     f"params {err} x max|p| off")
+            rows.append(f"{tag}: bit-equal, step 3 within {err:.1e} x "
+                        "max|p|")
+        shutil.rmtree(d, ignore_errors=True)
+        return rows
+    return finish
+
+
+def l_config():
+    from repro_torch.configs import get_config, get_run_config
+    cfg = dataclasses.replace(get_config(L_ARCH), n_layers=L_LAYERS)
+    rc = get_run_config(L_ARCH, "train_4k")
+    if (rc.microbatches, rc.optimizer, rc.accum_dtype, rc.act_dtype,
+            rc.remat) != (8, "adamw", "float32", "bfloat16", "full"):
+        raise AssertionError(f"{L_ARCH} train_4k run config {rc}")
+    return cfg, rc
+
+
+def l_batch(torch, cfg, i, rows=None):
+    """Traffic L's global batch of step ``i`` on the card (``rows``: those
+    of its rows alone)."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    data = SyntheticTokens(cfg.vocab_size, L_BATCH, L_SEQ, seed=0)
+    return {k: torch.from_numpy(v if rows is None else v[rows]).cuda()
+            for k, v in data.batch_at(i).items()}
+
+
+def l_half_rows(rc):
+    """The planted fault's rows: the first half of every microbatch's, the
+    rows of the first two of four data blocks (a gradient that lost the
+    other ranks' rows)."""
+    per = L_BATCH // rc.microbatches
+    return [i * per + j for i in range(rc.microbatches)
+            for j in range(per // 2)]
+
+
+def timed_step(torch, step, *args):
+    """One train step, synchronized: (its outputs, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def l2_distance(torch, named, want):
+    """sqrt of the sum over every parameter of ||p - want[name]||^2."""
+    return math.sqrt(sum(
+        torch.linalg.vector_norm(p.detach() - want[n].to(p.device)).item()
+        ** 2 for n, p in named))
+
+
+def traffic_l_reference(torch, d):
+    """Phase 21 (b)'s one-process run: traffic L's L_STEPS + 1 steps on
+    the whole model; the parameters after the last step go to disk.  Then
+    a planted fault, the same steps from the same start on half of every
+    microbatch's rows: its readings of the checks that hold the ranks
+    (each step's loss and grad norm, relative; the parameters' change
+    against the reference's, ||p - p_ref|| / ||p_ref - p_0||).  Returns
+    {losses, grad norms, step times, peak memory, ||p_ref - p_0||, the
+    fault's readings}."""
+    from repro_torch.models import model_zoo
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    cfg, rc = l_config()
+    model = model_zoo.build_model(cfg, 0)
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = tl.make_train_step(cfg, rc)
+
+    def steps(rows):
+        ostate = opt.init_opt_state(dict(model.named_parameters()), rc)
+        out = dict(losses=[], norms=[], times=[])
+        for i in range(L_STEPS + 1):
+            (_, ostate, _, m), dt = timed_step(
+                torch, step, model, ostate, None,
+                l_batch(torch, cfg, i, rows))
+            out["losses"].append(m["loss"].item())
+            out["norms"].append(m["grad_norm"].item())
+            out["times"].append(dt)
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    out = steps(None)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    p3 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    out["dp_norm"] = l2_distance(torch, p3.items(), p0)
+    torch.save({n: t.cpu() for n, t in p3.items()}, d / "reference.pt")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(p0[n])
+    half = steps(l_half_rows(rc))
+    out["fault"] = dict(
+        loss=max(abs(x - y) / abs(y)
+                 for x, y in zip(half["losses"], out["losses"])),
+        norm=max(abs(x - y) / abs(y)
+                 for x, y in zip(half["norms"], out["norms"])),
+        dp=l2_distance(torch, model.named_parameters(), p3) / out["dp_norm"],
+        s=time.perf_counter() - t0)
+    del model, step, p0, p3
+    # the ranks need the card: leave no cycle holding the model's tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def release_ranks(d, word):
+    """Tell traffic L's waiting ranks to build and train (``go``) or to
+    leave (``stop``)."""
+    (d / "go.tmp").write_text(word)
+    (d / "go.tmp").replace(d / "go")
+
+
+def ranks_released(d):
+    """In a rank: wait for :func:`release_ranks`; whether to go on."""
+    while not (d / "go").exists():
+        time.sleep(0.1)
+    return (d / "go").read_text() == "go"
+
+
+class CommClock:
+    """Host time inside the sharded step's collectives (the card
+    synchronized on both sides of each), while ``on``."""
+
+    def __init__(self, torch):
+        from repro_torch.distributed import comm
+        self.comm, self.torch, self.ms, self.on = comm, torch, 0.0, False
+        self.real = {op: getattr(comm, op) for op in TRAIN_COMM}
+        for op, real in self.real.items():
+            setattr(comm, op, self.timed(real))
+
+    def timed(self, real):
+        def call(t, *args, **kw):
+            if not self.on:
+                return real(t, *args, **kw)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = real(t, *args, **kw)
+            self.torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            return y
+        return call
+
+    def close(self):
+        for op, real in self.real.items():
+            setattr(self.comm, op, real)
+
+
+def rank_traffic_l(out_dir):
+    """A rank of phase 21 (b): it joins its group and waits for the card
+    (:func:`ranks_released`), then traffic L's L_STEPS steps on the host
+    mesh (collectives timed), a sharded checkpoint, then step L_STEPS + 1
+    restored onto L_RESTORE_MESH; rank 0 measures the parameters' distance
+    to the one-process run's.  Writes ``l<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models import model_zoo
+    from repro_torch.models import nn as tnn
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.fault_tolerance import CheckpointManager
+    from repro_torch.training.train_loop import (load_state,
+                                                 make_train_step,
+                                                 state_pspecs, state_tree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    d = Path(out_dir)
+    meshmod.init_distributed()
+    rank = dist.get_rank()
+    if not ranks_released(d):
+        meshmod.destroy()
+        return 0
+    waited_s = time.perf_counter() - t_start
+    cfg, rc = l_config()
+    rules = shd.make_rules("train")
+    counters = kernel_counters()
+    reset_launches(counters)
+
+    def build(mesh):
+        t0 = time.perf_counter()
+        model = model_zoo.build_model(cfg, 0)
+        specs = shd.param_pspecs(model, cfg, rules, mesh)
+        shd.shard_params_(model, specs, mesh)
+        ostate = opt.init_opt_state(dict(model.named_parameters()), rc)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        return model, specs, ostate, time.perf_counter() - t0
+
+    mesh = meshmod.make_host_mesh()
+    model, specs, ostate, build_s = build(mesh)
+    nbytes = (sum(p.numel() * p.element_size() for p in model.parameters())
+              + sum(t.numel() * t.element_size() for t in
+                    list(ostate.m.values()) + list(ostate.v.values())))
+    info = dict(rank=rank, backend=dist.get_backend(), waited_s=waited_s,
+                build_s=build_s, mesh=list(mesh.shape),
+                state_gb=nbytes / 1e9, losses=[], norms=[], times=[],
+                comm_ms=[])
+    step = make_train_step(cfg, rc, param_pspecs=specs, mesh=mesh)
+    clock = CommClock(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with tnn.axis_rules(rules, mesh=mesh):
+        for i in range(L_STEPS):
+            clock.ms, clock.on = 0.0, True
+            (_, ostate, _, m), dt = timed_step(
+                torch, step, model, ostate, None, l_batch(torch, cfg, i))
+            clock.on = False
+            info["losses"].append(m["loss"].item())
+            info["norms"].append(m["grad_norm"].item())
+            info["times"].append(dt)
+            info["comm_ms"].append(clock.ms)
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    info["reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    print(json.dumps(info), flush=True)       # in a failure's report
+    mgr = CheckpointManager(str(d / "ckpt"), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(L_STEPS, state_tree(model, ostate),
+             shardings=state_pspecs(specs, ostate), mesh=mesh)
+    info["gather_s"] = time.perf_counter() - t0
+    mgr.wait()
+    info["save_s"] = time.perf_counter() - t0
+    del model, ostate, step
+    torch.cuda.empty_cache()
+
+    # step L_STEPS + 1 restored onto another mesh
+    mesh2 = meshmod.make_mesh(L_RESTORE_MESH)
+    model, specs, ostate, info["build2_s"] = build(mesh2)
+    t0 = time.perf_counter()
+    restored, manifest = mgr.restore_latest(
+        state_tree(model, ostate), shardings=state_pspecs(specs, ostate),
+        mesh=mesh2)
+    ostate = load_state(model, restored)
+    del restored
+    info["restore_s"] = time.perf_counter() - t0
+    step = make_train_step(
+        cfg, dataclasses.replace(rc, microbatches=L_RESTORE_MICRO),
+        param_pspecs=specs, mesh=mesh2)
+    with tnn.axis_rules(rules, mesh=mesh2):
+        (_, ostate, _, m), dt = timed_step(
+            torch, step, model, ostate, None, l_batch(torch, cfg, L_STEPS))
+    clock.close()
+    info["restored"] = dict(step=manifest["step"], loss=m["loss"].item(),
+                            norm=m["grad_norm"].item(), time=dt)
+    check_launches(f"traffic L rank {rank}", counters, {})
+    # the parameters after the restored step against the one process's
+    t0 = time.perf_counter()
+    ref = torch.load(d / "reference.pt") if rank == 0 else None
+    sq = err = 0.0
+    for n, p in model.named_parameters():
+        whole = shd.gather_slices(p.detach().contiguous(), specs[n], mesh2)
+        if rank == 0:
+            diff = whole - ref[n].cuda()
+            sq += torch.linalg.vector_norm(diff).item() ** 2
+            err = max(err, diff.abs().max().item())
+            del diff
+        del whole
+    info.update(distance=math.sqrt(sq), param_err=err,
+                compare_s=time.perf_counter() - t0,
+                rank_s=time.perf_counter() - t_start)
+    (d / f"l{rank}.json").write_text(json.dumps(info))
+    meshmod.destroy()
+    return 0
+
+
+def traffic_l_one_process(torch, d):
+    """Phase 21 (b)'s restore into one process: the checkpoint loaded with
+    no mesh, step L_STEPS + 1 in this process, its parameters against the
+    reference's.  Returns (the model, numbers)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.fault_tolerance import CheckpointManager
+    from repro_torch.training.train_loop import (load_state,
+                                                 make_train_step, state_tree)
+    cfg, rc = l_config()
+    model = model_zoo.build_model(cfg, 0)
+    ostate = opt.init_opt_state(dict(model.named_parameters()), rc)
+    t0 = time.perf_counter()
+    restored, manifest = CheckpointManager(str(d / "ckpt")).restore_latest(
+        state_tree(model, ostate))
+    ostate = load_state(model, restored)
+    del restored
+    load_s = time.perf_counter() - t0
+    (_, ostate, _, m), dt = timed_step(
+        torch, make_train_step(cfg, rc), model, ostate, None,
+        l_batch(torch, cfg, L_STEPS))
+    want = torch.load(d / "reference.pt")
+    err = max((p.detach().cpu() - want[n]).abs().max().item()
+              for n, p in model.named_parameters())
+    distance = l2_distance(torch, model.named_parameters(), want)
+    del ostate, want
+    torch.cuda.empty_cache()
+    return model, dict(step=manifest["step"], loss=m["loss"].item(),
+                       norm=m["grad_norm"].item(), time=dt, load_s=load_s,
+                       param_err=err, distance=distance)
+
+
+def phase_sharded_training(torch, smi, finish_a):
+    """Phase 21 (see the module docstring); ``finish_a`` waits for (a),
+    which :func:`sharded_train_smoke` started earlier (its small ranks run
+    beside phases 19 and 20) and checks it beside traffic L's ranks.
+    Traffic L's ranks start with the one-process reference and wait for
+    it to free the card.  Returns {K-name: numbers} of the restored
+    model's held cached-plan runs."""
+    import shutil
+    from repro_torch.testing import sharded_train as st
+    t_phase = time.perf_counter()
+    d = TRAIN_DIR / "traffic_l"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    # four ranks of ~15 GB on one card: without expandable segments each
+    # rank's allocator strands GBs between the step's phases
+    wait_ranks = background_ranks(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-traffic-l",
+         str(d)], L_WORLD,
+        dict(dist_env(), PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    try:
+        ref = traffic_l_reference(torch, d)
+    except BaseException:
+        release_ranks(d, "stop")
+        wait_ranks()
+        raise
+    t_ref = time.perf_counter()
+    parent_gb = torch.cuda.memory_reserved() / 1e9
+    log(f"traffic L: this process reserves {parent_gb:.2f} GB of the card "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} allocated) as the "
+        "ranks build")
+    release_ranks(d, "go")
+    a_lines = finish_a(torch)
+    log(f"sharded training (a): {st.WORLD} ranks over gloo on the card "
+        "(started before phase 19), "
+        f"float32 (bf16 where named), TF32 off, two steps of 2 "
+        f"microbatches of {st.BATCH} x {st.SEQ} tokens against the same "
+        "steps in this process: " + "; ".join(a_lines))
+    t_a = time.perf_counter()
+    wait_ranks()
+    t_b = time.perf_counter()
+    ranks = [json.loads((d / f"l{r}.json").read_text())
+             for r in range(L_WORLD)]
+    model, one = traffic_l_one_process(torch, d)
+    cfg, _ = l_config()
+    tokens = L_BATCH * L_SEQ
+    n_params = sum(p.numel() for p in model.parameters())
+    r0 = ranks[0]
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+    # every step's loss and grad norm against the one process's, the
+    # restored step's of each rank and of the one process too
+    pairs = [(r["losses"][i], r["norms"][i], i) for r in ranks
+             for i in range(L_STEPS)] + [
+        (x["loss"], x["norm"], L_STEPS)
+        for x in [r["restored"] for r in ranks] + [one]]
+    loss_err = max(rel(x, ref["losses"][i]) for x, _, i in pairs)
+    norm_err = max(rel(g, ref["norms"][i]) for _, g, i in pairs)
+    # the parameters after the restored step: their distance to the one
+    # process's, relative to the distance the three steps moved them
+    dp_err = max(r0["distance"], one["distance"]) / ref["dp_norm"]
+    fault = ref["fault"]
+    ok = (loss_err <= L_LOSS_RTOL and norm_err <= L_NORM_RTOL
+          and dp_err <= L_DP_RTOL
+          and all(r["restored"]["step"] == L_STEPS for r in ranks)
+          and one["step"] == L_STEPS)
+    # a check that the planted fault passes could pass any gradient
+    sees = (fault["loss"] > L_LOSS_RTOL and fault["norm"] > L_NORM_RTOL
+            and fault["dp"] > L_DP_RTOL)
+    # the last step: the first of each process carries its warm-up
+    rank_step = [r["times"][-1] for r in ranks]
+    share = [r["comm_ms"][-1] / 1e3 / r["times"][-1] for r in ranks]
+    log(f"traffic L: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}), {L_LAYERS} of 28 layers, "
+        f"{n_params / 1e9:.3f} B parameters, train_4k (8 microbatches, "
+        f"remat full, adamw, bf16 compute), {L_BATCH} x {L_SEQ} tokens a "
+        f"step; one process: steps "
+        + ", ".join(f"{t * 1e3:.0f}" for t in ref["times"])
+        + f" ms ({tokens / ref['times'][-1]:.0f} tokens/s at the last), "
+        f"peak {ref['peak_gb']:.1f} GB, losses "
+        + ", ".join(f"{x:.5f}" for x in ref["losses"]) + ", grad norms "
+        + ", ".join(f"{x:.6g}" for x in ref["norms"]) + f"; {L_WORLD} "
+        f"ranks over gloo on the one card, mesh {tuple(r0['mesh'])} (each "
+        f"rank 1 row of every microbatch): losses "
+        + ", ".join(f"{x:.5f}" for x in r0["losses"]) + ", grad norms "
+        + ", ".join(f"{x:.6g}" for x in r0["norms"])
+        + "; step ms by rank " + ", ".join(
+            "/".join(f"{t * 1e3:.0f}" for t in r["times"]) for r in ranks)
+        + f" (the last, median {statistics.median(rank_step) * 1e3:.0f} "
+        f"ms: {tokens / statistics.median(rank_step):.0f} tokens/s for the "
+        f"four, {tokens / L_WORLD / statistics.median(rank_step):.0f} a "
+        "rank); collectives " + ", ".join(f"{x:.1%}" for x in share)
+        + " of a rank's last step (host clock; gloo on one card: host "
+        "copies and loopback, not NVLink); masters and moments "
+        + ", ".join(f"{r['state_gb']:.2f}" for r in ranks)
+        + f" GB a rank ({12 * n_params / 1e9:.2f} whole), peak "
+        + ", ".join(f"{r['peak_gb']:.1f}" for r in ranks)
+        + " GB (reserved " + ", ".join(f"{r['reserved_gb']:.1f}"
+                                       for r in ranks)
+        + f"; this process holding {parent_gb:.2f} GB meanwhile)"
+        + f"; step {L_STEPS + 1} restored onto {L_RESTORE_MESH} "
+        f"({L_RESTORE_MICRO} microbatches of {L_BATCH // L_RESTORE_MICRO} "
+        f"rows; loss {r0['restored']['loss']:.5f}, grad norm "
+        f"{r0['restored']['norm']:.6g}, {r0['restored']['time'] * 1e3:.0f}"
+        f" ms) and into one process (load {one['load_s']:.1f} s, loss "
+        f"{one['loss']:.5f}, grad norm {one['norm']:.6g}); {smi}")
+    log(f"traffic L: held to the one process: losses within {loss_err:.2e}"
+        f" (limit {L_LOSS_RTOL:.0e}), grad norms within {norm_err:.2e} "
+        f"(limit {L_NORM_RTOL:.0e}), relative, over the ranks' steps, the "
+        f"restored step of each rank and of one process; after step "
+        f"{L_STEPS + 1}, ||p - p_ref|| / ||p_ref - p_0|| = "
+        f"{r0['distance'] / ref['dp_norm']:.3e} restored on "
+        f"{L_RESTORE_MESH}, {one['distance'] / ref['dp_norm']:.3e} in one "
+        f"process (limit {L_DP_RTOL:.0e}; ||p_ref - p_0|| "
+        f"{ref['dp_norm']:.5g}, largest |p - p_ref| {r0['param_err']:.2e} "
+        f"and {one['param_err']:.2e}); a planted fault, the same steps on "
+        f"half of every microbatch's rows ({fault['s']:.1f} s), reads "
+        f"losses {fault['loss']:.2e}, grad norms {fault['norm']:.2e}, "
+        f"||p - p_ref|| / ||p_ref - p_0|| {fault['dp']:.3e}; a state left "
+        "unchanged reads 1 on the last")
+    log(f"traffic L: a rank's time (rank 0): waited for the card "
+        f"{r0['waited_s']:.1f} s after it started, build on the host mesh "
+        f"{r0['build_s']:.1f} s, steps "
+        + " + ".join(f"{t:.1f}" for t in r0["times"])
+        + f" s, checkpoint {r0['save_s']:.1f} s (the leaves gathered "
+        f"{r0['gather_s']:.1f} s, then written by rank 0), build on "
+        f"{L_RESTORE_MESH} {r0['build2_s']:.1f} s, restore "
+        f"{r0['restore_s']:.1f} s, step {r0['restored']['time']:.1f} s, "
+        f"the comparison's gathers {r0['compare_s']:.1f} s: "
+        f"{r0['rank_s']:.1f} s in all")
+    if not ok:
+        raise AssertionError(
+            f"traffic L: losses {loss_err}, grad norms {norm_err}, "
+            f"parameters {dp_err} off the one process")
+    if not sees:
+        raise AssertionError(
+            f"traffic L: the planted fault reads losses {fault['loss']}, "
+            f"grad norms {fault['norm']}, parameters {fault['dp']}: within "
+            "the limits, which hold no gradient")
+    prompts = l_batch(torch, cfg, L_SERVE_STEP)["tokens"][
+        :L_PROMPTS, :L_PROMPT_LEN]
+    numbers = serve_trained(torch, "traffic L", model, cfg, prompts, L_NEW,
+                            smi)
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    log(f"sharded training: phase {time.perf_counter() - t_phase:.0f} s "
+        f"(one-process reference and planted fault {t_ref - t_phase:.0f} s,"
+        f" the ranks starting beside it; (a) checked {t_a - t_phase:.0f} s"
+        f" in, beside traffic L's ranks; the ranks done "
+        f"{t_b - t_phase:.0f} s in)")
+    return numbers
+
+
+def mark(t_start, what):
+    """The run's clock at the end of a phase, for the time budget."""
+    log(f"time: {what} done {time.perf_counter() - t_start:.0f} s in")
+
 
 def main() -> int:
     import torch
@@ -6976,36 +7643,49 @@ def main() -> int:
         return rank_moe(sys.argv[2])
     if sys.argv[1:2] == ["--rank-traffic-k"]:
         return rank_traffic_k(sys.argv[2])
+    if sys.argv[1:2] == ["--rank-train-smoke"]:
+        return rank_train_smoke(sys.argv[2])
+    if sys.argv[1:2] == ["--rank-traffic-l"]:
+        return rank_traffic_l(sys.argv[2])
     from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
+    mark(t_start, "build")
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
     err, totals = phase_kernels(torch, cfg)
     no_quarantine("kernels")
+    mark(t_start, "kernels")
     g_err, g_totals = phase_grouped(torch, cfg)
     no_quarantine("grouped kernels")
+    mark(t_start, "grouped kernels")
     err.update(g_err)
     totals.update(g_totals)
     c_totals = phase_conv_kernels(torch)
     no_quarantine("conv kernels")
+    mark(t_start, "conv kernels")
     totals.update(c_totals)
     phase_reference(torch)
     phase_reference_whisper(torch)
     no_quarantine("reference")
+    mark(t_start, "reference")
     model = make_model(torch, cfg)
     launches, walls = phase_serving(torch, cfg, model)
     no_quarantine("serving")
+    mark(t_start, "serving")
     kv_launches, kv_walls, _ = phase_serving_kv(torch, cfg, model)
     no_quarantine("serving, sparse KV")
+    mark(t_start, "serving, sparse KV")
     proj = 13 * NEW_TOKENS
     phase_pruned(torch, "traffic A", cfg, model, traffic_a_batch(torch, cfg),
                  NEW_TOKENS, {"dense": {}, "dual": {"K1": proj},
                               "dual+kc": {"K2": proj}})
     no_quarantine("pruned serving, traffic A")
+    mark(t_start, "pruned serving, traffic A")
     phase_engine(torch, cfg, model, smi)
     no_quarantine("engine, traffic D")
+    mark(t_start, "engine, traffic D")
     del model
     torch.cuda.empty_cache()
     phase_attention_split(torch, cfg)
@@ -7013,38 +7693,53 @@ def main() -> int:
     wmodel, w_launches, w_walls, w_times = phase_serving_whisper(torch, wcfg)
     phase_conv_split(torch, wcfg, wmodel)
     no_quarantine("serving, whisper")
+    mark(t_start, "serving, whisper")
     n1, conv = whisper_k1_launches(wcfg), {"K5": 2, "K6": 1, "K7": 1}
     phase_pruned(torch, "traffic C", wcfg, wmodel, whisper_batch(torch, wcfg),
                  W_NEW, {"dense": {}, "dual": {"K1": n1, **conv},
                          "dual+kc": {"K2": n1, **conv}})
     no_quarantine("pruned serving, traffic C")
+    mark(t_start, "pruned serving, traffic C")
     del wmodel
     torch.cuda.empty_cache()
     phase_paper(torch)
     no_quarantine("paper evaluation")
+    mark(t_start, "paper evaluation")
     phase_reference_smoke(torch, (MIXTRAL, QWEN3_MOE), MOE_SMOKE_PROMPT,
                           MOE_SMOKE_NEW)
     moe = phase_moe(torch, smi)
     no_quarantine("MoE serving, traffic E")
+    mark(t_start, "MoE serving, traffic E")
     phase_reference_smoke(torch, DENSE_GQA, 9, 6, int8_kv=True)
     dense_gqa = phase_dense_gqa(torch, smi)
     no_quarantine("dense GQA, traffic F")
+    mark(t_start, "dense GQA, traffic F")
     torch.cuda.empty_cache()
     phase_reference_smoke(torch, (MAMBA2, JAMBA), 9, 6, int8_kv=True,
                           depth={JAMBA: 8})
     hybrid = phase_hybrid(torch, smi)
     no_quarantine("Mamba2 and the hybrid, traffics G and H")
+    mark(t_start, "Mamba2 and the hybrid, traffics G and H")
     torch.cuda.empty_cache()
     phase_reference_smoke(torch, (VLM,), 9, 6, int8_kv=True)
     vlm = serve_vlm(torch, smi)
     no_quarantine("the VLM, traffic I")
+    mark(t_start, "the VLM, traffic I")
     torch.cuda.empty_cache()
     phase_tuning(torch, smi)
+    # phase 21 (a)'s small ranks run beside phases 19 and 20
+    finish_train_smoke = sharded_train_smoke()
     trained, _ = phase_training(torch, smi)
     no_quarantine("training, traffic J")
+    mark(t_start, "training, traffic J")
     torch.cuda.empty_cache()
     distributed = phase_distributed(torch, smi)
     no_quarantine("expert-parallel serving, traffic K")
+    mark(t_start, "expert-parallel serving, traffic K")
+    torch.cuda.empty_cache()
+    sharded_trained = phase_sharded_training(torch, smi, finish_train_smoke)
+    no_quarantine("sharded training, traffic L")
+    mark(t_start, "sharded training, traffic L")
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "
@@ -7137,7 +7832,8 @@ def main() -> int:
                             ("traffic_h", hybrid["traffic_h"]),
                             ("traffic_i", vlm),
                             ("traffic_j", trained),
-                            ("traffic_k", distributed)):
+                            ("traffic_k", distributed),
+                            ("traffic_l", sharded_trained)):
             if kn in nums:
                 m = nums[kn]
                 rows[-1][group] = {
@@ -7187,7 +7883,10 @@ def main() -> int:
         f"over {K_WORLD} ranks on the card (gloo), rank 0's launches "
         f"replayed alone, max_abs_err over every rank's held launches, "
         f"\"ranks\" each rank's ms and launches, library_ms torch.bmm "
-        f"over the rank's experts; total "
+        f"over the rank's experts; under \"traffic_l\", K1 and K2 the same "
+        f"as traffic J's on the weights phase 21 trained over {L_WORLD} "
+        f"ranks and restored into one process ({L_ARCH}, {L_LAYERS} "
+        f"layers, {L_PROMPTS} x {L_PROMPT_LEN} tokens, {L_NEW} new); total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

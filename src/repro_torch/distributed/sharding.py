@@ -111,11 +111,16 @@ def make_rules(kind: str, *, multi_pod: bool = False,
     raise ValueError(kind)
 
 
-def _parts(m) -> Tuple[str, ...]:
-    """A rule's mesh axes as a tuple (None → ())."""
+def entry_axes(m) -> Tuple[str, ...]:
+    """A rule's or a spec entry's mesh axes as a tuple (None → ())."""
     if m is None:
         return ()
     return tuple(m) if isinstance(m, (tuple, list)) else (m,)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec names, in the order of its entries."""
+    return tuple(a for e in spec for a in entry_axes(e))
 
 
 def _entry(parts: Tuple[str, ...]):
@@ -137,7 +142,7 @@ def spec_from_axes(axes: Sequence[Optional[str]],
     used = set()
     out = []
     for i, a in enumerate(axes):
-        parts = _parts(rules.get(a) if a is not None else None)
+        parts = entry_axes(rules.get(a) if a is not None else None)
         if not parts:
             out.append(None)
             continue
@@ -210,7 +215,7 @@ def placements(mesh, spec: Sequence) -> List[Any]:
     from torch.distributed.tensor import Replicate, Shard
     out = [Replicate() for _ in mesh.mesh_dim_names]
     for d, entry in enumerate(spec):
-        for name in _parts(entry):
+        for name in entry_axes(entry):
             out[mesh.mesh_dim_names.index(name)] = Shard(d)
     return out
 
@@ -240,7 +245,7 @@ def _coordinate(mesh) -> Dict[str, int]:
 def block_range(dim: int, entry, mesh) -> Tuple[int, int]:
     """[start, stop) of this rank's block of a dimension of size ``dim``
     under one spec entry (the whole dimension for None)."""
-    parts = _parts(entry)
+    parts = entry_axes(entry)
     if not parts:
         return 0, dim
     sizes, coord = mesh_sizes(mesh), _coordinate(mesh)
@@ -269,7 +274,7 @@ def gather_slices(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     ``spec`` gathered into the whole tensor, on every rank (a collective
     over the mesh axes the spec names)."""
     for d, entry in enumerate(spec):
-        parts = _parts(entry)
+        parts = entry_axes(entry)
         if not parts:
             continue
         t = comm.all_gather(t, comm.axis_group(mesh, parts), dim=d)
@@ -384,10 +389,110 @@ def cache_logical_axes(cfg) -> List[Any]:
             for i in range(cfg.n_layers)]
 
 
-def opt_state_pspecs(param_pspecs):
-    """Adam m/v mirror the parameter shardings; step is replicated."""
+def _v_spec(spec, v):
+    """A second moment's spec: a factored one's ``row`` under
+    ``spec[:-1]`` and ``col`` under ``spec[:-2] + spec[-1:]`` (the JAX
+    package's dry run builds them so)."""
+    if isinstance(v, dict):
+        parts = tuple(spec)
+        return {"row": PartitionSpec(*parts[:-1]),
+                "col": PartitionSpec(*parts[:-2], *parts[-1:])}
+    return spec
+
+
+def opt_state_pspecs(param_pspecs, v=None):
+    """Adam m/v mirror the parameter shardings; step is replicated.  With
+    ``v`` (an optimizer state's second moments), a factored entry's
+    ``row``/``col`` specs (Adafactor)."""
     return {
         "m": param_pspecs,
-        "v": param_pspecs,
+        "v": (param_pspecs if v is None else
+              {n: _v_spec(spec, v[n]) for n, spec in param_pspecs.items()}),
         "step": PartitionSpec(),
     }
+
+
+# ---------------------------------------------------------------------------
+# the train step's placement: every master a rank's block
+# ---------------------------------------------------------------------------
+
+def param_pspecs(model, cfg, rules: Dict[str, Any], mesh
+                 ) -> Dict[str, PartitionSpec]:
+    """The spec of every parameter of ``model`` (the port's names) under
+    ``rules`` on ``mesh``: :func:`tree_pspecs_shaped` over the logical
+    axes and whole shapes of ``model_zoo.abstract_params(cfg)``."""
+    from repro_torch.models import model_zoo
+    meta, axes = model_zoo.abstract_params(cfg)
+    shapes = dict(meta.named_parameters())
+    names = [n for n, _ in model.named_parameters()]
+    if set(names) != set(shapes):
+        raise ValueError("param_pspecs: the model's parameters are not "
+                         f"those of {cfg.name}")
+    return {n: spec_from_axes(axes[n], rules, tuple(shapes[n].shape),
+                              mesh_sizes(mesh)) for n in names}
+
+
+def batch_axes(rules: Dict[str, Any], mesh) -> Tuple[str, ...]:
+    """The mesh axes that split the batch: the ``batch`` entry of
+    :func:`input_pspecs`' specs, those of them the mesh has."""
+    entry = spec_from_axes(("batch",), rules)[0]
+    return tuple(a for a in entry_axes(entry) if a in mesh.mesh_dim_names)
+
+
+def axes_size(mesh, axes: Sequence[str]) -> int:
+    """The number of blocks over mesh ``axes`` (1 for none)."""
+    sizes, n = mesh_sizes(mesh), 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _module_and_attr(model: torch.nn.Module, name: str):
+    mod_name, _, attr = name.rpartition(".")
+    return (model.get_submodule(mod_name) if mod_name else model), attr
+
+
+@torch.no_grad()
+def shard_params_(model: torch.nn.Module, specs: Dict[str, PartitionSpec],
+                  mesh, *, cfg=None, rules: Optional[Dict[str, Any]] = None
+                  ) -> torch.nn.Module:
+    """Cut every parameter of ``model`` in place to this rank's block under
+    its spec (:func:`local_slice`, a copy: the whole tensor is dropped)
+    and keep it trainable, the train step's float32 masters.  A MoE
+    layer is marked for the sharded MoE on ``mesh`` under ``rules``
+    (``moe.mark_sharded_``; its blocks enter the MoE resharded to its own
+    specs), so a model with MoE layers needs ``cfg`` and ``rules``.
+    Returns ``model``."""
+    from repro_torch.models import moe as moem
+    for name, p in list(model.named_parameters()):
+        mod, attr = _module_and_attr(model, name)
+        block = local_slice(p.detach(), specs[name], mesh).clone()
+        setattr(mod, attr, torch.nn.Parameter(block, requires_grad=True))
+    for module in model.modules():
+        if isinstance(module, moem.MoE):
+            if cfg is None or rules is None:
+                raise ValueError("shard_params_: a model with MoE layers "
+                                 "needs cfg and rules")
+            moem.mark_sharded_(module, cfg, mesh, rules)
+    return model
+
+
+def reshard(t: torch.Tensor, src: Sequence, dst: Sequence, mesh
+            ) -> torch.Tensor:
+    """This rank's block under spec ``dst`` of the tensor whose block under
+    ``src`` is ``t``: each dimension whose entries differ gathered over
+    ``src``'s axes, then cut by ``dst``'s (no collective where they
+    agree).  A tensor alike on the ranks that ``dst`` replicates
+    comes back to ``src`` by the same call the other way."""
+    ndim = t.ndim
+    src = tuple(src) + (None,) * (ndim - len(src))
+    dst = tuple(dst) + (None,) * (ndim - len(dst))
+    for d in range(ndim):
+        if src[d] == dst[d]:
+            continue
+        spec = [None] * ndim
+        spec[d] = src[d]
+        t = gather_slices(t, spec, mesh)
+        spec[d] = dst[d]
+        t = local_slice(t, spec, mesh)
+    return t

@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import device as devmod
+from repro_torch.distributed import comm
 
 
 def world_size() -> int:
@@ -64,6 +65,13 @@ def init_distributed(device=None) -> torch.device:
         print(f"torch.distributed: {world} ranks over {backend} ({why}), "
               f"rank 0 on {dev}", flush=True)
     return dev
+
+
+def destroy() -> None:
+    """Leave the process group, forgetting the axis groups made in it."""
+    comm.forget_groups()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):

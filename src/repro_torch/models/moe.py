@@ -20,7 +20,14 @@ the capacity buffers and their bitmaps through ``all_to_all``), the FFN
 dimension split otherwise (tensor parallelism, the partial products
 summed with ``all_reduce``), the batch over the ``"batch"`` rule's axes.
 A module runs sharded once :func:`shard_moe_` has cut its router, its
-expert weights and their cached plans to the rank's blocks.
+expert weights and their cached plans to the rank's blocks, or once
+:func:`mark_sharded_` has marked it for a caller that hands it its
+blocks (the sharded train step, whose masters lie under the train rules'
+specs).  Its collectives carry gradients (``distributed.comm``), and in
+the train step (``nn.local_batch``: x is the rank's rows) the block's
+backward is ``shard_map``'s transpose: the outputs' cotangents divided by
+the number of ranks that compute the same rows, and the cotangent of x
+and of each weight block summed over the mesh axes its spec leaves out.
 """
 from __future__ import annotations
 
@@ -276,16 +283,8 @@ _PLAN_KEYS = ("w_up", "w_gate", "w_down")
 
 def _mesh_axes(rule, mesh) -> Tuple[str, ...]:
     """A rule's mesh axes that the mesh has."""
-    parts = shd._parts(rule)
+    parts = shd.entry_axes(rule)
     return tuple(p for p in parts if p in mesh.mesh_dim_names)
-
-
-def _size(mesh, axes: Tuple[str, ...]) -> int:
-    """The number of blocks over mesh ``axes`` (1 for none)."""
-    sizes, n = shd.mesh_sizes(mesh), 1
-    for a in axes:
-        n *= sizes[a]
-    return n
 
 
 def _mesh_key(mesh) -> tuple:
@@ -318,6 +317,7 @@ class MoEShard:
     plans: Dict[str, torch.Tensor]
     slice_k: int
     block_n: int
+    specs: Dict[str, shd.PartitionSpec]
 
 
 def moe_specs(cfg: ModelConfig, mesh, rules: Dict[str, Any]
@@ -327,7 +327,7 @@ def moe_specs(cfg: ModelConfig, mesh, rules: Dict[str, Any]
     in_specs for x's data axes at their full size."""
     tp_axes = _mesh_axes(rules.get("experts"), mesh)
     dp_axes = _mesh_axes(rules.get("batch"), mesh)
-    tp = _size(mesh, tp_axes)
+    tp = shd.axes_size(mesh, tp_axes)
     ep_mode = cfg.n_experts % tp == 0 and tp > 1
     ep, dp = shd._entry(tp_axes), shd._entry(dp_axes)
     if ep_mode:
@@ -343,6 +343,37 @@ def moe_specs(cfg: ModelConfig, mesh, rules: Dict[str, Any]
     return specs, ep_mode, tp_axes, dp_axes
 
 
+def _new_shard(cfg: ModelConfig, mesh, rules: Dict[str, Any],
+               plans: Dict[str, torch.Tensor], block_n: int) -> MoEShard:
+    specs, ep_mode, tp_axes, dp_axes = moe_specs(cfg, mesh, rules)
+    for axes in (tp_axes, dp_axes):
+        # the collectives take blocks in group-rank order
+        order = comm.group_order(mesh, axes) if axes else []
+        if order != sorted(order):
+            raise ValueError(f"shard_moe_: mesh axes {axes} must follow "
+                             f"the mesh's order {mesh.mesh_dim_names}")
+    tp = shd.axes_size(mesh, tp_axes)
+    return MoEShard(key=_mesh_key(mesh), tp_axes=tp_axes, dp_axes=dp_axes,
+                    tp=tp, dp=shd.axes_size(mesh, dp_axes), ep_mode=ep_mode,
+                    down_ok=ep_mode or pln.kplan_shardable(
+                        cfg.d_ff, tp, cfg.sparse_slice_k),
+                    plans=plans, slice_k=cfg.sparse_slice_k, block_n=block_n,
+                    specs=specs)
+
+
+def mark_sharded_(moe: MoE, cfg: ModelConfig, mesh, rules: Dict[str, Any]
+                  ) -> MoE:
+    """Mark ``moe`` for the sharded MoE on ``mesh`` under ``rules`` without
+    cutting it or caching plans: a caller that holds the parameters
+    elsewhere (``sharding.shard_params_``, the train step's masters under
+    the train rules) hands the MoE its blocks under
+    ``moe.shard.specs`` through ``functional_call``.  Returns ``moe``."""
+    if moe.shard is not None:
+        raise ValueError("mark_sharded_: the MoE is already sharded")
+    moe.shard = _new_shard(cfg, mesh, rules, {}, 0)
+    return moe
+
+
 @torch.no_grad()
 def shard_moe_(moe: MoE, cfg: ModelConfig, mesh, rules: Dict[str, Any]
                ) -> MoE:
@@ -353,19 +384,14 @@ def shard_moe_(moe: MoE, cfg: ModelConfig, mesh, rules: Dict[str, Any]
     element activities at ``cfg.sparse_block_n``, then cut by the plan
     specs: ``sharding.plan_specs_from_sites``).  The whole tensors are dropped,
     so a rank's expert memory falls by the expert-parallel factor.
-    Returns ``moe``."""
+    Serving's cut: the train step's masters are cut under the train
+    rules instead (:func:`mark_sharded_`).  Returns ``moe``."""
     if moe.shard is not None:
         raise ValueError("shard_moe_: the MoE is already sharded")
-    specs, ep_mode, tp_axes, dp_axes = moe_specs(cfg, mesh, rules)
-    for axes in (tp_axes, dp_axes):
-        # the collectives take blocks in group-rank order
-        order = comm.group_order(mesh, axes) if axes else []
-        if order != sorted(order):
-            raise ValueError(f"shard_moe_: mesh axes {axes} must follow "
-                             f"the mesh's order {mesh.mesh_dim_names}")
-    tp, dp = _size(mesh, tp_axes), _size(mesh, dp_axes)
-    f, sk = cfg.d_ff, cfg.sparse_slice_k
-    down_ok = ep_mode or pln.kplan_shardable(f, tp, sk)
+    sh = _new_shard(cfg, mesh, rules, {}, 0)
+    specs, ep_mode, tp_axes, down_ok = sh.specs, sh.ep_mode, sh.tp_axes, \
+        sh.down_ok
+    f, sk, tp = cfg.d_ff, cfg.sparse_slice_k, sh.tp
     bn = cfg.sparse_block_n if cfg.sparse_kcondense else 0
     whole = spw.plan_layer_weights(moe.weights(), slice_k=sk,
                                    block_n=bn or None)
@@ -390,10 +416,8 @@ def shard_moe_(moe: MoE, cfg: ModelConfig, mesh, rules: Dict[str, Any]
     for name, spec in specs.items():
         block = shd.local_slice(getattr(moe, name), spec, mesh).clone()
         setattr(moe, name, nn.Parameter(block, requires_grad=False))
-    moe.shard = MoEShard(key=_mesh_key(mesh), tp_axes=tp_axes,
-                         dp_axes=dp_axes, tp=tp, dp=dp, ep_mode=ep_mode,
-                         down_ok=down_ok, plans=plans, slice_k=sk,
-                         block_n=bn)
+    sh.plans, sh.block_n = plans, bn
+    moe.shard = sh
     return moe
 
 
@@ -492,16 +516,42 @@ def _moe_shard_map(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
       whole mesh, and recorded after the block, so the tape shows the
       mesh totals (``Engine.profile_sparsity``).  Every rank must run
       with a tape alike: the sum is a collective.
+
+    Inside ``nn.local_batch`` (the sharded train step) ``x`` is already
+    the rank's block over every data axis and the output stays the
+    rank's block.  The ranks that share a data block (the other mesh
+    axes, ``rep`` of them) compute the same rows, so, as ``shard_map``'s
+    transpose does, the cotangents of y and of the aux loss are divided
+    by ``rep`` and those of x and of each weight block summed over the
+    mesh axes their specs leave out (``comm.scale_grad``/``sum_grad``):
+    the weight blocks' gradients are then those of the sum of the data
+    blocks' losses, alike on every rank that holds the block.
     """
     mesh, rules = tnn.current_mesh(), tnn.current_rules()
     sh = _check_shard(moe, mesh, rules)
     e, k = cfg.n_experts, cfg.n_experts_active
     b, s, d = x.shape
-    # the data axes of this call: the largest run of the batch rule's
-    # axes whose size divides B (b=16 on ("pod","data")=2×16 → "data")
-    dpc = shd._best_divisible(sh.dp_axes, b, shd.mesh_sizes(mesh))
-    dpn = _size(mesh, dpc)
-    cap = capacity(cfg, (b // dpn) * s)
+    local = tnn.batch_is_local()
+    # the data axes of this call: every one in the train step; serving, the
+    # largest run of the batch rule's axes whose size divides B (b=16 on
+    # ("pod","data")=2×16 → "data")
+    dpc = (sh.dp_axes if local else
+           shd._best_divisible(sh.dp_axes, b, shd.mesh_sizes(mesh)))
+    dpn = shd.axes_size(mesh, dpc)
+    cap = capacity(cfg, (b if local else b // dpn) * s)
+    weights = {"router": moe.router, **moe.weights()}
+    rep = 1
+    if local:
+        rest = tuple(a for a in mesh.mesh_dim_names if a not in dpc)
+        rep = shd.axes_size(mesh, rest)
+        x = comm.sum_grad(x, comm.axis_group(mesh, rest) if rep > 1
+                          else None)
+        for key, wt in weights.items():
+            named = set(shd.spec_axes(sh.specs[key]))
+            left = tuple(a for a in mesh.mesh_dim_names if a not in named)
+            weights[key] = comm.sum_grad(
+                wt, comm.axis_group(mesh, left)
+                if shd.axes_size(mesh, left) > 1 else None)
     sparse_on = cfg.sparse_mode != "dense"
     collect = sparse_on and tape.active()
     if plans is not None and sparse_on and not sh.down_ok:
@@ -515,18 +565,18 @@ def _moe_shard_map(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
             "schedule, stats unchanged)")
     ploc = plans if sparse_on else None
 
-    if dpc:
+    if dpc and not local:
         lo, hi = shd.block_range(b, shd._entry(dpc), mesh)
         x_blk = x[lo:hi]
     else:
         x_blk = x
     xt = x_blk.reshape(-1, d)
     g_dp = comm.axis_group(mesh, sh.dp_axes) if sh.dp > 1 else None
-    w = {"w_up": comm.all_gather(moe.w_up, g_dp, dim=1),
-         "w_down": moe.w_down}
-    if moe.w_gate is not None:
-        w["w_gate"] = comm.all_gather(moe.w_gate, g_dp, dim=1)
-    router = comm.all_gather(moe.router, g_dp, dim=0)
+    w = {"w_up": comm.all_gather(weights["w_up"], g_dp, dim=1),
+         "w_down": weights["w_down"]}
+    if "w_gate" in weights:
+        w["w_gate"] = comm.all_gather(weights["w_gate"], g_dp, dim=1)
+    router = comm.all_gather(weights["router"], g_dp, dim=0)
     gates = torch.softmax(xt.to(torch.float32) @ router.to(torch.float32),
                           dim=-1)
     xe, dest_e, dest_p, kept, top_g, top_i = _dispatch_local(
@@ -559,7 +609,9 @@ def _moe_shard_map(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     if dpc:
         g = comm.axis_group(mesh, dpc)
         aux = comm.all_reduce(aux, g) / dpn
-        y = comm.all_gather(y.reshape(x_blk.shape), g, dim=0)
+        if not local:
+            y = comm.all_gather(y.reshape(x_blk.shape), g, dim=0)
+    y, aux = comm.scale_grad(y, 1 / rep), comm.scale_grad(aux, 1 / rep)
     if collect:
         # the mesh-total schedule: every rank's counted steps summed,
         # recorded outside the block

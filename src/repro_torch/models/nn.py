@@ -5,7 +5,9 @@ Norm parameters are ``nn.ParameterDict``s with a ``scale`` (and, for
 layer norm, a ``bias``), mirroring the JAX parameter dicts.
 
 The launcher installs logical → mesh axis rules with :func:`axis_rules`,
-and with a mesh the MoE runs sharded (``moe._moe_shard_map``).
+and with a mesh the MoE runs sharded (``moe._moe_shard_map``).  Serving
+holds the batch whole on every rank; the sharded train step runs each
+rank on its rows of the batch, inside :func:`local_batch`.
 :func:`shard_act` returns its input unchanged: the JAX package's
 ``with_sharding_constraint`` only moves where a value lives, never what
 it is, and in the port every rank holds the activations whole.
@@ -90,6 +92,8 @@ _MESH: contextvars.ContextVar[Optional[Any]] = \
     contextvars.ContextVar("mesh", default=None)
 _MANUAL: contextvars.ContextVar[bool] = \
     contextvars.ContextVar("shard_map_manual", default=False)
+_LOCAL: contextvars.ContextVar[bool] = \
+    contextvars.ContextVar("batch_local", default=False)
 
 
 @contextlib.contextmanager
@@ -138,6 +142,23 @@ def manual_axes():
         yield
     finally:
         _MANUAL.reset(token)
+
+
+@contextlib.contextmanager
+def local_batch():
+    """Mark a region whose activations are this rank's rows of the batch,
+    the block its coordinates on the ``"batch"`` rule's mesh axes own (the
+    sharded train step): the sharded MoE takes its input as that block and
+    returns its own."""
+    token = _LOCAL.set(True)
+    try:
+        yield
+    finally:
+        _LOCAL.reset(token)
+
+
+def batch_is_local() -> bool:
+    return _LOCAL.get()
 
 
 def current_mesh():

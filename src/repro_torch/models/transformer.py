@@ -31,6 +31,7 @@ layer's cross cache, and decode reads them.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -285,9 +286,11 @@ class Transformer(nn.Module):
         def run(layer, *args, **kw):
             # the recompute runs after the forward returns, when a caller's
             # functional_call no longer holds its tensors in the layer: so
-            # the layer's tensors of now are the checkpoint's inputs
-            return checkpoint(_call_with, layer,
-                              dict(layer.named_parameters()), args, kw,
+            # the layer's tensors of now are the checkpoint's inputs; and
+            # on the autograd engine's thread for the card, so it runs in
+            # a copy of this context (the mesh and the rules, nn.axis_rules)
+            return checkpoint(contextvars.copy_context().run, _call_with,
+                              layer, dict(layer.named_parameters()), args, kw,
                               use_reentrant=False, context_fn=context)
         return run
 

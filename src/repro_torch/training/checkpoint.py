@@ -1,5 +1,5 @@
 """Atomic, async checkpointing: the JAX package's
-``training/checkpoint.py`` on one device.
+``training/checkpoint.py``.
 
 Layout:  <dir>/step_<N>/manifest.json + arrays-<shard>.npz
 * atomic commit: written to ``step_<N>.tmp`` then ``os.replace``d, so a
@@ -13,8 +13,15 @@ port's own names joined by dots (``params.layers.0.attn.wq``,
 array is stored as its uint16 bits with the dtype tag ``bfloat16`` in the
 manifest, the JAX package's encoding, and read back through
 ``Tensor.view(torch.bfloat16)`` (no ``ml_dtypes``).  ``load`` puts the
-arrays on a device; restoring onto another topology (the JAX package's
-elastic restore) waits for the port's sharding.
+arrays on a device.
+
+A sharded state (each leaf the rank's block under its spec in
+``shardings``, on ``mesh``) is saved whole: every leaf is gathered on
+every rank, rank 0 writes the manifest a single process would write (the
+same keys, shapes and dtypes), and the ranks meet at a barrier.  ``load``
+with ``shardings`` and ``mesh`` hands each rank its block of each whole
+array (``sharding.local_slice``), whatever mesh saved it: the JAX
+package's elastic restore.
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import device as devmod
+from repro_torch.distributed import sharding as shd
 
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -75,9 +84,39 @@ def _decode(a: np.ndarray, tag: Optional[str]) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def gather_to_host(tree: Any, shardings: Any, mesh) -> Optional[Any]:
+    """A sharded ``tree``'s whole leaves on the host of the writer (rank
+    0), gathered one leaf at a time so that no rank holds more than one
+    whole leaf on its device; None on the other ranks (a collective)."""
+    writer = is_writer()
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        whole = shd.gather_slices(t.detach().contiguous(), s, mesh)
+        return whole.to("cpu", copy=True) if writer else None
+    out = walk(tree, shardings)
+    return out if writer else None
+
+
+def is_writer() -> bool:
+    """Whether this process writes the checkpoint: rank 0, or a process
+    in no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(path: str, tree: Any, *, step: int, extra: Optional[Dict] = None,
-         shard_arrays: int = 1) -> None:
-    """Synchronous atomic save of a tree of (device or host) arrays."""
+         shard_arrays: int = 1, shardings: Any = None, mesh=None) -> None:
+    """Synchronous atomic save of a tree of (device or host) arrays; with
+    ``mesh``, of the whole arrays of a sharded tree (gathered, written by
+    rank 0, the ranks meeting at a barrier)."""
+    if mesh is not None:
+        whole = gather_to_host(tree, shardings, mesh)
+        if whole is not None:
+            save(path, whole, step=step, extra=extra,
+                 shard_arrays=shard_arrays)
+        dist.barrier()
+        return
     tmp = f"{path}.tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -107,27 +146,69 @@ def save(path: str, tree: Any, *, step: int, extra: Optional[Dict] = None,
     os.replace(tmp, path)
 
 
-def load(path: str, like: Any, *, device=None) -> Tuple[Any, Dict]:
+def _members(path: str) -> Dict[str, Any]:
+    """Each array of an ``.npz`` file by member name, as an ``np.memmap``
+    over the file where the member is stored uncompressed
+    (``np.savez`` stores so), else read whole: a rank that needs a block
+    of a stored array reads the block's pages, not the array."""
+    import zipfile
+    out: Dict[str, Any] = {}
+    with zipfile.ZipFile(path) as z, open(path, "rb") as f:
+        for info in z.infolist():
+            name = info.filename[:-4] if info.filename.endswith(".npy") \
+                else info.filename
+            if info.compress_type != zipfile.ZIP_STORED:
+                with z.open(info) as m:
+                    out[name] = np.lib.format.read_array(m)
+                continue
+            # the member's data follows its local header (30 bytes, the
+            # name and the extra field), then the .npy header
+            f.seek(info.header_offset + 26)
+            n_name, n_extra = np.frombuffer(f.read(4), "<u2")
+            f.seek(info.header_offset + 30 + int(n_name) + int(n_extra))
+            header = (np.lib.format.read_array_header_1_0
+                      if np.lib.format.read_magic(f) == (1, 0)
+                      else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = header(f)
+            # copy-on-write: torch takes it as writable; the file stays
+            out[name] = np.memmap(path, dtype=dtype, mode="c",
+                                  offset=f.tell(), shape=shape,
+                                  order="F" if fortran else "C")
+    return out
+
+
+def load(path: str, like: Any, *, device=None, shardings: Any = None,
+         mesh=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``like`` (its values are read for
     their shapes only; meta tensors do) on ``device`` (None: the card).
-    Returns (tree, manifest); a missing key raises ``KeyError``, a shape
-    that differs ``ValueError``."""
+    With ``shardings`` (a tree of specs parallel to ``like``) and
+    ``mesh``, each leaf is this rank's block of the saved array, and
+    ``like`` holds the blocks' shapes.  Returns (tree, manifest); a
+    missing key raises ``KeyError``, a shape that differs
+    ``ValueError``."""
     dev = devmod.resolve(device)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    arrays: Dict[str, np.ndarray] = {}
-    for fname, keys in manifest["files"]:
-        with np.load(os.path.join(path, fname)) as z:
-            for j, k in enumerate(keys):
-                arrays[k] = z[f"a{j}"]
+    where = {k: (fname, j) for fname, keys in manifest["files"]
+             for j, k in enumerate(keys)}
+    specs = dict(_flatten(shardings)) if mesh is not None else {}
+    files: Dict[str, Any] = {}
     vals = {}
     for k, ref in _flatten(like):
-        if k not in arrays:
+        if k not in where:
             raise KeyError(f"checkpoint missing {k}")
-        a = arrays[k]
-        if tuple(a.shape) != tuple(ref.shape):
-            raise ValueError(f"{k}: shape {a.shape} != {tuple(ref.shape)}")
-        vals[k] = _decode(a, manifest.get("dtypes", {}).get(k)).to(dev)
+        fname, j = where[k]
+        if fname not in files:
+            files[fname] = _members(os.path.join(path, fname))
+        a = files[fname][f"a{j}"]
+        t = _decode(a, manifest.get("dtypes", {}).get(k))
+        if mesh is not None:
+            t = shd.local_slice(t, specs[k], mesh)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{k}: shape {tuple(t.shape)} != "
+                             f"{tuple(ref.shape)}")
+        # a copy: the pages of a mapped array are read here, once
+        vals[k] = t.to(dev, copy=True).contiguous()
     return _unflatten(like, vals), manifest
 
 

@@ -7,6 +7,13 @@ the exact token stream), and a straggler monitor that flags slow steps
 against a rolling median: on a real deployment the flag feeds the
 scheduler's drain/replace decision; here it is surfaced in metrics and
 tested with an injected clock.
+
+A sharded state is saved with ``shardings`` and ``mesh``: the leaves are
+gathered whole on the main thread (a collective on the saver's thread
+would interleave with the next step's collectives), rank 0 writes them
+on its saver's thread, and :meth:`CheckpointManager.wait` is where the
+ranks meet; ``restore_latest(..., shardings=, mesh=)`` hands each rank its
+blocks on any mesh.  Only rank 0 writes and collects garbage.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ import re
 import shutil
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch.distributed as dist
 
 from repro_torch.training import checkpoint as ckpt
 
@@ -26,6 +35,7 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._saver = ckpt.AsyncSaver() if async_save else None
+        self._sharded = False
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step:08d}")
@@ -39,10 +49,19 @@ class CheckpointManager:
                 out.append(int(m.group(1)))
         return sorted(out)
 
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None
-             ) -> None:
-        # device→host copy before the next step updates the state in place
-        host = ckpt.to_host(tree)
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, *,
+             shardings: Any = None, mesh=None) -> None:
+        """Save ``tree`` as step ``step``; a sharded tree (the rank's blocks
+        under ``shardings`` on ``mesh``) whole, every rank calling."""
+        if mesh is not None:
+            self._sharded = True
+            host = ckpt.gather_to_host(tree, shardings, mesh)
+            if host is None:
+                return
+        else:
+            # device→host copy before the next step updates the state in
+            # place
+            host = ckpt.to_host(tree)
 
         def do():
             ckpt.save(self._path(step), host, step=step, extra=extra)
@@ -54,17 +73,27 @@ class CheckpointManager:
             do()
 
     def wait(self):
+        """Wait for the last save; after a sharded save every rank calls
+        it, and the ranks meet here once rank 0's write is done."""
         if self._saver is not None:
             self._saver.wait()
+        if self._sharded:
+            dist.barrier()
 
-    def restore_latest(self, like: Any, *, device=None
-                       ) -> Optional[Tuple[Any, Dict]]:
+    def restore_latest(self, like: Any, *, device=None, shardings: Any = None,
+                       mesh=None) -> Optional[Tuple[Any, Dict]]:
         """The latest checkpoint in the structure of ``like`` on ``device``
-        (None: the card), with its manifest; None when there is none."""
+        (None: the card), with its manifest; None when there is none.
+        With ``shardings`` and ``mesh``, each leaf is this rank's block
+        (``like`` holds the blocks)."""
+        if mesh is not None:
+            self._sharded = True
+            self.wait()
         steps = self.steps()
         if not steps:
             return None
-        return ckpt.load(self._path(steps[-1]), like, device=device)
+        return ckpt.load(self._path(steps[-1]), like, device=device,
+                         shardings=shardings, mesh=mesh)
 
     def _gc(self):
         steps = self.steps()

@@ -26,6 +26,16 @@ JAX rank (:func:`jax_ndim`), not its own:
 Leaves of rank >= 2 per layer (the qkv biases among them) factor per layer
 on both sides.  ``apply_updates`` updates the parameters and the state in
 place.
+
+On a mesh (``apply_updates(..., specs=, mesh=)``) every parameter, its
+gradient and its moments are the rank's blocks under the parameter's
+spec (a factored ``row`` under ``spec[:-1]``, ``col`` under
+``spec[:-2] + spec[-1:]``, as ``sharding.opt_state_pspecs`` gives them).
+The update is elementwise but for two reductions, which run over the
+mesh axes that split what they reduce: the global norm sums each block's
+squares over the axes that split its parameter (never over one that
+replicates it), and Adafactor's means over a dimension sum over the axes
+that split that dimension.
 """
 from __future__ import annotations
 
@@ -35,35 +45,18 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import axes_size, entry_axes, spec_axes
+from repro_torch.models.naming import (  # noqa: F401  (the optimizer's rules)
+    is_layer_param, jax_ndim, stacked_leaf)
 
 State = Union[torch.Tensor, Dict[str, torch.Tensor]]
-_STACKS = ("layers", "enc_layers")
 
 
 class OptState(NamedTuple):
     m: Dict[str, torch.Tensor]
     v: Dict[str, State]      # a factored entry is {"row", "col"}
     step: torch.Tensor       # int32 ()
-
-
-def stacked_leaf(name: str, period: int) -> Tuple[str, Optional[int]]:
-    """The JAX leaf that holds port parameter ``name`` and its index on the
-    leaf's stacking axis (None for an unstacked leaf): layer i of the
-    decoder is ``layers.pos{i % period}`` at i // period, layer i of the
-    encoder (period 1) ``enc_layers.pos0`` at i; e.g.
-    ``layers.5.attn.wq`` with period 2 → (``layers.pos1.attn.wq``, 2)."""
-    head, _, rest = name.partition(".")
-    if head not in _STACKS:
-        return name, None
-    i, _, leaf = rest.partition(".")
-    p = period if head == "layers" else 1
-    return f"{head}.pos{int(i) % p}.{leaf}", int(i) // p
-
-
-def jax_ndim(name: str, t: torch.Tensor) -> int:
-    """The rank of ``name``'s leaf in the JAX tree: one more than the
-    port's for a layer's parameter."""
-    return t.ndim + (name.partition(".")[0] in _STACKS)
 
 
 def lr_schedule(step, rc: RunConfig, total_steps: int = 100_000
@@ -110,23 +103,62 @@ def _fact_init_v(name: str, p: torch.Tensor) -> State:
             "col": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
 
 
-def _fact_update_v(v: Dict[str, torch.Tensor], g2: torch.Tensor, b2: float):
-    """The JAX package's factored update on (.., a, b) gradients squared."""
-    row = v["row"] * b2 + (1 - b2) * g2.mean(-1)
-    col = v["col"] * b2 + (1 - b2) * g2.mean(-2)
-    denom = torch.clamp(row.mean(-1, keepdim=True), min=1e-30)
+def _mean(x: torch.Tensor, dim: int, split, keepdim: bool = False
+          ) -> torch.Tensor:
+    """``x.mean(dim)`` of the whole tensor that ``x`` is a block of:
+    ``split`` is (the group of the mesh axes that split ``dim``, their
+    number of blocks), or None when ``dim`` is whole here."""
+    if split is None:
+        return x.mean(dim, keepdim=keepdim)
+    group, n = split
+    total = comm.all_reduce(x.sum(dim, keepdim=keepdim), group)
+    return total / (x.shape[dim] * n)
+
+
+def _fact_update_v(v: Dict[str, torch.Tensor], g2: torch.Tensor, b2: float,
+                   split_a=None, split_b=None):
+    """The JAX package's factored update on (.., a, b) gradients squared
+    (``split_a``/``split_b``: how a block's a and b dims are split,
+    :func:`_mean`)."""
+    row = v["row"] * b2 + (1 - b2) * _mean(g2, -1, split_b)
+    col = v["col"] * b2 + (1 - b2) * _mean(g2, -2, split_a)
+    denom = torch.clamp(_mean(row, -1, split_a, keepdim=True), min=1e-30)
     vhat = (row[..., None] * col[..., None, :]) / denom[..., None]
     return {"row": row, "col": col}, vhat
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree.values()))
+def global_norm(tree: Dict[str, torch.Tensor], specs: Optional[Dict] = None,
+                mesh=None) -> torch.Tensor:
+    """The norm of every tensor of ``tree`` together; on a mesh, of the
+    whole tensors whose blocks ``tree`` holds: each block's squares summed
+    over the mesh axes its spec names, once for each set of axes."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in tree.values()))
+    by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for n, x in tree.items():
+        axes = spec_axes(specs[n])
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    return torch.sqrt(sum(
+        comm.all_reduce(sq, comm.axis_group(mesh, axes)) if axes else sq
+        for axes, sq in sorted(by_axes.items())))
+
+
+def _split(spec, dim: int, mesh):
+    """How dim ``dim`` of a block under ``spec`` is split: (the group of
+    its mesh axes, their number of blocks), or None (whole here)."""
+    if mesh is None or dim >= len(spec):
+        return None
+    axes = entry_axes(spec[dim])
+    n = axes_size(mesh, axes)
+    return (comm.axis_group(mesh, axes), n) if n > 1 else None
 
 
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], opt: OptState,
-                  rc: RunConfig, *, period: int = 1, b1: float = 0.9,
+                  rc: RunConfig, *, period: int = 1,
+                  specs: Optional[Dict] = None, mesh=None, b1: float = 0.9,
                   b2: float = 0.95, eps: float = 1e-8
                   ) -> Tuple[Dict[str, torch.Tensor], OptState,
                              Dict[str, torch.Tensor]]:
@@ -134,11 +166,13 @@ def apply_updates(params: Dict[str, torch.Tensor],
     their global norm, update the moments and the parameters (decoupled
     weight decay on leaves of JAX rank >= 2).  ``period`` is the model's
     (``cfg.period``): it groups the layers into JAX's stacked leaves for
-    Adafactor.  Returns (params, the state, {"grad_norm", "lr"}), both
-    updated in place (the state's step too)."""
+    Adafactor.  With ``mesh``, every tensor is the rank's block under its
+    parameter's spec in ``specs``.  Returns (params, the state,
+    {"grad_norm", "lr"}), both updated in place (the state's step
+    too)."""
     step = opt.step
     step.add_(1)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     clip = torch.clamp(rc.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = lr_schedule(step, rc)
     sf = step.to(torch.float32)
@@ -167,7 +201,10 @@ def apply_updates(params: Dict[str, torch.Tensor],
             g = grads[name].to(torch.float32) * clip
             m32 = opt.m[name].to(torch.float32) * b1 + (1 - b1) * g
             if isinstance(v, dict):
-                v_new, vhat = _fact_update_v(v, g * g, b2)
+                spec = specs[name] if mesh is not None else ()
+                v_new, vhat = _fact_update_v(
+                    v, g * g, b2, _split(spec, p.ndim - 2, mesh),
+                    _split(spec, p.ndim - 1, mesh))
                 v["row"].copy_(v_new["row"])
                 v["col"].copy_(v_new["col"])
             else:
@@ -180,9 +217,12 @@ def apply_updates(params: Dict[str, torch.Tensor],
                              for n in names]) * clip
             m32 = torch.stack([opt.m[n].to(torch.float32)
                                for n in names]) * b1 + (1 - b1) * g
+            # (P, d): the layers are whole here, d split as each layer's
             v_new, vhat = _fact_update_v(
                 {"row": torch.stack([opt.v[n]["row"] for n in names]),
-                 "col": opt.v[names[0]]["col"]}, g * g, b2)
+                 "col": opt.v[names[0]]["col"]}, g * g, b2, None,
+                _split(specs[names[0]] if mesh is not None else (), 0,
+                       mesh))
             for j, n in enumerate(names):
                 opt.v[n]["row"].copy_(v_new["row"][j])
                 opt.v[n]["col"].copy_(v_new["col"])

@@ -1,7 +1,9 @@
 """Checkpoints and restarts on the port: the JAX package's
-``test_checkpoint.py`` (but its elastic restore, which waits for the
-port's sharding) and ``test_system.py``'s crash-restart and
-train-then-serve, then the launcher resumed on the CPU.
+``test_checkpoint.py`` (its elastic restore onto other meshes is
+``tests/test_torch_train_sharded.py::test_elastic_restore``, four ranks
+saving on (4, 1) and loading on (2, 2) and with no mesh) and
+``test_system.py``'s crash-restart and train-then-serve, then the
+launcher resumed on the CPU.
 
 A bf16 leaf is stored as its uint16 bits with a ``bfloat16`` tag and read
 back with ``Tensor.view``: the port's checkpoint never imports

@@ -400,3 +400,53 @@ def test_loss_decreases():
         model, ostate, ef, m = step(model, ostate, ef, b)
         losses.append(m["loss"].item())
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.8, losses
+
+
+def test_train_step_compress_matches_jax():
+    """Two ``compress_grads`` steps of chatglm3-6b-smoke (2 stacked layers,
+    float32 compute) against JAX's: a layer's int8 scale covers its whole
+    tensor, the JAX leaf's row, so the error-feedback state, the
+    parameters and ``compressed_bytes`` (summed over a stack) are JAX's.
+    An element whose gradient lies an ulp from a rounding boundary of its
+    code may round the other way: at most 1 in 1000 of the model's
+    elements may differ by more than 1e-4 x the gradient's absmax in the
+    error feedback or 1e-5 in the parameters, none by more than 2 x the
+    lrs' sum."""
+    arch = "chatglm3-6b"
+    jcfg, cfg = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
+    kw = dict(microbatches=2, learning_rate=1e-3, warmup_steps=2,
+              act_dtype="float32")
+    jrc, trc = JRunConfig(**kw), TRunConfig(**kw)
+    p = _jax_params(arch)
+    data = jpipe.SyntheticTokens(jcfg.vocab_size, 4, 16, seed=0)
+    step = jax.jit(jtl.make_train_step(jcfg, jrc, compress_grads=True))
+    jp, jo = jax.tree_util.tree_map(jnp.asarray, p), jopt.init_opt_state(p,
+                                                                         jrc)
+    jef = jcomp.init_error_feedback(jp)
+    model = convert.from_jax_params(p, cfg, device="cpu")
+    to = topt.init_opt_state(dict(model.named_parameters()), trc)
+    tef = tcomp.init_error_feedback(dict(model.named_parameters()))
+    tstep = ttl.make_train_step(cfg, trc, compress_grads=True)
+    for i in range(2):
+        b = data.batch_at(i)
+        jp, jo, jef, jm = step(jp, jo, jef, b)
+        model, to, tef, tm = tstep(model, to, tef, {
+            k: torch.from_numpy(v) for k, v in b.items()})
+        assert tm["loss"].item() == pytest.approx(float(jm["loss"]),
+                                                  rel=1e-5)
+    assert tcomp.compressed_bytes(tef) == jcomp.compressed_bytes(_np(jef))
+    jef, jp = _np(jef), _np(jp)
+    lrs = 2 * sum(float(jopt.lr_schedule(s, jrc)) for s in (1, 2))
+    bad_e = bad_p = total = 0
+    for n, t in model.named_parameters():
+        e_ref = _leaf(jef, n, cfg.period)
+        # a residual is at most half a code's step, the gradient's absmax
+        # / 127, so 254 x the largest one stands for the absmax: the
+        # gradients agree within 1e-4 of it
+        gmax = 254 * np.abs(e_ref).max()
+        diff = np.abs(t.detach().numpy() - _leaf(jp, n, cfg.period))
+        bad_e += (np.abs(tef[n].numpy() - e_ref) > 1e-4 * gmax).sum()
+        bad_p += (diff > 1e-5).sum()
+        total += diff.size
+        assert diff.max() <= lrs, n
+    assert bad_e <= 1e-3 * total and bad_p <= 1e-3 * total, (bad_e, bad_p)
