@@ -277,7 +277,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    full), 8 sequences of 4096 tokens of ``SyntheticTokens`` a step: one
    warm-up and 5 timed steps (the median, tokens/s, 6 N D over the median
    as a share of 989 TFLOP/s, peak memory), then one step each under remat
-   none and dots; every loss finite; ``make_eval_step`` on the last batch
+   none and dots, and one more remat-full step under ``FlopCounterMode``
+   (phase 22 (a)); every loss finite; ``make_eval_step`` on the last batch
    at the parameters the last step started from equal to that step's loss
    within 1e-2.  (c) The trained masters cast to bf16 and served, 2
    prompts of 32 tokens of an unseen batch, 4 new: dense, dual (K1) and
@@ -354,6 +355,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    weights restored into one process served in bf16 through
    ``generate`` in dense, dual (K1) and dual+kc (K2), every K1/K2 launch
    held to its plain walk, as in 19.
+22. the dry run (``repro_torch.launch.dryrun``) — its traces run in a
+   process of their own, started after the build, beside every other
+   phase (fake tensors: nothing is allocated on the card), and are held
+   here against the measurements of phases 19 and 21.  (a) Traffic J's
+   step (chatglm3-6b, 4 layers, ``train_4k``, 8 x 4096 tokens) on fake
+   CUDA tensors, one device, under remat full, none and dots: the traced
+   FLOPs of remat full equal to ``FlopCounterMode``'s count of one real
+   remat-full step in phase 19 (its module tracker off), each mode's
+   ``total_hbm_bytes`` within ``DRY_MEM_RTOL`` of the peak phase 19
+   measured, the analytic ``roofline_s`` beside the measured step median.
+   (b) Traffic L's step as rank 0 of a fake group of four on mesh (4, 1):
+   its collective bytes by kind equal to those rank 0 recorded
+   (``roofline.StepTrace``) around its first real step in phase 21, its
+   ``total_hbm_bytes`` within ``DRY_MEM_RTOL`` of the rank's measured
+   peak.  (c) chatglm3-6b ``train_4k`` on 16x16, qwen1.5-110b
+   ``decode_32k`` on 16x16 and mixtral-8x7b ``prefill_32k`` on 2x16x16
+   through ``dryrun.run_cell``: fits or not, GiB a device, bottleneck,
+   ``roofline_s``, traced against analytic FLOPs and collectives, trace
+   seconds.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -362,6 +382,7 @@ outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import array
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -6097,6 +6118,28 @@ J_PROMPTS, J_PROMPT_LEN, J_NEW, J_SERVE_STEP = 2, 32, 4, 1000
 R_STEPS, R_CRASH = 6, 3
 
 
+class _NoModules:
+    """FlopCounterMode's module tracker, tracking nothing: its hooks on
+    every module's outputs make reference cycles that hold a step's
+    activations until the garbage collector runs (traffic J at remat full
+    ran out of the card's memory under them); the count is the same."""
+    parents = {"Global"}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def flop_counter(torch):
+    """A ``FlopCounterMode`` counting the whole run under "Global" alone."""
+    from torch.utils.flop_counter import FlopCounterMode
+    fc = FlopCounterMode(display=False)
+    fc.mod_tracker = _NoModules()
+    return fc
+
+
 def train_smoke(torch):
     """Phase 19 (a): one float32 train step of every family's smoke model
     on the card against the CPU (random qkv biases and VLM gates)."""
@@ -6256,6 +6299,19 @@ def train_traffic_j(torch, smi):
         log(f"traffic J: remat {remat}, one step {dt * 1e3:.1f} ms "
             f"({tokens / dt:.0f} tokens/s, {flops / dt / 1e12:.1f} TFLOP/s)"
             f", peak memory {p:.1f} GB, loss {m['loss']:.4f}; {smi}")
+    # one more remat-full step counted by FlopCounterMode, the count phase
+    # 22's trace of the same step must equal
+    fc = flop_counter(torch)
+    batch = batch_at(J_STEPS + 2)
+    t = time.perf_counter()
+    with fc:
+        step(model, ostate, None, batch)
+    torch.cuda.synchronize()
+    j["flops_counted"] = fc.get_total_flops()
+    log(f"traffic J: remat full, one step under FlopCounterMode "
+        f"({time.perf_counter() - t:.1f} s): {j['flops_counted']} FLOPs "
+        f"({j['flops_counted'] / 1e12:.1f} TFLOP; 6 N D "
+        f"{flops / 1e12:.1f})")
     check_launches("traffic J training", counters, {})
 
     # (c) the trained masters cast to bf16 and served
@@ -7327,6 +7383,7 @@ def rank_traffic_l(out_dir):
     import torch.distributed as dist
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import mesh as meshmod
+    from repro_torch.launch import roofline
     from repro_torch.models import model_zoo
     from repro_torch.models import nn as tnn
     from repro_torch.training import optimizer as opt
@@ -7374,8 +7431,15 @@ def rank_traffic_l(out_dir):
     with tnn.axis_rules(rules, mesh=mesh):
         for i in range(L_STEPS):
             clock.ms, clock.on = 0.0, True
-            (_, ostate, _, m), dt = timed_step(
-                torch, step, model, ostate, None, l_batch(torch, cfg, i))
+            batch = l_batch(torch, cfg, i)
+            # the first step inside phase 22's recorder: the collectives
+            # its trace on a fake group must equal
+            trace = roofline.StepTrace() if i == 0 else contextlib.nullcontext()
+            with trace:
+                (_, ostate, _, m), dt = timed_step(
+                    torch, step, model, ostate, None, batch)
+            if i == 0:
+                info["collectives"] = trace.collectives
             clock.on = False
             info["losses"].append(m["loss"].item())
             info["norms"].append(m["grad_norm"].item())
@@ -7471,8 +7535,8 @@ def phase_sharded_training(torch, smi, finish_a):
     which :func:`sharded_train_smoke` started earlier (its small ranks run
     beside phases 19 and 20) and checks it beside traffic L's ranks.
     Traffic L's ranks start with the one-process reference and wait for
-    it to free the card.  Returns {K-name: numbers} of the restored
-    model's held cached-plan runs."""
+    it to free the card.  Returns ({K-name: numbers} of the restored
+    model's held cached-plan runs, rank 0's numbers)."""
     import shutil
     from repro_torch.testing import sharded_train as st
     t_phase = time.perf_counter()
@@ -7618,7 +7682,191 @@ def phase_sharded_training(torch, smi, finish_a):
         f" the ranks starting beside it; (a) checked {t_a - t_phase:.0f} s"
         f" in, beside traffic L's ranks; the ranks done "
         f"{t_b - t_phase:.0f} s in)")
-    return numbers
+    return numbers, r0
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "build" / "repro_torch" / "dryrun"
+# production-mesh cells traced in (c): (arch, shape, multi_pod)
+DRY_CELLS = (("chatglm3-6b", "train_4k", False),
+             ("qwen1.5-110b", "decode_32k", False),
+             ("mixtral-8x7b", "prefill_32k", True))
+# a trace's total_hbm_bytes against the measured peak, relative
+DRY_MEM_RTOL = 0.10
+DRY_TIMEOUT = 900
+# the device type of the traces' fake tensors
+DRY_DEVICE = "cuda"
+
+
+def dryrun_child(out):
+    """Phase 22's traces, in a process of their own started before phase
+    3 (they need no card: nothing is allocated): (a) traffic J's step on
+    one device under remat full, none and dots; (b) traffic L's step as
+    rank 0 of a fake group of L_WORLD ranks on the host mesh; (c) the
+    DRY_CELLS on the production meshes.  Writes ``out``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import costmodel as cm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.launch import roofline as rl
+    from repro_torch.configs import get_config, get_run_config
+    res = {"torch": torch.__version__, "j": {}, "cells": []}
+
+    def summary(trace, secs):
+        return dict(flops=trace.flops, bytes=trace.bytes,
+                    collectives=trace.collectives, seconds=secs,
+                    **rl.memory_summary(trace))
+    cfg = dataclasses.replace(get_config(J_ARCH), n_layers=J_LAYERS)
+    shape = ShapeConfig("traffic_j", "train", J_SEQ, J_BATCH)
+    for remat in ("full", "none", "dots"):
+        rc = dataclasses.replace(get_run_config(J_ARCH, "train_4k"),
+                                 remat=remat)
+        trace, secs = dryrun.trace_lowered(dryrun.lower(
+            cfg, rc, shape, device=DRY_DEVICE))
+        ana = cm.step_costs(cfg, shape, rc, dp=1, tp=1)
+        res["j"][remat] = dict(summary(trace, secs), roofline=rl.roofline(
+            ana["flops_per_device"], ana["hbm_bytes_per_device"],
+            ana["coll_bytes_per_device"]))
+    cfg, rc = l_config()
+    shape = ShapeConfig("traffic_l", "train", L_SEQ, L_BATCH)
+    dryrun.join_fake_group(L_WORLD)
+    try:
+        mesh = meshmod.make_host_mesh()
+        trace, secs = dryrun.trace_lowered(dryrun.lower(
+            cfg, rc, shape, device=DRY_DEVICE, mesh=mesh,
+            rules=shd.make_rules("train")), mesh)
+    finally:
+        meshmod.destroy()
+    res["l"] = summary(trace, secs)
+    for arch, shape_name, mp in DRY_CELLS:
+        r = dryrun.run_cell(arch, shape_name, multi_pod=mp, verbose=False,
+                            device=DRY_DEVICE)
+        res["cells"].append({k: r[k] for k in (
+            "arch", "shape", "mesh", "placement", "fits_hbm",
+            "hbm_gib_per_device", "bottleneck", "roofline_s",
+            "trace_seconds", "traced_flops_per_device",
+            "analytic_flops_per_device", "traced_collectives",
+            "analytic_coll_bytes_per_device")})
+    # fake tensors allocate nothing on the card
+    res["card_allocated"] = (torch.cuda.memory_allocated()
+                             if torch.cuda.is_initialized() else 0)
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def start_dryrun():
+    """Start :func:`dryrun_child`; returns a function that waits for it
+    and returns its results."""
+    import atexit
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    out = DRYRUN_DIR / "phase22.json"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    with open(DRYRUN_DIR / "child.log", "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
+             str(out)], cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT,
+            env=dict(dist_env(), OMP_NUM_THREADS="1"))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+    def wait():
+        try:
+            proc.wait(timeout=DRY_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode:
+            text = (DRYRUN_DIR / "child.log").read_text()
+            raise RuntimeError(f"dry run child exited {proc.returncode}:\n"
+                               + text[-6000:])
+        res = json.loads(out.read_text())
+        res["wall_s"] = time.perf_counter() - t0
+        return res
+    return wait
+
+
+def phase_dryrun(torch, smi, wait, j, l_rank0):
+    """Phase 22 (see the module docstring): the traces of
+    :func:`dryrun_child` against phase 19's and 21's measurements."""
+    from repro_torch.launch import roofline as rl
+    t_phase = time.perf_counter()
+    res = wait()
+    waited = time.perf_counter() - t_phase
+    if res["card_allocated"]:
+        raise AssertionError(f"the dry run's traces allocated "
+                             f"{res['card_allocated']} bytes on the card")
+    # (a) traffic J on one device
+    full = res["j"]["full"]
+    if full["flops"] != j["flops_counted"]:
+        raise AssertionError(
+            f"dry run (a): traffic J's traced FLOPs {full['flops']} != "
+            f"FlopCounterMode's {j['flops_counted']} on the card")
+    rows = []
+    for remat in ("full", "none", "dots"):
+        t = res["j"][remat]
+        peak = (j["peak_gb"] if remat == "full" else j[remat]["peak_gb"])
+        ratio = t["total_hbm_bytes"] / (peak * 1e9)
+        if not abs(ratio - 1) <= DRY_MEM_RTOL:
+            raise AssertionError(
+                f"dry run (a): traffic J remat {remat}: total_hbm_bytes "
+                f"{t['total_hbm_bytes'] / 1e9:.2f} GB against the measured "
+                f"peak {peak:.2f} GB (ratio {ratio:.3f})")
+        rows.append(
+            f"remat {remat} {t['total_hbm_bytes'] / 1e9:.2f} GB against "
+            f"{peak:.2f} measured (x{ratio:.3f}; arguments "
+            f"{t['argument_size_in_bytes'] / 1e9:.2f}, temporaries "
+            f"{t['temp_size_in_bytes'] / 1e9:.2f}), {t['flops'] / 1e12:.1f} "
+            f"TFLOP traced, roofline {t['roofline']['roofline_s'] * 1e3:.1f}"
+            f" ms ({t['roofline']['bottleneck']}), traced in "
+            f"{t['seconds']:.1f} s")
+    log(f"dry run (a): traffic J ({J_ARCH}, {J_LAYERS} layers, {J_BATCH} x "
+        f"{J_SEQ} tokens, fake CUDA tensors, one device): traced FLOPs "
+        f"{full['flops']} == FlopCounterMode's {j['flops_counted']} of a "
+        f"real remat-full step; measured step median {j['step_ms']:.1f} ms "
+        f"against roofline {full['roofline']['roofline_s'] * 1e3:.1f} ms; "
+        + "; ".join(rows) + f"; {smi}")
+    # (b) traffic L, rank 0 of a fake group
+    t = res["l"]
+    want = rl.collective_bytes(l_rank0["collectives"])
+    got = rl.collective_bytes(t["collectives"])
+    if got != want:
+        raise AssertionError(f"dry run (b): traffic L rank 0's collective "
+                             f"bytes traced {got} != recorded {want}")
+    ratio = t["total_hbm_bytes"] / (l_rank0["peak_gb"] * 1e9)
+    if not abs(ratio - 1) <= DRY_MEM_RTOL:
+        raise AssertionError(
+            f"dry run (b): traffic L rank 0's total_hbm_bytes "
+            f"{t['total_hbm_bytes'] / 1e9:.2f} GB against its measured "
+            f"peak {l_rank0['peak_gb']:.2f} GB (ratio {ratio:.3f})")
+    log(f"dry run (b): traffic L ({L_ARCH}, {L_LAYERS} layer, {L_BATCH} x "
+        f"{L_SEQ} tokens) as rank 0 of a fake group of {L_WORLD} on mesh "
+        f"({L_WORLD}, 1): collective bytes by kind "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in got.items() if v)
+        + f" == rank 0's recorded around its first real step "
+        f"({len(t['collectives'])} collectives); total_hbm_bytes "
+        f"{t['total_hbm_bytes'] / 1e9:.2f} GB against the rank's measured "
+        f"peak {l_rank0['peak_gb']:.2f} GB (x{ratio:.3f}); traced in "
+        f"{t['seconds']:.1f} s; {smi}")
+    # (c) the production meshes
+    for c in res["cells"]:
+        log(f"dry run (c): {c['arch']} x {c['shape']} x {c['mesh']} "
+            f"({c['placement']}): fits {c['fits_hbm']}, "
+            f"{c['hbm_gib_per_device']:.2f} GiB a device of "
+            f"{rl.HBM_BYTES / 2 ** 30:.2f}, bottleneck {c['bottleneck']}, "
+            f"roofline {c['roofline_s'] * 1e3:.2f} ms, traced FLOPs "
+            f"{c['traced_flops_per_device']:.4g} (analytic "
+            f"{c['analytic_flops_per_device']:.4g}), collectives "
+            f"{c['traced_collectives']['total'] / 1e9:.3f} GB (analytic "
+            f"{c['analytic_coll_bytes_per_device'] / 1e9:.3f}), traced in "
+            f"{c['trace_seconds']:.1f} s")
+    log(f"dry run: phase {time.perf_counter() - t_phase:.1f} s (waited "
+        f"{waited:.1f} s for the traces, started {res['wall_s']:.0f} s "
+        f"before; torch {res['torch']}; nothing allocated on the card)")
 
 
 def mark(t_start, what):
@@ -7647,12 +7895,16 @@ def main() -> int:
         return rank_train_smoke(sys.argv[2])
     if sys.argv[1:2] == ["--rank-traffic-l"]:
         return rank_traffic_l(sys.argv[2])
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        return dryrun_child(sys.argv[2])
     from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
     mark(t_start, "build")
+    # phase 22's traces run beside every other phase
+    wait_dryrun = start_dryrun()
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
     err, totals = phase_kernels(torch, cfg)
     no_quarantine("kernels")
@@ -7729,7 +7981,7 @@ def main() -> int:
     phase_tuning(torch, smi)
     # phase 21 (a)'s small ranks run beside phases 19 and 20
     finish_train_smoke = sharded_train_smoke()
-    trained, _ = phase_training(torch, smi)
+    trained, j = phase_training(torch, smi)
     no_quarantine("training, traffic J")
     mark(t_start, "training, traffic J")
     torch.cuda.empty_cache()
@@ -7737,9 +7989,12 @@ def main() -> int:
     no_quarantine("expert-parallel serving, traffic K")
     mark(t_start, "expert-parallel serving, traffic K")
     torch.cuda.empty_cache()
-    sharded_trained = phase_sharded_training(torch, smi, finish_train_smoke)
+    sharded_trained, l_rank0 = phase_sharded_training(torch, smi,
+                                                      finish_train_smoke)
     no_quarantine("sharded training, traffic L")
     mark(t_start, "sharded training, traffic L")
+    phase_dryrun(torch, smi, wait_dryrun, j, l_rank0)
+    mark(t_start, "dry run")
     for mode, kn in (("dual", "K1"), ("dual+kc", "K2")):
         t = totals[kn]
         log(f"time: {mode} generate {walls[mode]:.0f} ms; timed alone at "

@@ -13,12 +13,15 @@ that of ``all_to_all`` is the ``all_to_all`` back, and that of a summing
 only: the two halves of ``shard_map``'s transpose for a value that is
 replicated over some mesh axes.  A group of one rank moves nothing.
 :func:`axis_group` gives the group along any set of a ``DeviceMesh``'s
-axes, and :func:`group_order` the order of its blocks.
+axes, and :func:`group_order` the order of its blocks, both from the
+mesh's rank layout (:func:`mesh_layout`), read once a mesh.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import weakref
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -159,6 +162,23 @@ def scale_grad(t: torch.Tensor, factor: float) -> torch.Tensor:
 
 
 _GROUPS: Dict[tuple, object] = {}
+_LAYOUTS: Dict[int, tuple] = {}
+
+
+def mesh_layout(mesh) -> Tuple[tuple, tuple, tuple]:
+    """(the mesh's ranks in row-major order, its shape, its axis names),
+    read from ``mesh.mesh`` (tensor ops) on a mesh's first call and kept:
+    later calls run no tensor op, so they work under a fake-tensor mode,
+    where reading ``mesh.mesh`` fails (the dry run's trace;
+    ``launch.mesh`` reads each mesh it makes at once)."""
+    hit = _LAYOUTS.get(id(mesh))
+    if hit is None or hit[0]() is not mesh:
+        ranks = np.array(mesh.mesh.tolist())
+        hit = (weakref.ref(mesh), (tuple(ranks.reshape(-1).tolist()),
+                                   tuple(ranks.shape),
+                                   tuple(mesh.mesh_dim_names)))
+        _LAYOUTS[id(mesh)] = hit
+    return hit[1]
 
 
 def axis_group(mesh, axes: Sequence[str]):
@@ -170,16 +190,16 @@ def axis_group(mesh, axes: Sequence[str]):
     such group on first use, in the same order, as ``new_group``
     requires; later calls return the cached group."""
     axes = tuple(axes)
-    ranks = mesh.mesh
-    key = (tuple(ranks.flatten().tolist()), tuple(ranks.shape),
-           tuple(mesh.mesh_dim_names), axes)
+    ranks, shape, names = mesh_layout(mesh)
+    key = (ranks, shape, names, axes)
     if key not in _GROUPS:
-        dims = [mesh.mesh_dim_names.index(a) for a in axes]
-        rest = [d for d in range(ranks.ndim) if d not in dims]
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(shape)) if d not in dims]
         width = 1
         for d in dims:
-            width *= ranks.shape[d]
-        rows = ranks.permute(*rest, *dims).reshape(-1, width).tolist()
+            width *= shape[d]
+        rows = (np.array(ranks).reshape(shape).transpose(*rest, *dims)
+                .reshape(-1, width).tolist())
         me = dist.get_rank()
         mine = None
         for row in rows:
@@ -200,13 +220,13 @@ def group_order(mesh, axes: Sequence[str]) -> list:
     """For each rank of ``axis_group(mesh, axes)``, in group order, its
     block index over ``axes`` (the first outermost)."""
     group = axis_group(mesh, axes)
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    ranks, shape, names = mesh_layout(mesh)
+    sizes = dict(zip(names, shape))
     out = []
     for r in sorted(dist.get_process_group_ranks(group)):
-        coord = dict(zip(mesh.mesh_dim_names,
-                         (mesh.mesh == r).nonzero()[0].tolist()))
+        coord = dict(zip(names, np.unravel_index(ranks.index(r), shape)))
         idx = 0
         for a in axes:
-            idx = idx * sizes[a] + coord[a]
+            idx = idx * sizes[a] + int(coord[a])
         out.append(idx)
     return out

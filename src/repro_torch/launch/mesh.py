@@ -89,7 +89,9 @@ def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
     # the mesh only names the ranks: collectives run in comm.axis_group's
     # groups, in the default group's backend
     kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(kind, shape, mesh_dim_names=names)
+    mesh = init_device_mesh(kind, shape, mesh_dim_names=names)
+    comm.mesh_layout(mesh)   # read now: a fake-tensor trace cannot
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -99,3 +99,15 @@ class MLP(nn.Module):
         h = act.activate(h, cfg.mlp_type, slice_k=pln.effective_slice_k(
             h.shape[-1], cfg.sparse_slice_k), gate=gate)
         return project(h, "w_down", "mlp.down", ("mlp", "embed"))
+
+
+def mlp_activation_sparsity(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                            cfg: ModelConfig) -> torch.Tensor:
+    """Fraction of zeros in the post-activation tensor (the dual-side
+    input), a 0-d float32 tensor; ``params`` is an :class:`MLP`'s
+    :meth:`~MLP.weights`."""
+    h = x @ params["w_up"].to(x.dtype)
+    gate = (x @ params["w_gate"].to(x.dtype) if "w_gate" in params
+            else None)
+    h = _activate(h, gate, cfg.mlp_type)
+    return (h == 0.0).to(torch.float32).mean()

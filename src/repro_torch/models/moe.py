@@ -288,8 +288,7 @@ def _mesh_axes(rule, mesh) -> Tuple[str, ...]:
 
 
 def _mesh_key(mesh) -> tuple:
-    return (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.shape),
-            tuple(mesh.mesh_dim_names))
+    return comm.mesh_layout(mesh)
 
 
 @dataclasses.dataclass
@@ -531,12 +530,13 @@ def _moe_shard_map(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     sh = _check_shard(moe, mesh, rules)
     e, k = cfg.n_experts, cfg.n_experts_active
     b, s, d = x.shape
-    local = tnn.batch_is_local()
-    # the data axes of this call: every one in the train step; serving, the
-    # largest run of the batch rule's axes whose size divides B (b=16 on
-    # ("pod","data")=2×16 → "data")
-    dpc = (sh.dp_axes if local else
-           shd._best_divisible(sh.dp_axes, b, shd.mesh_sizes(mesh)))
+    # the data axes of this call: the train step's (``nn.local_batch``);
+    # serving, the largest run of the batch rule's axes whose size divides
+    # B (b=16 on ("pod","data")=2×16 → "data")
+    dpc = tnn.local_batch_axes()
+    local = dpc is not None
+    if not local:
+        dpc = shd._best_divisible(sh.dp_axes, b, shd.mesh_sizes(mesh))
     dpn = shd.axes_size(mesh, dpc)
     cap = capacity(cfg, (b if local else b // dpn) * s)
     weights = {"router": moe.router, **moe.weights()}

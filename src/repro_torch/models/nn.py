@@ -92,8 +92,8 @@ _MESH: contextvars.ContextVar[Optional[Any]] = \
     contextvars.ContextVar("mesh", default=None)
 _MANUAL: contextvars.ContextVar[bool] = \
     contextvars.ContextVar("shard_map_manual", default=False)
-_LOCAL: contextvars.ContextVar[bool] = \
-    contextvars.ContextVar("batch_local", default=False)
+_LOCAL: contextvars.ContextVar[Optional[tuple]] = \
+    contextvars.ContextVar("batch_local", default=None)
 
 
 @contextlib.contextmanager
@@ -145,19 +145,20 @@ def manual_axes():
 
 
 @contextlib.contextmanager
-def local_batch():
+def local_batch(axes: Sequence[str]):
     """Mark a region whose activations are this rank's rows of the batch,
-    the block its coordinates on the ``"batch"`` rule's mesh axes own (the
-    sharded train step): the sharded MoE takes its input as that block and
-    returns its own."""
-    token = _LOCAL.set(True)
+    the block its coordinates on mesh ``axes`` own (the sharded train
+    step: the ``"batch"`` rule's axes that split a microbatch's rows): the
+    sharded MoE takes its input as that block and returns its own."""
+    token = _LOCAL.set(tuple(axes))
     try:
         yield
     finally:
         _LOCAL.reset(token)
 
 
-def batch_is_local() -> bool:
+def local_batch_axes() -> Optional[tuple]:
+    """The mesh axes of :func:`local_batch` in force (None outside)."""
     return _LOCAL.get()
 
 

@@ -70,6 +70,13 @@ def plan_weight(w: torch.Tensor, mask: Optional[torch.Tensor] = None,
         elem_block_n=block_n or 0)
 
 
+def as_planned(w, slice_k: int = pln.SLICE_K) -> PlannedWeight:
+    """A :class:`PlannedWeight` of ``w``; a PlannedWeight passes through."""
+    if isinstance(w, PlannedWeight):
+        return w
+    return plan_weight(torch.as_tensor(w), slice_k=slice_k)
+
+
 def plan_layer_weights(params, keys=("w_up", "w_down", "w_gate"),
                        slice_k: int = pln.SLICE_K,
                        block_n: Optional[int] = None) -> dict:

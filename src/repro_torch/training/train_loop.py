@@ -28,7 +28,8 @@ spec, and gathers it whole (``sharding.gather_slices``): the gather moves
 bf16.  A MoE layer's weights are the exception: they are resharded to
 the sharded MoE's own specs and it runs its own collectives.  Each
 microbatch (rows ``[i·B/k, (i+1)·B/k)`` of the global batch) gives every
-rank its block of rows over the batch axes (``sharding.batch_axes``);
+rank its block of rows over the batch axes (``sharding.batch_axes``, the
+largest run of them whose size divides the microbatch's rows);
 the ranks along the other axes compute the same rows.  Gradients
 accumulate whole in ``rc.accum_dtype`` over the microbatches and are
 reduced once a step: the whole copies' summed over the batch axes (the
@@ -150,15 +151,17 @@ def make_sharded_grad_fn(cfg: ModelConfig, rc: RunConfig,
     def grad_fn(model: tfm.Transformer, batch: Tensors
                 ) -> Tuple[Tensors, torch.Tensor]:
         rules = tnn.current_rules()
-        axes = shd.batch_axes(rules, mesh)
-        dp = shd.axes_size(mesh, axes)
-        g_dp = comm.axis_group(mesh, axes) if dp > 1 else None
         k = rc.microbatches
         micro = split_micro(batch, k)
         rows = next(iter(micro.values())).shape[1]
-        if rows % dp:
-            raise ValueError(f"a microbatch of {rows} rows does not split "
-                             f"over {dp} ranks of {axes}")
+        # the batch axes that split a microbatch's rows: the largest run of
+        # them whose size divides the rows (16 rows on ("pod", "data") =
+        # 2×16 split over "data"; the ranks along "pod" repeat them), as
+        # the JAX package's shape-aware specs fall back
+        axes = shd._best_divisible(shd.batch_axes(rules, mesh), rows,
+                                   shd.mesh_sizes(mesh))
+        dp = shd.axes_size(mesh, axes)
+        g_dp = comm.axis_group(mesh, axes) if dp > 1 else None
         lo, hi = shd.block_range(rows, shd._entry(axes), mesh)
         masters = dict(model.named_parameters())
         names = list(masters)
@@ -175,16 +178,19 @@ def make_sharded_grad_fn(cfg: ModelConfig, rc: RunConfig,
         acc: Tensors = {}
         dev = next(iter(masters.values())).device
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        with tnn.local_batch():
+        with tnn.local_batch(axes):
             for i in range(k):
                 mb = {key: x[i, lo:hi] for key, x in micro.items()}
-                # this rank's share of the microbatch's tokens, times dp
-                tokens = float((micro["labels"][i] >= 0).sum())
-                share = float((mb["labels"] >= 0).sum()) / max(tokens, 1.0)
+                # this rank's share of the microbatch's tokens, times dp:
+                # device tensors, so that the step reads no value back
+                tokens = (micro["labels"][i] >= 0).sum(dtype=torch.float64)
+                share = ((mb["labels"] >= 0).sum(dtype=torch.float64)
+                         / tokens.clamp(min=1.0))
                 total, metrics = tfm.loss_of(functional_call(
                     model, leaves, (mb, cfg), {"rc": rc}), mb["labels"])
-                w = share * dp
-                obj = total if w == 1 else total + (w - 1) * metrics["loss"]
+                w = (share * dp).to(torch.float32)
+                share = share.to(torch.float32)
+                obj = total + (w - 1) * metrics["loss"]
                 g = list(torch.autograd.grad(
                     obj, [leaves[n] for n in names], allow_unused=True))
                 loss_sum = loss_sum + metrics["loss"].detach() * share
